@@ -6,24 +6,38 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from cuda_pt_torch/csrc (one nvcc, sm_90a) and
-     print the seconds;
+     print the seconds and ptxas' register counts;
   2. print the card's name and power limit (nvidia-smi);
   3. closest_hit_w8 against closest_hit_brute on 65536 random rays in the
-     cornell box: prim ids equal except on exact ties;
-  4. the megakernel against its plain PyTorch version on cornell_box, its
-     mirror / glass variants and cornell_box_lights (three emitters), 256x256,
-     4 spp, default depth caps: per-lane allclose(rtol=1e-4, atol=1e-5) on
-     >= 98% of lanes, and the image means within 5e-3;
-  5. the main path: api.Renderer on cornell_box at 1024x1024, 64 spp,
+     cornell box, and against the skip walk (accel/traverse.py) on 16384
+     random rays in full-size kitchen_stress (98,790 triangles): prim ids
+     equal except on exact ties;
+  4. the megakernel against its plain PyTorch version (the fused kernel's
+     estimator), 256x256, 4 spp, default depth caps, per-lane
+     allclose(rtol=1e-4, atol=1e-5) on >= 98% of lanes and the image means
+     within 5e-3, on cornell_box and its mirror / glass / GGX conductor /
+     plastic / rough-dielectric tall boxes, cornell_box_lights (three
+     emitters), the Oren-Nayar + Forward scene, the area-spot scene, the
+     envmap furnace (its mean also within 0.05 of 1.0), the textured floor
+     and kitchen_stress(grid=2, ns=6, nt=4) with all three K3 flags;
+  5. the main path on cornell_box: api.Renderer at 1024x1024, 64 spp,
      default depth caps, pcg, nee_candidates=1; the kernel's launch count
      must rise and the image must be finite; then one spp of the main
      path's rays through the kernel and its plain version, held to the
      phase-4 contract; prints the kernel time per spp (CUDA events),
-     paths/s, the plain version's time on the same rays and the bound.
+     paths/s, the plain version's time on the same rays and the bound;
+  6. the main path on full-size kitchen_stress (envmap, textures,
+     dispersion): api.Renderer at 1024x1024, 16 spp, the same settings;
+     launch count and finite image as in phase 5; one spp of its rays
+     through the kernel at the full grid, one 65,536-lane Z-order block of
+     that output held to the phase-4 contract against the plain version
+     (skip walk) on the same lanes; prints the BVH build seconds,
+     wall and kernel ms per spp, paths/s, the bound (count_stats, with the
+     texel and uv bytes) and the kernel's share of it.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
-for quick checks; ``--profile`` adds a torch.profiler breakdown of a few
-main-path passes.
+for quick checks, ``--kitchen-spp`` phase 6; ``--profile`` adds a
+torch.profiler breakdown of a few main-path passes of each scene.
 """
 
 from __future__ import annotations
@@ -52,8 +66,12 @@ RTOL, ATOL, MAX_LANE_FRAC = 1e-4, 1e-5, 0.02
 MEAN_TOL = 5e-3
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """Print msg after the seconds since the script started."""
+    print(f"{time.perf_counter() - T0:7.1f}s {msg}", flush=True)
 
 
 def events_ms(fn, reps: int) -> float:
@@ -100,7 +118,7 @@ def phase_build(cb):
 def phase_card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    log(out)
+    print(out, flush=True)  # as nvidia-smi gives it, on a line of its own
     return out
 
 
@@ -132,6 +150,44 @@ def phase_walk(mk, tts, dev):
     return {"rays": B, "differ": int(differ.sum()), "exact_ties": int(ties.sum())}
 
 
+def phase_walk_kitchen(mk, tts, dev):
+    """The w8 walk against the skip walk on full-size kitchen_stress; returns
+    (the result row, the scene, its camera, the build seconds)."""
+    from cuda_pt_torch.accel import traverse
+    from cuda_pt_torch.ops import cuda_build as cb
+    from cuda_pt_torch.ops import intersect as isect
+
+    t0 = time.perf_counter()
+    scene, cam, _ = tts.kitchen_stress(1024, 1024, device=dev)
+    build_s = time.perf_counter() - t0
+    pack = mk.make_pack(scene)
+    rs = np.random.default_rng(11)
+    B = 16384
+    lo = scene.bvh.node_min[0].cpu().numpy()
+    hi = scene.bvh.node_max[0].cpu().numpy()
+    o_t = torch.as_tensor(rs.uniform(lo, hi, (B, 3)).astype(np.float32), device=dev)
+    d = rs.normal(size=(B, 3)).astype(np.float32)
+    d_t = torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True), device=dev)
+    _, prim_k, _, _ = mk.closest_hit_w8(pack, o_t, d_t)
+    h = traverse.closest_hit_bvh(scene.geom, scene.bvh, o_t, d_t)
+    differ = prim_k != h["prim"]
+    # an exact tie: the walk's own prim is hit at the plain walk's t
+    idx = torch.nonzero(differ & (prim_k >= 0))[:, 0]
+    t_of_k, hit_k, _, _ = isect.intersect_gather(
+        scene.geom, o_t[idx], d_t[idx], prim_k[idx][:, None],
+        torch.ones((idx.numel(), 1), dtype=torch.bool, device=dev))
+    ties = int((hit_k[:, 0] & (t_of_k[:, 0] == h["t"][idx])).sum())
+    bad = int(differ.sum()) - ties
+    log(f"[3] kitchen_stress ({scene.geom.num_prims} triangles, BVH built in {build_s:.1f} s; "
+        f"{pack['nodes'].shape[0]} wide nodes, walk stack {pack.max_stack} of "
+        f"{cb.MK_MAX_STACK}, max leaf {pack.max_leaf}): "
+        f"closest_hit_w8 vs closest_hit_bvh, {B} rays: {int(differ.sum())} prim ids differ, "
+        f"{ties} on exact ties, {bad} otherwise; hits {int((prim_k >= 0).sum())}")
+    if bad:
+        raise SystemExit(f"kitchen walk check failed: {bad} prim ids differ off exact ties")
+    return {"rays": B, "differ": int(differ.sum()), "exact_ties": ties}, scene, cam, build_s
+
+
 def phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T):
     from cuda_pt_torch.core import camera as cam_mod
     from cuda_pt_torch.core import qmc
@@ -144,6 +200,20 @@ def phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T):
         "glass": lambda: tts.cornell_box(256, 256, device=dev, tall_box_bsdf=BSDFSpec(
             btype=T.BSDF_TRANSLUCENT, k_s=(0.98, 0.98, 0.98), ior=1.5)),
         "lights": lambda: tts.cornell_box_lights(256, 256, device=dev),
+        "ggx_conductor": lambda: tts.cornell_box(256, 256, device=dev, tall_box_bsdf=BSDFSpec(
+            btype=T.BSDF_GGX_CONDUCTOR, eta=(0.143, 0.375, 1.444), k=(3.983, 2.386, 1.603),
+            roughness_x=0.2, roughness_y=0.2)),
+        "plastic": lambda: tts.cornell_box(256, 256, device=dev, tall_box_bsdf=BSDFSpec(
+            btype=T.BSDF_PLASTIC, k_d=(0.1, 0.3, 0.65), k_s=(1.0, 1.0, 1.0), ior=1.5,
+            thickness=0.2)),
+        "rough_dielectric": lambda: tts.cornell_box(256, 256, device=dev, tall_box_bsdf=BSDFSpec(
+            btype=T.BSDF_GGX_DIELECTRIC, k_s=(0.95, 0.95, 0.95), ior=1.5, roughness_x=0.25,
+            roughness_y=0.25)),
+        "oren_nayar_forward": lambda: tts.oren_nayar_forward(256, 256, device=dev),
+        "area_spot": lambda: tts.spot_light(256, 256, device=dev),
+        "furnace": lambda: tts.furnace(256, 256, device=dev),
+        "textured_floor": lambda: tts.textured_floor(256, 256, device=dev),
+        "kitchen_small": lambda: tts.kitchen_stress(256, 256, grid=2, ns=6, nt=4, device=dev),
     }
     res = {}
     for name, make in variants.items():
@@ -162,11 +232,17 @@ def phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T):
             means_p.append(float(L_p.mean()))
         row = {"lanes_differ": worst, "mean_plain": float(np.mean(means_p)),
                "mean_kernel": float(np.mean(means_k))}
+        row.update(pack.flags)
         res[name] = row
         log(f"[4] {name} 256x256x4spp: lanes differing (worst pass) {worst:.5f}; means plain "
-            f"{row['mean_plain']:.6f} kernel {row['mean_kernel']:.6f}")
+            f"{row['mean_plain']:.6f} kernel {row['mean_kernel']:.6f}; {pack.flags}")
         if abs(row["mean_kernel"] - row["mean_plain"]) > MEAN_TOL:
             raise SystemExit(f"{name}: 4-spp image means differ by more than {MEAN_TOL}")
+    if abs(res["furnace"]["mean_kernel"] - 1.0) > 0.05:
+        raise SystemExit("furnace: the kernel's mean is not within 0.05 of 1.0")
+    k = res["kitchen_small"]
+    if not (k["has_env"] and k["textured"] and k["has_disp"]):
+        raise SystemExit("kitchen_small did not set all three K3 flags")
     return res
 
 
@@ -213,13 +289,7 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
     L_k, stats = mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
     torch.cuda.synchronize()
     frac, dmean = check_contract(f"main path {size}x{size} rays", L_k, L_p)
-    nodes = int(stats[:, 0].sum(dtype=torch.int64))
-    prims = int(stats[:, 1].sum(dtype=torch.int64))
-    ops = nodes * 8 * OPS_SLAB + prims * OPS_TRI
-    pack_bytes = sum(t.numel() * t.element_size() for t in pack.arrays.values())
-    nbytes = B * (6 * 4 + 2 * 4 + 3 * 4) + pack_bytes
-    bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_S) * 1e3
-    bound_by = "bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_F32_S else "operations"
+    bound_ms, bound_by, nodes, prims, nbytes = bound_of(stats, B, mk.pack_bytes(pack))
     log(f"[5] kernel {k_ms:.3f} ms/spp, {B / (k_ms * 1e-3):.4g} paths/s; plain version "
         f"{plain_ms:.1f} ms on the same rays ({frac:.7f} lanes differ, means differ by "
         f"{dmean:.3g}); bound {bound_ms:.4f} ms ({bound_by}: {nodes} wide nodes, "
@@ -232,6 +302,96 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
         "library_ms": None, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
         "mean_differ": dmean,
         "wide_nodes": nodes, "prim_tests": prims, "wall_ms_per_spp": wall * 1e3 / spp,
+    }, r
+
+
+def bound_of(stats, B: int, pack_bytes: int) -> tuple:
+    """(bound ms, what bounds it, wide nodes, prim tests, bytes): rays, pcg
+    states and L once plus the pack, against this run's walk work."""
+    nodes = int(stats[:, 0].sum(dtype=torch.int64))
+    prims = int(stats[:, 1].sum(dtype=torch.int64))
+    ops = nodes * 8 * OPS_SLAB + prims * OPS_TRI
+    nbytes = B * (6 * 4 + 2 * 4 + 3 * 4) + pack_bytes
+    bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_S) * 1e3
+    bound_by = "bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_F32_S else "operations"
+    return bound_ms, bound_by, nodes, prims, nbytes
+
+
+def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingConfig,
+                  ParsedScene, Renderer):
+    """The slice's main path: the Renderer on full-size kitchen_stress."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+
+    spp = args.kitchen_spp
+    md = MaxDepthParams()
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height, md=md,
+                                                     seed=0))
+    r = Renderer(parsed, nee_candidates=1)  # device=None -> cuda
+    info = r.info()
+    if not (info["has_env"] and info["textured"] and info["has_disp"]):
+        raise SystemExit(f"kitchen_stress did not set the K3 flags: {info}")
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(spp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    if launches["trace_megakernel"] <= 0:
+        raise SystemExit("kitchen main path did not launch the megakernel")
+    if img.shape != (cam.height, cam.width, 3) or not np.isfinite(img).all():
+        raise SystemExit("kitchen main path image is not finite / has the wrong shape")
+    log(f"[6] Renderer kitchen_stress {cam.width}x{cam.height}x{spp}spp: {wall:.2f} s wall "
+        f"({wall * 1e3 / spp:.2f} ms per spp), launches {launches}, image mean "
+        f"{float(img.mean()):.6f}, flags {r._pack.flags}")
+
+    # the main path's rays of sample 0 through the kernel at the full grid;
+    # one 65,536-lane Z-order block of its output (the one holding the image
+    # centre) against the plain version on the same lanes (lanes are
+    # independent)
+    pack = r._pack
+    B = cam.width * cam.height
+    perm, inv = mk.tile_swizzle(cam.width, cam.height, r.device)
+    rng = qmc.make_state("pcg", 0, perm, 0)
+    o, d, rng = cam_mod.generate_rays(r.camera, perm, rng)
+    blk = 65536
+    k0 = int(inv[(cam.height // 2) * cam.width + cam.width // 2]) // blk * blk
+    ob, db, rb = (x[k0:k0 + blk].contiguous() for x in (o, d, rng))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L_p = mk.trace_megakernel_reference(r.scene, md, ob, db, rb)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    L_k = mk.trace_megakernel(pack, md, o, d, rng)
+    torch.cuda.synchronize()
+    if not torch.isfinite(L_k).all():
+        raise SystemExit("kitchen main path rays: non-finite kernel output")
+    L_kb = L_k[k0:k0 + blk]
+    frac, dmean = check_contract(f"kitchen main path {B} rays, block of {blk}", L_kb, L_p)
+    block_ms = events_ms(lambda: mk.trace_megakernel(pack, md, ob, db, mk.rng_bits(rb)), 5)
+
+    rng_bits = mk.rng_bits(rng)
+    k_ms = events_ms(lambda: mk.trace_megakernel(pack, md, o, d, rng_bits), 5)
+    _, stats = mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
+    torch.cuda.synchronize()
+    bound_ms, bound_by, nodes, prims, nbytes = bound_of(stats, B, mk.pack_bytes(pack))
+    log(f"[6] kernel {k_ms:.3f} ms/spp, {B / (k_ms * 1e-3):.4g} paths/s; block of {blk} lanes "
+        f"of the {B}-ray launch vs the plain version ({plain_ms:.1f} ms on the block): "
+        f"{frac:.7f} lanes differ, means differ by {dmean:.3g}; the kernel launched on the "
+        f"block alone {block_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nodes} wide nodes, "
+        f"{prims} prim tests, {nbytes} bytes incl. {mk.pack_bytes(pack, mk.K3_KEYS)} of uvs, "
+        f"texels and K3 tables); {bound_ms / k_ms:.4f} of bound")
+    return {
+        "name": "trace_megakernel (K3: has_env, textured, has_disp)", "route": "cuda",
+        "source": "cuda_pt_torch/csrc/megakernel.cu",
+        "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:1445",
+        "launches": launches["trace_megakernel"], "max_abs_err": float((L_kb - L_p).abs().max()),
+        "ms": k_ms, "plain_ms": plain_ms, "plain_lanes": blk, "block_kernel_ms": block_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac, "mean_differ": dmean,
+        "wide_nodes": nodes, "prim_tests": prims, "wall_ms_per_spp": wall * 1e3 / spp,
+        "bvh_build_s": build_s, "num_prims": scene.geom.num_prims,
     }, r
 
 
@@ -272,6 +432,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=1024, help="phase-5 image side")
     ap.add_argument("--spp", type=int, default=64, help="phase-5 samples per pixel")
+    ap.add_argument("--kitchen-spp", type=int, default=16, help="phase-6 samples per pixel")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few main-path passes (torch.profiler)")
     args = ap.parse_args()
@@ -292,15 +453,20 @@ def main():
     phase_build(cb)
     card = phase_card()
     walk = phase_walk(mk, tts, dev)
+    walk_k, kscene, kcam, build_s = phase_walk_kitchen(mk, tts, dev)
     res4 = phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T)
     k2, r = phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene, Renderer,
                        res4["cornell"]["mean_plain"])
-    extra = {"profile": phase_profile(r)} if args.profile else {}
-    log(json.dumps({"kernels": [k2], "card": card, "walk_check": walk, "kernel_check": res4,
-                    **extra}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                           "kind": torch.cuda.get_device_name(0),
-                                           "count": torch.cuda.device_count()}}))
+    k3, rk = phase_kitchen(mk, dev, args, kscene, kcam, build_s, MaxDepthParams, RenderingConfig,
+                           ParsedScene, Renderer)
+    extra = {"profile": phase_profile(r), "profile_kitchen": phase_profile(rk)} \
+        if args.profile else {}
+    # the two result lines carry no time prefix: each is one JSON object
+    print(json.dumps({"kernels": [k2, k3], "card": card, "walk_check": walk,
+                      "walk_check_kitchen": walk_k, "kernel_check": res4, **extra}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -5,7 +5,11 @@ on the render device between passes, and every pass runs the path loop
 through the whole-path megakernel (ops/megakernel.py): the CUDA kernel on
 a CUDA device, its plain PyTorch version on the CPU. ``device=None`` means
 CUDA and raises where CUDA is absent; pass ``device="cpu"`` to render on
-the CPU.
+the CPU. Every scene inside the fused kernel's surface envelope renders
+(all surface BSDF families but Plastic-forward, area / area-spot / point
+emitters, envmaps, diffuse textures, dispersion; megakernel_ok), at every
+scene size: the reference sends scenes of 512 boxes or more to its
+sorted-wavefront kernel (K5), which the port does not have yet.
 
 Still to port (ROADMAP Queue 1): other renderer families, render_adaptive,
 render_aovs, denoise, film checkpoints, the XML parser, the Sobol sampler
@@ -39,6 +43,19 @@ _WAITING = {
 }
 
 
+def _envelope_message(scene: T.Scene) -> str:
+    """Why a scene is outside the kernel's envelope, with the ROADMAP item
+    that would bring it in."""
+    if T.BSDF_PLASTIC_FORWARD in scene.present_bsdfs:
+        item = ("Plastic-forward stays outside the fused kernel, as in the reference; the "
+                "Renderer's composed-path route for it waits for ROADMAP Queue 1 item 5")
+    elif int(scene.objects.medium_in.max()) >= 0 or scene.cam_medium >= 0:
+        item = "media wait for kernel K4 (ROADMAP Queue 2) and Queue 1 item 8"
+    else:
+        item = "see megakernel_ok for the limits; ROADMAP Queue 2 lists what is to port"
+    return f"scene outside the fused-megakernel envelope: {item}"
+
+
 class Renderer:
     """Stateful renderer over a compiled scene."""
 
@@ -60,8 +77,7 @@ class Renderer:
                 f"renderer {self.rtype.value!r} waits for ROADMAP Queue 1 {_WAITING[self.rtype]}")
         self.md: MaxDepthParams = self.config.md
         if not mk.megakernel_ok(self.parsed.scene, self.md):
-            raise ValueError("scene outside the fused-megakernel envelope "
-                             "(see cuda_pt_torch/ops/megakernel.megakernel_ok)")
+            raise ValueError(_envelope_message(self.parsed.scene))
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device=None) renders on CUDA, which is not available; "
@@ -144,6 +160,7 @@ class Renderer:
             "device": str(self.device),
             "sampler": "pcg",
             "nee_candidates": self.nee_candidates,
+            **self._pack.flags,
         }
 
     def update_camera(self, camera: cam_mod.Camera):

@@ -11,6 +11,17 @@
 //                            megakernel.MAX_EMITTERS (slot 0 = null)
 //   MK_MAX_STACK             cuda_build.MK_MAX_STACK, the per-thread
 //                            traversal stack (make_pack checks the scene fits)
+//   MK_MIN_BLOCKS            cuda_build.MK_MIN_BLOCKS: resident 128-thread
+//                            blocks per SM the trace kernel is built for
+//                            (caps its registers)
+//   SPEC_WL_MIN, SPEC_WL_MAX bsdf/spectral.WL_MIN, WL_MAX (nm)
+//   SPEC_LOBE<l><k>          bsdf/spectral.XYZ_LOBES, lobe l in order, field
+//                            k of (alpha, mu, sigma below, sigma above): the
+//                            CIE matching-function fit
+//   SPEC_M<r><c>, SPEC_NORM_<c>
+//                            bsdf/spectral.XYZ_TO_SRGB and NORM: the
+//                            dispersion tint's colour matrix and mean-one
+//                            normalization
 #pragma once
 
 #include <cstdint>
@@ -18,11 +29,15 @@
 #include <math.h>
 
 #if !defined(HIT_EPS) || !defined(RAY_OFFSET) || !defined(SHADOW_T_FACTOR) || \
-    !defined(SLOT_F) || !defined(MAX_EMITTERS) || !defined(MK_MAX_STACK)
+    !defined(SLOT_F) || !defined(MAX_EMITTERS) || !defined(MK_MAX_STACK) || \
+    !defined(MK_MIN_BLOCKS) || \
+    !defined(SPEC_WL_MIN) || !defined(SPEC_M00) || !defined(SPEC_NORM_R) || \
+    !defined(SPEC_LOBE63)
 #error "build with cuda_pt_torch/ops/cuda_build.py, which passes the shared constants"
 #endif
 
 #define INV_PI 0.3183098861837907f
+#define PI_F 3.141592653589793f
 #define TWO_PI 6.283185307179586f
 #define W8_ROW 128         // f32 per wide-node row (8 children x 9 fields)
 
@@ -30,6 +45,12 @@
 #define BSDF_LAMBERTIAN 0
 #define BSDF_SPECULAR 1
 #define BSDF_TRANSLUCENT 2
+#define BSDF_PLASTIC 3
+#define BSDF_GGX_CONDUCTOR 5
+#define BSDF_DISPERSION 6
+#define BSDF_FORWARD 7
+#define BSDF_GGX_DIELECTRIC 8
+#define BSDF_OREN_NAYAR 9
 #define EMITTER_NULL 0
 #define EMITTER_POINT 1
 #define EMITTER_AREA 2
@@ -48,7 +69,14 @@
 //   erow  : emitter i at erow[i*16 + f],
 //           f = etype em(3) pos(3) sel_pmf sel_cdf kmax falloff
 //   eprims: slot s at eprims[s*16 + f], f = p0(3) e1(3) e2(3) cdf eid k inv_area
-//   brows : bsdf b slot A at brows[(2b)*16 + f], f = btype kd(3) ks(3) kg(3) ior ax ay
+//   brows : bsdf b slot A at brows[(2b)*16 + f], f = btype kd(3) ks(3) kg(3) ior ax ay;
+//           slot B at brows[(2b+1)*16 + f], f = eta(3) k(3) thickness cauchy_a cauchy_b
+// Kernel K3's inputs (read only when the matching flag is set):
+//   uvs   : prim p at uvs[p*8 + f], f = uv0(2) uv1(2) uv2(2)     (textured)
+//   texels: texel i at texels[i*4 + c], RGBA; the texture atlas (textured, has_env)
+//   tinfo : texture k at tinfo[k*4 + f], f = offset width height (int32)
+//   tdiff : diffuse texture id of bsdf b, -1 = none (int32)      (textured)
+//   envrow: tex_id scale azimuth zenith base(3) of the envmap    (has_env)
 struct Pack {
     const float* nodes;
     const float* prims;
@@ -56,8 +84,16 @@ struct Pack {
     const float* erow;
     const float* eprims;
     const float* brows;
+    const float* uvs;
+    const float* texels;
+    const int* tinfo;
+    const int* tdiff;
+    const float* envrow;
     int max_leaf;
     int tri_only;
+    int has_env;
+    int textured;
+    int has_disp;
 };
 
 struct V3 {
@@ -88,6 +124,9 @@ __device__ __forceinline__ float signf(float x) {
     return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 __device__ __forceinline__ V3 load3(const float* p) { return v3(p[0], p[1], p[2]); }
+__device__ __forceinline__ float max3(V3 a) { return fmaxf(fmaxf(a.x, a.y), a.z); }
+// rsqrt(|v|^2 + 1e-20) normalization of the TPU kernel
+__device__ __forceinline__ V3 normalize_k(V3 v) { return scale(v, rsqrtf(dot(v, v) + 1e-20f)); }
 
 // core/sampling.power_heuristic, ratio form
 __device__ __forceinline__ float power_heuristic(float pdf_a, float pdf_b) {

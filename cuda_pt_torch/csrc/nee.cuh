@@ -1,7 +1,10 @@
-// Next-event estimation for area and point emitters (emitters/emitters.py
-// sample_emitter; the TPU kernel's nee_one, megakernel.py:1697). One
-// candidate consumes three pcg advances (u_sel, u_prim, u_pos) in the
-// order of pt_bounce, whether or not the candidate is used.
+// Next-event estimation for area, area-spot and point emitters
+// (emitters/emitters.py sample_emitter; the TPU kernel's nee_one,
+// megakernel.py:1697). One candidate consumes three pcg advances (u_sel,
+// u_prim, u_pos) in the order of pt_bounce, whether or not the candidate
+// is used. The envmap is never NEE-sampled here: make_pack turns its slot
+// into a null emitter and renormalizes the pick over the geometric ones
+// (the TPU kernel's rule), so a miss carries MIS weight 1.
 #pragma once
 
 #include "bsdf.cuh"
@@ -19,8 +22,9 @@ struct NeeCand {
     float phat; // luminance(f * le), the RIS target
 };
 
-__device__ __forceinline__ NeeCand nee_one(const Pack& pk, const Material& m, V3 p, V3 nl,
-                                           uint32_t& sx, uint32_t& sy) {
+template <bool ALL>
+__device__ __forceinline__ NeeCand nee_one(const Pack& pk, const Material& m, const Shading& sh,
+                                           V3 p, uint32_t& sx, uint32_t& sy) {
     pcg2d(sx, sy);
     float u_sel = u01(sx);
     pcg2d(sx, sy);
@@ -92,12 +96,14 @@ __device__ __forceinline__ NeeCand nee_one(const Pack& pk, const Material& m, V3
         c.dist = dist;
         float cos_l = -dot(c.dir, nlight);
         c.pdf = sel_pdf * inv_area * (dist * dist) / fmaxf(cos_l, 1e-6f);
-        c.le = em;
-        c.valid = (cos_l > 1e-6f) && (etype == EMITTER_AREA);
+        // area-spot cone gate: no radiance outside cos >= falloff (-1 for
+        // plain area lights); the pdf is unchanged
+        c.le = cos_l >= er[10] ? em : v3(0.0f, 0.0f, 0.0f);
+        c.valid = (cos_l > 1e-6f) && (etype == EMITTER_AREA || etype == EMITTER_AREA_SPOT);
         c.delta = false;
     }
     c.valid = c.valid && (fmaxf(fmaxf(c.le.x, c.le.y), c.le.z) > 0.0f) && (c.pdf > 1e-12f);
-    c.f = eval_bsdf(m, nl, c.dir, c.bpdf);
+    c.f = eval_bsdf<ALL>(m, sh, c.dir, c.bpdf);
     c.phat = 0.212671f * (c.f.x * c.le.x) + 0.715160f * (c.f.y * c.le.y)
            + 0.072169f * (c.f.z * c.le.z);
     return c;

@@ -1,17 +1,33 @@
 """Unidirectional path tracer with NEE + MIS (port of
 cuda_pt_tpu/models/path_tracer.py, forward mode).
 
-Per bounce: closest hit -> emitter-hit MIS -> NEE with a shadow ray and
+Per bounce: closest hit -> envmap miss accumulation (MIS against the
+cached envmap NEE pdf) -> emitter-hit MIS -> NEE with a shadow ray and
 light MIS (RIS over ``nee_candidates`` when > 1) -> BSDF sampling ->
 per-lobe depth caps -> NaN guard -> Russian roulette after bounce 1
 (survival clip(max_thp, 0.1, 1)). The pcg draw order of ``pt_bounce`` is
-kept exactly: per bounce, 3 NEE advances per candidate (+1 reservoir draw
-per candidate when RIS is on), 3 BSDF advances, 1 RR advance.
+kept exactly: per bounce, 3 NEE advances per candidate (+1 with envmap
+importance tables, +1 reservoir draw per candidate when RIS is on), 3
+BSDF advances, 1 RR advance. The renderers pass the dispersion wavelength
+stratum ``wl_stratum_u``.
 
-Intersection is brute force over every prim, so the result does not
-depend on the BVH. This module is the plain PyTorch version of the CUDA
-megakernel (ops/megakernel.py). The differentiable mode, ToF gating,
-dispersion strata and envmap accumulation wait for ROADMAP Queue 1 item 4.
+Intersection is brute force up to ``BRUTE_FORCE_MAX_PRIMS`` prims and the
+skip walk of accel/traverse.py above, as in the reference.
+
+``fused=True`` computes the estimator of the fused TPU kernel instead,
+which has the same expectation and differs per lane in two places (the
+caller also hands it the kernel's emitter table, in which the envmap is
+never NEE-sampled; ops/megakernel.kernel_scene):
+- envmap: a miss adds thp * Le with MIS weight 1;
+- diffuse textures: the BSDF traces with the base kd, so Russian roulette
+  sees the untextured throughput; the texel factors ride in a separate
+  running product that multiplies each contribution as it is added.
+The dispersion wavelength then comes from the in-stream draw (no
+stratum), as in the kernel. This is the plain version of the CUDA
+megakernel (ops/megakernel.trace_megakernel_reference).
+
+Still narrowed: the differentiable mode and ToF gating (ROADMAP Queue 1
+item 4), participating media (item 8).
 """
 
 from __future__ import annotations
@@ -20,6 +36,7 @@ import dataclasses
 
 import torch
 
+from ..accel import traverse
 from ..bsdf import eval as bsdf_eval
 from ..core import camera as cam_mod
 from ..core import math as vm
@@ -29,7 +46,14 @@ from ..core import sampling
 from ..core.config import MaxDepthParams
 from ..emitters import emitters
 from ..ops import intersect as isect
+from ..scene import textures as tex
 from ..scene import types as T
+
+# At or below this prim count intersection is brute force (the reference's
+# rule; the result does not depend on the choice beyond exact-t ties).
+BRUTE_FORCE_MAX_PRIMS = 64
+# Golden-ratio conjugate in u32 fixed point: round((sqrt(5) - 1) / 2 * 2^32).
+_WL_PHI_U32 = 0x9E3779B9
 
 
 @dataclasses.dataclass
@@ -42,27 +66,91 @@ class PTState:
     active: torch.Tensor
     prev_pdf: torch.Tensor
     prev_delta: torch.Tensor
+    env_pdf: torch.Tensor
     n_diff: torch.Tensor
     n_spec: torch.Tensor
     n_trans: torch.Tensor
+    wl: torch.Tensor  # locked dispersion wavelength (0 = unset)
     bounce: int
+    wl_u: torch.Tensor | None = None  # per-lane wavelength stratum (None = drawn)
+    tex: torch.Tensor | None = None  # fused: running product of diffuse texels
+
+
+def wl_stratum_u(seed, s_idx, lane: torch.Tensor) -> torch.Tensor:
+    """Per-lane low-discrepancy uniform for the dispersion wavelength:
+    frac(u0 + s * phi) with a per-pixel offset u0 hashed off its own stream
+    (so it shifts no other draw), in u32 fixed point."""
+    st = prng.seed((int(seed) & prng.MASK32) ^ 0xA511E9B3, prng.as_u32(lane))
+    u0 = prng.next2d(st)[1][..., 0]
+    s = prng.as_u32(int(s_idx), lane.device)
+    return prng.u01((u0 + prng.mul32(s.expand_as(u0), _WL_PHI_U32)) & prng.MASK32)
 
 
 def check_supported(scene: T.Scene, md: MaxDepthParams):
     """Raise for scene features this slice does not port."""
-    bsdf_eval.check_supported(scene)
-    emitters.check_supported(scene)
     if md.max_time > 0.0:
         raise NotImplementedError("ToF gating waits for ROADMAP Queue 1 item 4")
     if int(scene.objects.medium_in.max()) >= 0 or scene.cam_medium >= 0:
         raise NotImplementedError("participating media wait for ROADMAP Queue 1 item 8")
 
 
+def _on_lanes(fn, mask: torch.Tensor, fill: dict, *args):
+    """fn(*args[mask]) scattered into full-batch outputs initialised from fill."""
+    B = mask.shape[0]
+    idx = torch.nonzero(mask)[:, 0]
+    res = fn(*[a[idx] for a in args])
+    if not isinstance(res, dict):
+        out = torch.full((B,), fill, dtype=res.dtype, device=res.device)
+        out[idx] = res
+        return out
+    out = {}
+    for k, v in res.items():
+        full = torch.full((B,) + v.shape[1:], fill[k], dtype=v.dtype, device=v.device)
+        full[idx] = v
+        out[k] = full
+    return out
+
+
+_MISS = {"t": float("inf"), "prim": -1, "hit": False, "b1": 0.0, "b2": 0.0}
+
+
+def _use_bvh(scene: T.Scene) -> bool:
+    return scene.geom.num_prims > BRUTE_FORCE_MAX_PRIMS
+
+
+def closest_hit(scene: T.Scene, o, d, live: torch.Tensor):
+    """Closest hit for the lanes where ``live`` (misses elsewhere)."""
+    if not _use_bvh(scene):
+        return isect.closest_hit_brute(scene.geom, o, d)
+    return _on_lanes(lambda o_, d_: traverse.closest_hit_bvh(scene.geom, scene.bvh, o_, d_),
+                     live, _MISS, o, d)
+
+
+def occluded(scene: T.Scene, o, d, t_far, need: torch.Tensor):
+    """Any-hit shadow test for the lanes where ``need`` (False elsewhere)."""
+    if not _use_bvh(scene):
+        return isect.occlusion_brute(scene.geom, o, d, t_far)
+    return _on_lanes(
+        lambda o_, d_, t_: traverse.occlusion_bvh(scene.geom, scene.bvh, o_, d_, t_),
+        need, False, o, d, t_far)
+
+
 def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
-                nee_candidates: int = 1) -> PTState:
+                nee_candidates: int = 1, fused: bool = False) -> PTState:
     B = s.o.shape[0]
     t = hit["t"]
     hit_ok = hit["hit"] & s.active
+    miss = s.active & ~hit["hit"]
+    tex_p = s.tex if fused else 1.0
+
+    # ---- miss: environment (MIS against the cached envmap NEE pdf) -------
+    if scene.env_emitter > 0:
+        env_le = emitters.env_radiance(scene, s.d)
+        w_env = 1.0 if fused else torch.where(
+            s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, s.env_pdf))[:, None]
+        L = s.L + torch.where(miss[:, None], s.thp * tex_p * env_le * w_env, 0.0)
+    else:
+        L = s.L
 
     # ---- surface interaction -------------------------------------------
     prim = torch.clamp(hit["prim"], min=0)
@@ -70,20 +158,28 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     p = s.o + t_safe[:, None] * s.d
     inter = isect.surface_interaction(scene.geom, prim, hit["b1"], hit["b2"], p, s.d)
     obj = inter["obj"]
-    bid = torch.clamp(scene.objects.bsdf_id[obj], min=0)
+    bid = torch.clamp(scene.objects.bsdf_id[obj], min=0).long()
     eid = scene.objects.emitter_id[obj].long()
 
     # ---- emitter hit MIS -------------------------------------------------
     cos_l = -vm.dot(s.d, inter["n_g"])
-    le_hit = emitters.emitter_radiance_hit(scene, torch.clamp(eid, min=0), cos_l)
+    le_hit = emitters.emitter_radiance_hit(scene, torch.clamp(eid, min=0), inter["uv"], cos_l)
     pdf_l = emitters.hit_emitter_pdf(scene, obj, t_safe, torch.clamp(cos_l, min=1e-6))
     w_hit = torch.where(s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, pdf_l))
     emit_mask = hit_ok & (eid > 0) & (cos_l > 1e-6)
-    L = s.L + torch.where(emit_mask[:, None], s.thp * le_hit * w_hit[:, None], 0.0)
+    L = L + torch.where(emit_mask[:, None], s.thp * tex_p * le_hit * w_hit[:, None], 0.0)
+
+    # ---- material; the fused estimator keeps the diffuse texel apart ----
+    ctx = bsdf_eval.make_ctx(scene, bid, inter["uv"], inter["n_s"], textured=not fused)
+    if fused:
+        texel = tex.sample_texture(scene.textures, scene.bsdfs.tex_ids[bid, T.TEX_DIFFUSE],
+                                   inter["uv"])[:, :3]
+        tex_here = tex_p * texel
+    else:
+        tex_here = 1.0
+    wo = -s.d
 
     # ---- NEE -------------------------------------------------------------
-    ctx = bsdf_eval.make_ctx(scene, bid, inter["uv"], inter["n_s"])
-    wo = -s.d
     if nee_candidates <= 1:
         es, rng = emitters.sample_emitter(scene, p, ctx["n"], s.rng)
         f_cos, bpdf = bsdf_eval.eval_bsdf(ctx, wo, es["dir"])
@@ -115,22 +211,23 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     p_shadow = p + inter["n_g"] * off_sign * isect.RAY_OFFSET
     # the origin offset shortens the true segment: subtract its projection
     dist_shadow = es["dist"] - torch.abs(vm.dot(inter["n_g"], es["dir"])) * isect.RAY_OFFSET
-    occ = isect.occlusion_brute(scene.geom, p_shadow, es["dir"], dist_shadow)
+    need = hit_ok & es["valid"] & (torch.amax(f_cos, dim=-1) > 0.0)
+    occ = occluded(scene, p_shadow, es["dir"], dist_shadow, need)
     # at the last bounce the BSDF continuation is never traced, so NEE
     # takes the full MIS weight
     last_bounce = s.bounce >= (md.max_depth - 1)
-    w_nee = torch.where(es["delta"] | last_bounce, 1.0,
-                        sampling.power_heuristic(es["pdf"], bpdf))
-    nee_ok = hit_ok & es["valid"] & ~occ & (torch.amax(f_cos, dim=-1) > 0.0)
-    contrib = s.thp * f_cos * es["le"] * (w_nee * inv_density)[:, None]
+    w_nee = torch.where(es["delta"] | last_bounce, 1.0, sampling.power_heuristic(es["pdf"], bpdf))
+    nee_ok = need & ~occ
+    contrib = s.thp * tex_here * f_cos * es["le"] * (w_nee * inv_density)[:, None]
     L = L + torch.where(nee_ok[:, None], contrib, 0.0)
 
     # ---- BSDF sampling -----------------------------------------------------
-    bs, rng = bsdf_eval.sample_bsdf(ctx, wo, rng)
+    bs, rng = bsdf_eval.sample_bsdf(ctx, wo, rng, wl=s.wl, u_wl=s.wl_u)
     thp = s.thp * bs["weight"]
     thp = torch.where(torch.isfinite(thp), thp, 0.0)  # NaN guard
     off2 = torch.sign(vm.dot(inter["n_g"], bs["wi"], keepdim=True))
     o_new = p + inter["n_g"] * off2 * isect.RAY_OFFSET
+    env_pdf = emitters.env_nee_pdf(scene, ctx["n"], bs["wi"])
 
     # ---- per-lobe depth caps -------------------------------------------
     n_diff = s.n_diff + (hit_ok & (bs["lobe"] == bsdf_eval.LOBE_DIFFUSE)).to(torch.int32)
@@ -159,44 +256,53 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
         active=active,
         prev_pdf=torch.where(active, bs["pdf"], s.prev_pdf),
         prev_delta=torch.where(active, bs["is_delta"], s.prev_delta),
+        env_pdf=torch.where(active, env_pdf, s.env_pdf),
         n_diff=n_diff,
         n_spec=n_spec,
         n_trans=n_trans,
+        wl=torch.where(active, bs["wl"], s.wl),
         bounce=s.bounce + 1,
+        wl_u=s.wl_u,
+        tex=torch.where(hit_ok[:, None], tex_here, s.tex) if fused else None,
     )
 
 
-def pt_bounce(scene: T.Scene, md: MaxDepthParams, s: PTState, nee_candidates: int = 1) -> PTState:
-    """One full bounce: brute-force closest hit, then shading."""
-    hit = isect.closest_hit_brute(scene.geom, s.o, s.d)
-    return shade_stage(scene, md, s, hit, nee_candidates)
+def pt_bounce(scene: T.Scene, md: MaxDepthParams, s: PTState, nee_candidates: int = 1,
+              fused: bool = False) -> PTState:
+    """One full bounce: closest hit, then shading."""
+    hit = closest_hit(scene, s.o, s.d, s.active)
+    return shade_stage(scene, md, s, hit, nee_candidates, fused)
 
 
-def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor) -> PTState:
+def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None,
+               fused: bool = False) -> PTState:
     B = o.shape[0]
     dev = o.device
     zi = torch.zeros(B, dtype=torch.int32, device=dev)
+    zf = torch.zeros(B, device=dev)
     return PTState(
         o=o, d=d, thp=torch.ones_like(o), L=torch.zeros_like(o), rng=rng,
         active=torch.ones(B, dtype=torch.bool, device=dev),
         prev_pdf=torch.ones(B, device=dev),
         prev_delta=torch.ones(B, dtype=torch.bool, device=dev),
-        n_diff=zi, n_spec=zi, n_trans=zi, bounce=0)
+        env_pdf=zf, n_diff=zi, n_spec=zi, n_trans=zi, wl=zf, bounce=0, wl_u=wl_u,
+        tex=torch.ones_like(o) if fused else None)
 
 
-def trace_paths_final(scene: T.Scene, md: MaxDepthParams, o, d, rng,
-                      nee_candidates: int = 1) -> PTState:
+def trace_paths_final(scene: T.Scene, md: MaxDepthParams, o, d, rng, nee_candidates: int = 1,
+                      wl_u=None, fused: bool = False) -> PTState:
     """Run the bounce loop until every lane is done or max_depth is hit."""
     check_supported(scene, md)
-    s = init_state(o, d, rng)
+    s = init_state(o, d, rng, wl_u, fused)
     while s.bounce < md.max_depth and bool(s.active.any()):
-        s = pt_bounce(scene, md, s, nee_candidates)
+        s = pt_bounce(scene, md, s, nee_candidates, fused)
     return s
 
 
-def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, nee_candidates: int = 1):
+def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, nee_candidates: int = 1,
+                wl_u=None, fused: bool = False):
     """Radiance (B, 3) for a batch of rays with pcg states (B, 2)."""
-    return trace_paths_final(scene, md, o, d, rng, nee_candidates).L
+    return trace_paths_final(scene, md, o, d, rng, nee_candidates, wl_u, fused).L
 
 
 def render_band(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, sample_idx,
@@ -207,7 +313,8 @@ def render_band(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, s
     lane = band_start + torch.arange(band_count, device=scene.device)
     rng = qmc.make_state("pcg", seed, lane, sample_idx)
     o, d, rng = cam_mod.generate_rays(cam, lane, rng)
-    return trace_paths(scene, md, o, d, rng, nee_candidates)
+    return trace_paths(scene, md, o, d, rng, nee_candidates,
+                       wl_u=wl_stratum_u(seed, sample_idx, lane))
 
 
 def render_sample(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, sample_idx,

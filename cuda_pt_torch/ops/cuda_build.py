@@ -23,13 +23,20 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # Per-thread traversal stack of the CUDA walk; make_pack raises for a scene
 # that needs more.
 MK_MAX_STACK = 64
+# Resident 128-thread blocks per SM the trace kernel is built for
+# (__launch_bounds__); caps its registers at 65536 / (128 * MK_MIN_BLOCKS).
+# The walks wait on memory: on the H100 more resident warps beat the local
+# memory traffic of the spills this causes (PERF.md; measured with
+# tools/kernel_variants.py).
+MK_MIN_BLOCKS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# entry point -> argtypes (csrc/megakernel.cu)
+# entry point -> argtypes (csrc/megakernel.cu); the first pointer is a
+# host array of the pack's table pointers
 _SIGNATURES = {
-    "mk_trace": [_P] * 11 + [_I] * 8 + [_P],
-    "mk_closest_hit": [_P] * 12 + [_I] * 3 + [_P],
+    "mk_trace": [_P] * 6 + [_I] * 12 + [_P],
+    "mk_closest_hit": [_P] * 7 + [_I] * 3 + [_P],
 }
 
 _lib = None  # the CDLL, built from the sources as they were at first load
@@ -42,46 +49,60 @@ def _nvcc() -> str:
     return path
 
 
-def _defines() -> list:
+def _defines(min_blocks: int) -> list:
     """The constants the kernel shares with the plain path, passed from their
     one Python definition (floats as f32 literals)."""
+    from ..bsdf import spectral
     from . import intersect as isect
     from . import megakernel as mk
 
+    def f32(x) -> str:
+        return f"({float(x)!r}f)"
+
+    spec = [f"-DSPEC_WL_MIN={f32(spectral.WL_MIN)}", f"-DSPEC_WL_MAX={f32(spectral.WL_MAX)}"]
+    spec += [f"-DSPEC_M{r}{c}={f32(spectral.XYZ_TO_SRGB[r, c])}"
+             for r in range(3) for c in range(3)]
+    spec += [f"-DSPEC_NORM_{ch}={f32(v)}" for ch, v in zip("RGB", spectral.NORM)]
+    # one define per number: nvcc reads commas in a -D value as a list
+    lobes = [lobe for axis in spectral.XYZ_LOBES for lobe in axis]
+    spec += [f"-DSPEC_LOBE{li}{k}={f32(x)}" for li, lobe in enumerate(lobes)
+             for k, x in enumerate(lobe)]
     return [f"-DHIT_EPS={isect.HIT_EPS!r}f", f"-DRAY_OFFSET={isect.RAY_OFFSET!r}f",
             f"-DSHADOW_T_FACTOR={1.0 - isect.SHADOW_T_SCALE!r}f",
             f"-DSLOT_F={mk.SLOT_F}", f"-DMAX_EMITTERS={mk.MAX_EMITTERS}",
-            f"-DMK_MAX_STACK={MK_MAX_STACK}"]
+            f"-DMK_MAX_STACK={MK_MAX_STACK}", f"-DMK_MIN_BLOCKS={min_blocks}", *spec]
 
 
-def _flags() -> list:
-    # FMA contraction stays on (nvcc's default, stated here); PERF.md records
-    # its cost against -fmad=false.
+def _flags(fmad: bool = False, min_blocks: int = MK_MIN_BLOCKS) -> list:
+    # FMA contraction off: the kernel then rounds as the plain PyTorch
+    # version does, which keeps per-lane agreement on scenes whose specular
+    # chains amplify rounding (PERF.md records the cost and the gain).
     return [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-fmad=true", *_defines()]
+            f"-fmad={str(fmad).lower()}", *_defines(min_blocks)]
 
 
 def _sources() -> list:
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
 
 
-def library_path() -> str:
-    h = hashlib.sha1(" ".join(_flags()).encode())
+def library_path(flags: list | None = None) -> str:
+    h = hashlib.sha1(" ".join(_flags() if flags is None else flags).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libmegakernel_{h.hexdigest()[:12]}.so")
 
 
-def start_build():
+def start_build(flags: list | None = None):
     """Start nvcc; returns (Popen or None if built, path)."""
-    out = library_path()
+    flags = _flags() if flags is None else flags
+    out = library_path(flags)
     if os.path.exists(out):
         return None, out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     log = open(out[:-3] + ".log", "w")
-    cmd = [_nvcc(), *_flags(), "-o", tmp, os.path.join(CSRC, "megakernel.cu")]
+    cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(CSRC, "megakernel.cu")]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     proc.log, proc.tmp = log, tmp
     return proc, out
@@ -106,10 +127,17 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def build_log() -> str:
-    """nvcc's output of the last build (ptxas register and spill counts),
-    or "" when the library was reused."""
-    path = library_path()[:-3] + ".log"
+def start_variant_build(fmad: bool, min_blocks: int):
+    """start_build of a tuning variant of the library: FMA contraction and
+    MK_MIN_BLOCKS replaced. Load the result with use_library."""
+    return start_build(_flags(fmad, min_blocks))
+
+
+def build_log(lib_path: str | None = None) -> str:
+    """nvcc's output of the last build of the library at lib_path (default:
+    the one load() uses), with ptxas' register and spill counts; "" when
+    the library was reused."""
+    path = (lib_path or library_path())[:-3] + ".log"
     if not os.path.exists(path):
         return ""
     with open(path) as f:
@@ -121,10 +149,21 @@ def load() -> ctypes.CDLL:
     per process, not on every launch."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(finish_build(*start_build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = open_library(finish_build(*start_build()))
     return _lib
+
+
+def use_library(path: str):
+    """Make the wrappers launch the library at path (a tuning variant)."""
+    global _lib
+    _lib = open_library(path)
+
+
+def open_library(path: str) -> ctypes.CDLL:
+    """Load a built library and declare its entry points' C signatures."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

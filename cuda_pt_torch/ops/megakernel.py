@@ -2,10 +2,13 @@
 (port of cuda_pt_tpu/ops/pallas/megakernel.py for the whole-path mode).
 
 ``trace_megakernel`` replaces the TPU kernel ``_kernel`` (megakernel.py:500)
-as driven by ``trace_megakernel`` (:2963, pallas_call :3083), for scenes
-with the Lambertian / Specular / Translucent families, area and point
-emitters, w8 nodes and f32 attrs and prims. The CUDA source is
-csrc/megakernel.cu; it is built with nvcc at first use (ops/cuda_build.py).
+as driven by ``trace_megakernel`` (:2963, pallas_call :3083) over the TPU
+kernel's surface envelope: nine BSDF families (all but Plastic-forward),
+area, area-spot and point emitters, envmaps, diffuse-textured Lambertian
+and Oren-Nayar, and wavelength-locked dispersion (K2 with the K3 flags
+``has_env``, ``textured``, ``has_disp``), w8 nodes and f32 attrs and prims.
+The CUDA source is csrc/megakernel.cu; it is built with nvcc at first use
+(ops/cuda_build.py).
 
 Every wrapper here takes the plain PyTorch version for CPU tensors and
 only for them; for CUDA tensors it launches its kernel or raises. Each
@@ -13,26 +16,27 @@ launch adds one to ``LAUNCHES[name]``.
 
 Kernels:
 - ``trace_megakernel``: the whole path per ray -> L (B, 3). Plain version
-  ``trace_megakernel_reference`` (models/path_tracer.trace_paths, brute
-  force intersection).
+  ``trace_megakernel_reference``: the path tracer of models/path_tracer.py
+  in its ``fused`` mode (the TPU kernel's estimator) on ``kernel_scene``.
 - ``closest_hit_w8``: the same device walk alone -> (t, prim, b1, b2).
-  Plain version ``ops/intersect.closest_hit_brute``. It exists so a walk
+  Plain version: brute force up to path_tracer.BRUTE_FORCE_MAX_PRIMS
+  prims, the skip walk of accel/traverse.py above. It exists so a walk
   bug shows as wrong prim ids, not as a noisy image.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
 import numpy as np
 import torch
 
+from ..accel import traverse
 from ..accel import wide_build
-from ..bsdf.eval import PORTED_BSDFS
 from ..core import camera as cam_mod
 from ..core import qmc
-from ..emitters.emitters import PORTED_EMITTERS
 from ..models import path_tracer as pt
 from ..scene import types as T
 from . import cuda_build
@@ -40,16 +44,22 @@ from . import intersect as isect
 
 SLOTS = 8  # slots per 128-float row
 SLOT_F = 16  # f32 fields per slot
-# The TPU kernel's VMEM limits, kept as megakernel_ok's semantics. The card
-# needs none of them (it reads the pack from device memory); see ROADMAP.md.
-MAX_EMITTERS = 8  # slots in the emitter row (slot 0 = null); passed to nvcc
+# Limits that shape the packed tables (the TPU kernel's, kept): one
+# emitter row of 8 slots (slot 0 = null; passed to nvcc), the emitter-prim
+# table, the material table.
+MAX_EMITTERS = 8
 MAX_EMITTER_PRIMS = 56
 MAX_BSDFS = 32
-FUSED_VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-AUTO_COMPACT_BYTES = 2 * 1024 * 1024
-TILE = 8192
 # Leaf stack entries pack cnt into 4 bits (csrc/walk.cuh).
 MK_MAX_LEAF = 15
+# The TPU kernel's surface families; Plastic-forward stays composed-only.
+KERNEL_BSDFS = (T.BSDF_LAMBERTIAN, T.BSDF_SPECULAR, T.BSDF_TRANSLUCENT, T.BSDF_PLASTIC,
+                T.BSDF_GGX_CONDUCTOR, T.BSDF_DISPERSION, T.BSDF_FORWARD,
+                T.BSDF_GGX_DIELECTRIC, T.BSDF_OREN_NAYAR)
+# The families of the kernel's pruned build (csrc/bsdf.cuh, ALL = false).
+BASIC_BSDFS = (T.BSDF_LAMBERTIAN, T.BSDF_SPECULAR, T.BSDF_TRANSLUCENT)
+KERNEL_EMITTERS = (T.EMITTER_NULL, T.EMITTER_POINT, T.EMITTER_AREA, T.EMITTER_AREA_SPOT,
+                   T.EMITTER_ENVMAP)
 
 LAUNCHES = {"trace_megakernel": 0, "closest_hit_w8": 0}
 
@@ -64,31 +74,6 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 
-def fused_pack_bytes(scene: T.Scene, node_fmt: str = "f32", attr_fmt: str = "f32",
-                     prim_fmt: str = "f32") -> int:
-    """Resident bytes of the TPU pack in the given formats (megakernel.py:86)."""
-    n = int(scene.bvh.num_nodes)
-    p = int(scene.geom.num_prims)
-    nb = int(scene.bsdfs.btype.shape[0])
-    node_b = 32 if node_fmt == "bf16" else 64
-    prim_b = (512 // 14 + 1) if prim_fmt == "t9" else 64
-    attr_b = 32 if attr_fmt == "bf16" else 64
-    small = (2 * nb + SLOTS + MAX_EMITTER_PRIMS) * SLOT_F * 4
-    return n * node_b + p * prim_b + p * attr_b + small
-
-
-def resident_pack_bytes(scene: T.Scene) -> int:
-    if fused_pack_bytes(scene) > AUTO_COMPACT_BYTES:
-        tri = not bool(scene.geom.is_sphere.any())
-        return fused_pack_bytes(scene, node_fmt="bf16", attr_fmt="bf16",
-                                prim_fmt="t9" if tri else "f32")
-    return fused_pack_bytes(scene)
-
-
-def _tile_state_bytes() -> int:
-    return 11 * TILE * 4 * 2
-
-
 def _real_k(cdf_row, sel_row) -> int:
     """Real prim entries of a (K,) emitter cdf row (padding repeats the
     last prim with cdf 1.0)."""
@@ -99,42 +84,88 @@ def _real_k(cdf_row, sel_row) -> int:
 
 
 def megakernel_ok(scene: T.Scene, md=None) -> bool:
-    """Host-side envelope check of the ported kernel: the TPU kernel's
-    size limits (megakernel.py:131), narrowed to the ported BSDF families
-    and emitter types, no textures, no media, no ToF. The reference's
-    strict=True cap (its auto-pick's TPU-fault gate) has no counterpart:
-    the port's Renderer always takes the kernel, like an explicit
-    traversal='fused' there."""
-    if resident_pack_bytes(scene) + _tile_state_bytes() > FUSED_VMEM_BUDGET_BYTES:
+    """Host-side envelope check: the TPU kernel's (megakernel.py:131) without
+    its VMEM-residency limits (FUSED_VMEM_BUDGET_BYTES, AUTO_COMPACT_BYTES,
+    the tile-state bytes), which the card does not have: the kernel reads
+    its tables from device memory. Families: all surface ones but
+    Plastic-forward; emitters: null, point, area, area-spot, envmap;
+    textures: the diffuse slot of Lambertian / Oren-Nayar on triangle
+    scenes only; no media, no ToF. The reference's strict=True cap (its
+    auto-pick's TPU-fault gate) has no counterpart: the port's Renderer
+    always takes the kernel, like an explicit traversal='fused' there."""
+    if set(scene.present_bsdfs) - set(KERNEL_BSDFS):
         return False
-    if set(scene.present_bsdfs) - set(PORTED_BSDFS):
+    bt = _np(scene.bsdfs.btype)
+    if bt.shape[0] > MAX_BSDFS:
         return False
-    if int(scene.bsdfs.btype.shape[0]) > MAX_BSDFS:
+    et = _np(scene.emitters.etype)
+    if et.shape[0] > MAX_EMITTERS or set(int(x) for x in et) - set(KERNEL_EMITTERS):
         return False
-    et = scene.emitters.etype.cpu().numpy()
-    if et.shape[0] > MAX_EMITTERS or set(int(x) for x in et) - set(PORTED_EMITTERS):
+    if np.where(et == T.EMITTER_ENVMAP, -1, _np(scene.emitters.tex_id)).max(initial=-1) >= 0:
+        return False  # textured geometric emitters stay composed-only
+    tids = _np(scene.bsdfs.tex_ids)
+    if np.delete(tids, T.TEX_DIFFUSE, axis=1).max(initial=-1) >= 0:
         return False
-    if scene.env_emitter > 0 or int(scene.emitters.tex_id.max()) >= 0:
+    has_dt = tids[:, T.TEX_DIFFUSE] >= 0
+    if (has_dt & ~np.isin(bt, (T.BSDF_LAMBERTIAN, T.BSDF_OREN_NAYAR))).any():
         return False
-    if int(scene.bsdfs.tex_ids.max()) >= 0:
-        return False
+    sph = _np(scene.geom.is_sphere)
+    if has_dt.any() and sph.any():
+        return False  # the uv capture is triangle-only, as on the TPU
     if int(scene.objects.medium_in.max()) >= 0 or scene.cam_medium >= 0:
         return False
     if md is not None and md.max_time > 0.0:
         return False
     if int(scene.bvh.max_leaf) > MK_MAX_LEAF:
         return False
-    cdf = scene.emitters.prim_cdf.cpu().numpy()
-    sel = scene.emitters.prim_sel.cpu().numpy()
-    sph = scene.geom.is_sphere.cpu().numpy()
+    cdf = _np(scene.emitters.prim_cdf)
+    sel = _np(scene.emitters.prim_sel)
     n_eprims = 0
     for e in range(et.shape[0]):
-        if et[e] == T.EMITTER_AREA:
+        if et[e] in (T.EMITTER_AREA, T.EMITTER_AREA_SPOT):
             k = _real_k(cdf[e], sel[e])
             n_eprims += k
             if sph[sel[e, :k]].any():
                 return False  # sphere emitter prims stay outside the envelope
     return n_eprims <= MAX_EMITTER_PRIMS
+
+
+def kernel_emitter_pmf(scene: T.Scene):
+    """(etype, sel_pmf, sel_cdf) as the kernel sees them (NumPy): with an
+    envmap, its slot becomes a null emitter and the pick is renormalized
+    over the geometric emitters (the TPU pack's rule, megakernel.py:364),
+    since the kernel never NEE-samples the environment."""
+    e = scene.emitters
+    et = _np(e.etype)
+    pmf = _np(e.sel_pmf).astype(np.float32).copy()
+    cdf = _np(e.sel_cdf).astype(np.float32)
+    env_mask = et == T.EMITTER_ENVMAP
+    if env_mask.any():
+        pmf[env_mask] = 0.0
+        pmf = pmf / max(float(pmf.sum()), 1e-12)
+        cdf = np.cumsum(pmf).astype(np.float32)
+        if cdf[-1] > 0:
+            cdf /= cdf[-1]
+        else:
+            cdf[:] = 1.0
+    return np.where(env_mask, T.EMITTER_NULL, et).astype(np.int32), pmf, cdf
+
+
+def kernel_scene(scene: T.Scene) -> T.Scene:
+    """The scene as the kernel's estimator sees it: the emitter pick of
+    kernel_emitter_pmf, and no envmap importance tables (no envmap NEE, so
+    no u_tex draw). The envmap keeps its id, emission and texture for the
+    miss lookup."""
+    if scene.env_emitter <= 0:
+        return scene
+    et, pmf, cdf = kernel_emitter_pmf(scene)
+    dev = scene.device
+    emitters = dataclasses.replace(
+        scene.emitters, etype=torch.as_tensor(et, device=dev),
+        sel_pmf=torch.as_tensor(pmf, device=dev), sel_cdf=torch.as_tensor(cdf, device=dev))
+    one = torch.ones((1, 1), device=dev)
+    imp = T.EnvImportance(row_cdf=one[0], col_cdf=one, pmf=one)
+    return dataclasses.replace(scene, emitters=emitters, env_importance=imp)
 
 
 # ---------------------------------------------------------------------------
@@ -222,8 +253,8 @@ def pack_bsdfs(scene: T.Scene) -> np.ndarray:
 def pack_emitters(scene: T.Scene) -> np.ndarray:
     """(1, 128): 8 emitter slots of etype em(3)=emission*scaler pos(3)
     sel_pmf sel_cdf kmax falloff. Padding emitters are null with cdf 1.0.
-    With an envmap the pmf is renormalized over the geometric emitters
-    (the TPU pack's rule, megakernel.py:364)."""
+    The envmap rides as a null slot with the pick renormalized over the
+    geometric emitters (kernel_emitter_pmf)."""
     e = scene.emitters
     E = int(e.etype.shape[0])
     if E > MAX_EMITTERS:
@@ -232,18 +263,7 @@ def pack_emitters(scene: T.Scene) -> np.ndarray:
     cdfs, sels = _np(e.prim_cdf), _np(e.prim_sel)
     kmax = np.array([max(_real_k(cdfs[i], sels[i]) - 1, 0) for i in range(E)], np.float32)
     et_np = _np(e.etype)
-    pmf = _np(e.sel_pmf).astype(np.float32).copy()
-    cdf = _np(e.sel_cdf).astype(np.float32)
-    env_mask = et_np == T.EMITTER_ENVMAP
-    if env_mask.any():
-        pmf[env_mask] = 0.0
-        pmf = pmf / max(float(pmf.sum()), 1e-12)
-        cdf = np.cumsum(pmf).astype(np.float32)
-        if cdf[-1] > 0:
-            cdf /= cdf[-1]
-        else:
-            cdf[:] = 1.0
-    et_k = np.where(env_mask, T.EMITTER_NULL, et_np)
+    et_k, pmf, cdf = kernel_emitter_pmf(scene)
     falloff = np.where(et_np == T.EMITTER_AREA_SPOT, _np(e.extra)[:, 0], -1.0).astype(np.float32)
     pos = _np(e.pos)
     cols = [et_k.astype(np.float32), em[:, 0], em[:, 1], em[:, 2],
@@ -307,6 +327,33 @@ def pack_nodes_w8(wb: T.WideBVHArrays) -> np.ndarray:
     return out
 
 
+def pack_uvs(geom: T.Geometry) -> np.ndarray:
+    """(P, 8) f32: uv0(2) uv1(2) uv2(2) and two padding fields per prim."""
+    uv = np.concatenate([_np(geom.uv0), _np(geom.uv1), _np(geom.uv2)], axis=1)
+    return np.concatenate([uv, np.zeros((uv.shape[0], 2), np.float32)], axis=1).astype(np.float32)
+
+
+def pack_textures(atlas: T.TextureAtlas):
+    """(texels (N, 4) f32, tinfo (K, 4) int32 = offset width height 0)."""
+    info = np.stack([_np(atlas.offset), _np(atlas.width), _np(atlas.height),
+                     np.zeros_like(_np(atlas.offset))], axis=1).astype(np.int32)
+    return _np(atlas.texels).astype(np.float32), info
+
+
+def pack_env(scene: T.Scene) -> np.ndarray:
+    """(16,) f32: tex_id scale azimuth zenith base(3) of the envmap, where
+    base = emission * scaler (the TPU pack's env_* epilogue inputs)."""
+    out = np.zeros(SLOT_F, np.float32)
+    eid = scene.env_emitter
+    if eid > 0:
+        e = scene.emitters
+        extra = _np(e.extra)[eid]
+        out[0] = float(_np(e.tex_id)[eid])
+        out[1:4] = extra[0:3]
+        out[4:7] = _np(e.emission)[eid] * _np(e.scaler)[eid]
+    return out
+
+
 @dataclasses.dataclass
 class MKPack:
     """Kernel scene pack: row-packed f32 tables + static format flags, plus
@@ -320,6 +367,12 @@ class MKPack:
     tri_only: bool = True
     max_leaf: int = 4
     max_stack: int = 0
+    has_env: bool = False  # K3 flags (the TPU pack's, megakernel.py:2893-2917)
+    textured: bool = False
+    has_disp: bool = False
+    # a family beyond Lambertian / Specular / Translucent is present (the
+    # kernel's compile-time family pruning, csrc/bsdf.cuh)
+    all_families: bool = True
 
     def __getitem__(self, k):
         return self.arrays[k]
@@ -328,17 +381,24 @@ class MKPack:
     def device(self) -> torch.device:
         return self.arrays["nodes"].device
 
+    @property
+    def flags(self) -> dict:
+        return {"has_env": self.has_env, "textured": self.textured, "has_disp": self.has_disp}
 
+
+# The six tables of the TPU pack (bit-equal to it), then kernel K3's inputs.
 PACK_KEYS = ("nodes", "prims", "attrs", "erow", "eprims", "brows")
+K3_KEYS = ("uvs", "texels", "tinfo", "tdiff", "envrow")
 
 
 def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
               prim_fmt: str | None = None) -> MKPack:
     """Host-side scene pack on the scene's device. Only the w8 node format
-    with f32 attrs and prims is ported."""
+    with f32 attrs and prims is ported. The K3 tables are placeholders of
+    one row where their flag is off."""
     if node_fmt != "w8" or attr_fmt not in (None, "f32") or prim_fmt not in (None, "f32"):
         raise NotImplementedError(
-            "only node_fmt='w8' with f32 attrs and prims is ported (ROADMAP Queue 2, K1/K3)")
+            "only node_fmt='w8' with f32 attrs and prims is ported (ROADMAP Queue 2, K1)")
     wb = wide_build.from_bvharrays(scene.bvh)
     max_stack = int(wb.max_stack) + 8  # the TPU walk's unconditional 8-slot write
     if max_stack > cuda_build.MK_MAX_STACK:
@@ -346,6 +406,10 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
             f"scene needs a traversal stack of {max_stack} > {cuda_build.MK_MAX_STACK}")
     if int(scene.bvh.max_leaf) > MK_MAX_LEAF:
         raise ValueError(f"max_leaf {scene.bvh.max_leaf} > {MK_MAX_LEAF}")
+    tdiff = _np(scene.bsdfs.tex_ids)[:, T.TEX_DIFFUSE].astype(np.int32)
+    has_env = scene.env_emitter > 0
+    textured = bool((tdiff >= 0).any())
+    texels, tinfo = pack_textures(scene.textures)
     host = {
         "nodes": pack_nodes_w8(wb),
         "prims": pack_prims(scene.geom),
@@ -353,10 +417,21 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
         "erow": pack_emitters(scene),
         "eprims": pack_emitter_prims(scene),
         "brows": pack_bsdfs(scene),
+        "uvs": pack_uvs(scene.geom) if textured else np.zeros((1, 8), np.float32),
+        "texels": texels if (textured or has_env) else np.zeros((1, 4), np.float32),
+        "tinfo": tinfo,
+        "tdiff": tdiff,
+        "envrow": pack_env(scene),
     }
     arrays = {k: torch.as_tensor(v, device=scene.device).contiguous() for k, v in host.items()}
     return MKPack(arrays, scene, tri_only=not bool(scene.geom.is_sphere.any()),
-                  max_leaf=int(scene.bvh.max_leaf), max_stack=max_stack)
+                  max_leaf=int(scene.bvh.max_leaf), max_stack=max_stack, has_env=has_env,
+                  textured=textured, has_disp=T.BSDF_DISPERSION in set(scene.present_bsdfs),
+                  all_families=bool(set(scene.present_bsdfs) - set(BASIC_BSDFS)))
+
+
+def pack_bytes(pack: MKPack, keys=PACK_KEYS + K3_KEYS) -> int:
+    return sum(pack[k].numel() * pack[k].element_size() for k in keys)
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +473,11 @@ def tile_swizzle(width: int, height: int, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-def _ptr(x: torch.Tensor):
-    return x.data_ptr()
+def _tables(pack: MKPack):
+    """Host array of the pack's table pointers (csrc/megakernel.cu
+    make_pack_view order)."""
+    ptrs = [pack[k].data_ptr() for k in PACK_KEYS + K3_KEYS]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def _check_rays(pack: MKPack, *tensors):
@@ -421,8 +499,11 @@ def rng_bits(rng: torch.Tensor) -> torch.Tensor:
 
 
 def trace_megakernel_reference(scene: T.Scene, md, o, d, rng, nee_candidates: int = 1):
-    """Plain PyTorch version of the kernel: the composed path tracer."""
-    return pt.trace_paths(scene, md, o, d, rng, nee_candidates)
+    """Plain PyTorch version of the kernel: the path tracer's fused-kernel
+    estimator (envmap misses at MIS weight 1, deferred diffuse texels,
+    in-stream dispersion wavelength) on the kernel's emitter table. For
+    scenes without the K3 flags it is the composed estimator itself."""
+    return pt.trace_paths(kernel_scene(scene), md, o, d, rng, nee_candidates, fused=True)
 
 
 def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor,
@@ -443,9 +524,10 @@ def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: to
     B = o.shape[0]
     L = torch.empty_like(o)
     stats = torch.zeros((B, 2), dtype=torch.int32, device=o.device) if count_stats else None
-    rc = lib.mk_trace(*[_ptr(pack[k]) for k in PACK_KEYS], _ptr(o), _ptr(d), _ptr(rng32),
-                      _ptr(L), _ptr(stats) if stats is not None else None,
-                      B, pack.max_leaf, int(pack.tri_only),
+    rc = lib.mk_trace(_tables(pack), o.data_ptr(), d.data_ptr(), rng32.data_ptr(), L.data_ptr(),
+                      stats.data_ptr() if stats is not None else None,
+                      B, pack.max_leaf, int(pack.tri_only), int(pack.has_env),
+                      int(pack.textured), int(pack.has_disp), int(pack.all_families),
                       int(md.max_depth), int(md.max_diffuse), int(md.max_specular),
                       int(md.max_transmit), int(nee_candidates),
                       torch.cuda.current_stream(o.device).cuda_stream)
@@ -455,11 +537,19 @@ def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: to
     return (L, stats) if count_stats else L
 
 
+def closest_hit_plain(scene: T.Scene, o: torch.Tensor, d: torch.Tensor) -> dict:
+    """The path tracer's closest hit: brute force up to
+    BRUTE_FORCE_MAX_PRIMS prims, the skip walk above."""
+    if scene.geom.num_prims > pt.BRUTE_FORCE_MAX_PRIMS:
+        return traverse.closest_hit_bvh(scene.geom, scene.bvh, o, d)
+    return isect.closest_hit_brute(scene.geom, o, d)
+
+
 def closest_hit_w8(pack: MKPack, o: torch.Tensor, d: torch.Tensor):
     """Closest hit of (B, 3) rays -> (t, prim (int64, -1 = miss), b1, b2).
-    CPU tensors run closest_hit_brute; CUDA tensors launch the w8 walk."""
+    CPU tensors run closest_hit_plain; CUDA tensors launch the w8 walk."""
     if o.device.type == "cpu":
-        h = isect.closest_hit_brute(pack.scene.geom, o, d)
+        h = closest_hit_plain(pack.scene, o, d)
         return h["t"], h["prim"], h["b1"], h["b2"]
     if o.dtype != torch.float32 or o.shape != d.shape or o.dim() != 2 or o.shape[1] != 3:
         raise ValueError("expected o, d (B, 3) float32")
@@ -470,9 +560,9 @@ def closest_hit_w8(pack: MKPack, o: torch.Tensor, d: torch.Tensor):
     prim = torch.empty(B, dtype=torch.int32, device=o.device)
     b1 = torch.empty_like(t)
     b2 = torch.empty_like(t)
-    rc = lib.mk_closest_hit(*[_ptr(pack[k]) for k in PACK_KEYS], _ptr(o), _ptr(d), _ptr(t),
-                            _ptr(prim), _ptr(b1), _ptr(b2), B, pack.max_leaf, int(pack.tri_only),
-                            torch.cuda.current_stream(o.device).cuda_stream)
+    rc = lib.mk_closest_hit(_tables(pack), o.data_ptr(), d.data_ptr(), t.data_ptr(),
+                            prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), B, pack.max_leaf,
+                            int(pack.tri_only), torch.cuda.current_stream(o.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mk_closest_hit launch failed: cudaError {rc}")
     LAUNCHES["closest_hit_w8"] += 1

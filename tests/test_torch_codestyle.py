@@ -1,6 +1,6 @@
 """Codestyle gate for the port, and the rule that the port imports no JAX:
-neither cuda_pt_torch/ nor chip_smoke.py may import jax, flax or
-cuda_pt_tpu (only the tests import both packages)."""
+neither cuda_pt_torch/, its tools/ nor chip_smoke.py may import jax, flax
+or cuda_pt_tpu (only the tests import both packages)."""
 
 import ast
 import glob
@@ -15,6 +15,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "cuda_pt_tpu"}
 
 def _port_files():
     files = glob.glob(os.path.join(REPO, "cuda_pt_torch", "**", "*.py"), recursive=True)
+    files += glob.glob(os.path.join(REPO, "tools", "*.py"))
     return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
 
 
@@ -25,7 +26,7 @@ def test_codestyle_port_clean():
     spec.loader.exec_module(check)
     tests = sorted(os.path.relpath(p, REPO) for p in
                    glob.glob(os.path.join(REPO, "tests", "test_torch_*.py")))
-    assert check.main(["check", "cuda_pt_torch", "chip_smoke.py", *tests]) == 0
+    assert check.main(["check", "cuda_pt_torch", "tools", "chip_smoke.py", *tests]) == 0
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))

@@ -98,3 +98,16 @@ def test_film_welford_matches_reference():
     np.testing.assert_allclose(t_film.variance(ft).numpy(), np.asarray(j_film.variance(fj)),
                                rtol=1e-5, atol=1e-7)
     np.testing.assert_array_equal(t_film.export_numpy(ft), j_film.export_numpy(fj))
+
+
+@pytest.mark.parametrize("seed,sample", [(0, 0), (7, 3), (12345, 100001)])
+def test_wl_stratum_u_bit_equal(seed, sample):
+    """The dispersion wavelength stratum (models/path_tracer.wl_stratum_u)
+    equals the reference's bit for bit, up to sample indices past 1e5."""
+    from cuda_pt_torch.models import path_tracer as t_pt
+    from cuda_pt_tpu.models import path_tracer as j_pt
+
+    lane = np.arange(0, 4096, 3, dtype=np.int32)
+    got = t_pt.wl_stratum_u(seed, sample, torch.as_tensor(lane)).numpy()
+    want = np.asarray(j_pt.wl_stratum_u(seed, sample, jnp.asarray(lane)))
+    np.testing.assert_array_equal(got, want)

@@ -30,6 +30,20 @@ SPECS = {
     "white": None,
     "mirror": BSDFSpec(btype=TT.BSDF_SPECULAR, k_d=(0.95, 0.95, 0.95)),
     "glass": BSDFSpec(btype=TT.BSDF_TRANSLUCENT, k_s=(0.98, 0.98, 0.98), ior=1.5),
+    "gold": BSDFSpec(btype=TT.BSDF_GGX_CONDUCTOR, eta=(0.143, 0.375, 1.444),
+                     k=(3.983, 2.386, 1.603), roughness_x=0.2, roughness_y=0.2),
+    "plastic": BSDFSpec(btype=TT.BSDF_PLASTIC, k_d=(0.1, 0.3, 0.65), k_s=(1.0, 1.0, 1.0),
+                        ior=1.5, thickness=0.2),
+    "rough_glass": BSDFSpec(btype=TT.BSDF_GGX_DIELECTRIC, k_s=(0.95, 0.95, 0.95), ior=1.5,
+                            roughness_x=0.25, roughness_y=0.25),
+}
+# scenes of the K3 envelope and the remaining families: (builder, spp)
+K3_SCENES = {
+    "oren_nayar_forward": lambda dev: t_ts.oren_nayar_forward(32, 32, device=dev),
+    "spot": lambda dev: t_ts.spot_light(32, 32, device=dev),
+    "furnace": lambda dev: t_ts.furnace(32, 32, device=dev),
+    "textured_floor": lambda dev: t_ts.textured_floor(32, 32, device=dev),
+    "kitchen_small": lambda dev: t_ts.kitchen_stress(32, 32, grid=2, ns=6, nt=4, device=dev),
 }
 
 
@@ -60,6 +74,23 @@ def test_kernel_matches_plain(cuda, kind, nee_m):
     Lp = t_mk.trace_megakernel_reference(scene, md, o, d, rng, nee_candidates=nee_m)
     assert torch.isfinite(Lk).all()
     assert _lanes_differing(Lk, Lp) <= 0.02
+
+
+@pytest.mark.parametrize("kind", list(K3_SCENES))
+def test_kernel_matches_plain_k3_envelope(cuda, kind):
+    """The K3 flags (envmap, diffuse textures, dispersion), Oren-Nayar,
+    Forward and the area-spot cone: kernel vs its plain version."""
+    scene, cam, _ = K3_SCENES[kind](cuda)
+    pack = t_mk.make_pack(scene)
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
+    rng = t_qmc.make_state("pcg", 5, perm, 0)
+    o, d, rng = t_cam.generate_rays(cam, perm, rng)
+    md = MaxDepthParams()
+    Lk = t_mk.trace_megakernel(pack, md, o, d, rng)
+    Lp = t_mk.trace_megakernel_reference(scene, md, o, d, rng)
+    assert torch.isfinite(Lk).all()
+    assert _lanes_differing(Lk, Lp) <= 0.02
+    assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3 * max(1.0, abs(float(Lp.mean())))
 
 
 @pytest.mark.parametrize("nee_m", [1, 4])

@@ -16,7 +16,6 @@ from cuda_pt_torch.ops import megakernel as t_mk
 from cuda_pt_torch.scene import bridge
 from cuda_pt_torch.scene import testscenes as t_ts
 from cuda_pt_torch.scene import types as TT
-from cuda_pt_torch.scene.builder import BSDFSpec
 from cuda_pt_tpu.core import camera as j_cam
 from cuda_pt_tpu.core import qmc as j_qmc
 from cuda_pt_tpu.core.config import MaxDepthParams as JMD
@@ -67,12 +66,16 @@ def test_closest_hit_w8_cpu_is_brute_force_reference():
     np.testing.assert_allclose(b2.numpy(), np.asarray(hj["b2"]), rtol=1e-5, atol=1e-6)
 
 
-def test_envelope_matches_reference_on_supported_families():
-    sj, _, _ = j_ts.cornell_box(8, 8)
-    assert j_mk.megakernel_ok(sj) and t_mk.megakernel_ok(bridge.scene_from_numpy(flatten_jax_scene(sj)))
-    plastic = BSDFSpec(btype=TT.BSDF_PLASTIC, k_d=(0.5, 0.5, 0.5))
-    st, _, _ = t_ts.cornell_box(8, 8, tall_box_bsdf=plastic)
-    assert not t_mk.megakernel_ok(st)  # narrowed: only three families ported
+@pytest.mark.parametrize("btype", [TT.BSDF_LAMBERTIAN, TT.BSDF_PLASTIC, TT.BSDF_GGX_CONDUCTOR,
+                                   TT.BSDF_DISPERSION, TT.BSDF_PLASTIC_FORWARD])
+def test_envelope_matches_reference_on_supported_families(btype):
+    """Every family the TPU kernel takes, the port's envelope takes;
+    Plastic-forward stays outside on both."""
+    from cuda_pt_tpu.scene import builder as j_builder
+
+    sj, _, _ = j_ts.cornell_box(8, 8, tall_box_bsdf=j_builder.BSDFSpec(btype=btype))
+    st = bridge.scene_from_numpy(flatten_jax_scene(sj))
+    assert t_mk.megakernel_ok(st) == j_mk.megakernel_ok(sj) == (btype != TT.BSDF_PLASTIC_FORWARD)
 
 
 def test_kernel_input_check_rejects_cpu_tensors():

@@ -109,10 +109,93 @@ def test_renderer_default_device_needs_cuda():
 
 
 def test_renderer_rejects_scene_outside_envelope_on_cuda():
-    plastic = BSDFSpec(btype=TT.BSDF_PLASTIC, k_d=(0.5, 0.5, 0.5))
-    scene, cam, _ = t_ts.cornell_box(8, 8, tall_box_bsdf=plastic)
-    with pytest.raises(ValueError, match="envelope"):
-        Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), device="cuda")
+    """Plastic-forward is outside the fused kernel, as in the reference:
+    the Renderer raises and names the ROADMAP item, on any device."""
+    pfw = BSDFSpec(btype=TT.BSDF_PLASTIC_FORWARD, k_d=(0.5, 0.5, 0.5))
+    scene, cam, _ = t_ts.cornell_box(8, 8, tall_box_bsdf=pfw)
+    for device in ("cuda", "cpu"):
+        with pytest.raises(ValueError, match="envelope.*ROADMAP Queue 1 item 5"):
+            Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), device=device)
+
+
+def test_renderer_kitchen_flags_cpu():
+    """kitchen_stress renders through the Renderer (the plain version on
+    the CPU) with all three K3 flags reported."""
+    scene, cam, _ = t_ts.kitchen_stress(6, 4, grid=2, ns=6, nt=4)
+    r = Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=3), seed=2), device="cpu")
+    img = r.render(1)
+    info = r.info()
+    assert (info["has_env"], info["textured"], info["has_disp"]) == (True, True, True)
+    assert img.shape == (4, 6, 3) and np.isfinite(img).all() and img.mean() > 0.01
+
+
+def test_composed_path_kitchen_matches_jax():
+    """models/path_tracer.trace_paths (the composed estimator: envmap NEE
+    with importance tables and MIS, textured make_ctx, the skip walk above
+    64 prims) against JAX pt.trace_paths per lane on kitchen_stress 8x8."""
+    import jax.numpy as jnp
+
+    from cuda_pt_torch.models import path_tracer as t_pt
+    from cuda_pt_tpu.core import camera as j_cam
+    from cuda_pt_tpu.core import qmc as j_qmc
+
+    sj, cj, _ = j_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    lane = jnp.arange(64, dtype=jnp.int32)
+    o, d, rng = j_cam.generate_rays(cj, lane, j_qmc.make_state("pcg", 5, lane, 1))
+    Lj = np.asarray(j_pt.trace_paths(sj, JMD(max_depth=3), o, d, rng, use_bvh=True))
+    st = bridge.scene_from_numpy(flatten_jax_scene(sj))
+    Lt = t_pt.trace_paths(st, MaxDepthParams(max_depth=3), torch.tensor(np.asarray(o)),
+                          torch.tensor(np.asarray(d)),
+                          torch.tensor(np.asarray(rng).astype(np.int64))).numpy()
+    assert Lj.mean() > 0.05
+    assert np.isclose(Lt, Lj, rtol=1e-4, atol=1e-5).all(axis=-1).mean() >= 0.95
+    assert abs(Lt.mean() - Lj.mean()) <= 1e-3 * Lj.mean()
+
+
+def _golden_furnace():
+    scene, cam, _ = t_ts.furnace(16, 16, albedo=0.75)
+    return scene, cam, MaxDepthParams(max_depth=12, max_diffuse=12), 16, 9
+
+
+def _golden_rough_pane():
+    from cuda_pt_torch.scene.builder import EmitterSpec, SceneBuilder
+
+    b = SceneBuilder()
+    q = t_ts.quad
+    glass = b.add_bsdf(BSDFSpec(btype=TT.BSDF_GGX_DIELECTRIC, k_s=(1, 1, 1), ior=1.5,
+                                roughness_x=0.2, roughness_y=0.2))
+    white = b.add_bsdf(BSDFSpec(k_d=(0.7, 0.7, 0.7)))
+    dark = b.add_bsdf(BSDFSpec(k_d=(0, 0, 0)))
+    em = b.add_emitter(EmitterSpec(emission=(1, 1, 1), scaler=10.0))
+    b.add_mesh(q([-2, 0, -2], [-2, 0, 2], [2, 0, 2], [2, 0, -2]), white)
+    b.add_mesh(q([-0.5, 1.5, -0.5], [0.5, 1.5, -0.5], [0.5, 1.5, 0.5], [-0.5, 1.5, 0.5]), dark,
+               emitter_id=em)
+    b.add_mesh(q([-1, 0.6, -1], [1, 0.6, -1], [1, 0.6, 1], [-1, 0.6, 1]), glass)
+    cam = t_cam.make_camera((0, 1.1, -2.5), (0, 0.3, 0), fov=45, width=24, height=24)
+    return b.compile(), cam, MaxDepthParams(max_depth=5, max_transmit=6), 16, 31
+
+
+def _golden_cornell_on():
+    scene, cam, _ = t_ts.cornell_box(24, 24, tall_box_bsdf=BSDFSpec(
+        btype=TT.BSDF_OREN_NAYAR, k_d=(0.6, 0.5, 0.4), roughness_x=0.6, roughness_y=0.6))
+    return scene, cam, MaxDepthParams(max_depth=4), 16, 8
+
+
+@pytest.mark.parametrize("name,make", [("furnace_a075_16_s9", _golden_furnace),
+                                       ("rough_dielectric_pane_24_s31", _golden_rough_pane),
+                                       ("cornell_on_24_s8", _golden_cornell_on)])
+def test_composed_render_matches_golden(name, make):
+    """models/path_tracer.render against the committed JAX goldens at
+    test_golden._check's tolerances (the goldens are only read)."""
+    from cuda_pt_torch.models import path_tracer as t_pt
+
+    scene, cam, md, spp, seed = make()
+    img = t_pt.render(scene, cam, md, spp=spp, seed=seed).numpy()
+    ref = np.load(os.path.join(os.path.dirname(GOLDEN), f"{name}.npz"))["img"].astype(np.float32)
+    assert img.shape == ref.shape
+    match = np.isclose(img, ref, atol=2e-4, rtol=1e-4).mean()
+    assert match > 0.995, f"{name}: {match:.4f} of pixels match"
+    assert abs(float(img.mean()) - float(ref.mean())) < 5e-4
 
 
 @pytest.mark.parametrize("rtype", [RendererType.WAVEFRONT_PT, RendererType.VOLUME_PT,

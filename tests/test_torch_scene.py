@@ -1,6 +1,8 @@
 """Port scene compile and kernel pack against the JAX reference: NumPy BVH
-bit-equal, w8 collapse equal, cornell scene arrays equal (the reference
-builder given the same NumPy BVH), make_pack(node_fmt="w8") bit-equal."""
+bit-equal, w8 collapse equal, cornell and kitchen scene arrays equal (the
+reference builder given the same NumPy BVH; kitchen adds the texture atlas
+and the envmap importance tables), make_pack(node_fmt="w8") bit-equal with
+the kernel K3 inputs equal to the reference pack's."""
 
 import dataclasses
 
@@ -75,10 +77,19 @@ def test_bvh_build_bit_equal_numpy_path(prims):
     assert (wt.max_leaf, wt.max_stack) == (wj.max_leaf, wj.max_stack)
 
 
-@pytest.mark.parametrize("kind", ["white", "mirror", "glass"])
-def test_cornell_scene_arrays_equal(numpy_bvh_reference, kind):
+def _scene_pair(kind):
+    if kind == "kitchen":
+        st, ct, _ = t_ts.kitchen_stress(20, 12, grid=2, ns=6, nt=4)
+        sj, cj, _ = j_ts.kitchen_stress(20, 12, grid=2, ns=6, nt=4)
+        return st, ct, sj, cj
     st, ct, _ = t_ts.cornell_box(20, 12, tall_box_bsdf=_tall_box(kind, t_builder))
     sj, cj, _ = j_ts.cornell_box(20, 12, tall_box_bsdf=_tall_box(kind, j_builder))
+    return st, ct, sj, cj
+
+
+@pytest.mark.parametrize("kind", ["white", "mirror", "glass", "kitchen"])
+def test_cornell_scene_arrays_equal(numpy_bvh_reference, kind):
+    st, ct, sj, cj = _scene_pair(kind)
     flat = flatten_jax_scene(sj)
     for name in TABLES:
         table = getattr(st, name)
@@ -109,6 +120,44 @@ def test_make_pack_w8_bit_equal(kind):
     assert pt.max_stack == pj.max_stack
     assert pt.max_leaf == pj.max_leaf and pt.tri_only == pj.tri_only
     assert t_mk.megakernel_ok(st) and j_mk.megakernel_ok(sj)
+
+
+def test_make_pack_k3_inputs_equal_reference():
+    """kitchen_stress: the six TPU tables bit-equal, and the kernel's K3
+    inputs (per-prim uvs, diffuse texture per BSDF, texture atlas, envmap
+    parameters) equal the reference pack's epilogue arrays."""
+    sj, _, _ = j_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    st = bridge.scene_from_numpy(flatten_jax_scene(sj))
+    pj = j_mk.make_pack(sj, node_fmt="w8")
+    pt = t_mk.make_pack(st, node_fmt="w8")
+    for k in t_mk.PACK_KEYS:
+        np.testing.assert_array_equal(pt[k].numpy(), np.asarray(pj[k]), err_msg=k)
+    assert (pt.has_env, pt.textured, pt.has_disp) == (pj.has_env, pj.textured, pj.has_disp)
+    assert pt.has_env and pt.textured and pt.has_disp
+    P = st.geom.num_prims
+    auv = np.asarray(pj["auv"])[:, : j_mk.UV_PER_ROW * 6].reshape(-1, 6)[:P]
+    np.testing.assert_array_equal(pt["uvs"].numpy()[:, :6], auv)
+    np.testing.assert_array_equal(pt["tdiff"].numpy(), np.asarray(pj["tdiff"]))
+    np.testing.assert_array_equal(pt["texels"].numpy(), np.asarray(pj["tex_texels"]))
+    np.testing.assert_array_equal(pt["tinfo"].numpy()[:, :3], np.stack(
+        [np.asarray(pj[k]) for k in ("tex_offset", "tex_width", "tex_height")], axis=1))
+    env = pt["envrow"].numpy()
+    assert env[0] == int(np.asarray(pj["env_tid"]))
+    np.testing.assert_array_equal(env[1:4], np.asarray(pj["env_extra"])[:3])
+    np.testing.assert_array_equal(env[4:7], np.asarray(pj["env_base"]))
+
+
+def test_kitchen_full_tree_fits_the_kernel_stack():
+    """The port's own NumPy tree for full-size kitchen_stress: its w8
+    traversal stack (+8 for the walk's unconditional write) fits
+    MK_MAX_STACK, and its leaves fit the stack entry's 4-bit count."""
+    from cuda_pt_torch.ops import cuda_build
+
+    st, _, _ = t_ts.kitchen_stress(8, 8)
+    wb = t_wide.from_bvharrays(st.bvh)
+    assert st.geom.num_prims == 98790
+    assert int(wb.max_stack) + 8 <= cuda_build.MK_MAX_STACK
+    assert int(st.bvh.max_leaf) <= t_mk.MK_MAX_LEAF
 
 
 def test_tile_swizzle_matches_reference():
