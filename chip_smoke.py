@@ -33,10 +33,26 @@ Phases (any failure exits non-zero):
      that output held to the phase-4 contract against the plain version
      (skip walk) on the same lanes; prints the BVH build seconds,
      wall and kernel ms per spp, paths/s, the bound (count_stats, with the
-     texel and uv bytes) and the kernel's share of it.
+     texel and uv bytes) and the kernel's share of it;
+  4 (media). kernel K4, the volume path tracer's MED instantiations,
+     against its plain version (the fused volume path tracer) under the
+     phase-4 contract, 256x256, 4 spp: medium_box (HG), cornell_vpt (the
+     camera in a medium), nested_media (media nested two deep), medium_box
+     with a dual-HG and with a Rayleigh phase, and medium_box with an
+     envmap (the K3 x MED instantiation);
+  7. the main path of the volume path tracer on full-size medium_cbox
+     (36,888 triangles, media nested two deep): prints the BVH build
+     seconds; api.Renderer(renderer=VOLUME_PT) at 1024x1024, 16 spp,
+     default depth caps; the launch count (all of the MED instantiation)
+     and a finite image; one spp of its rays through the kernel at the full
+     grid, a 65,536-lane Z-order block of that output held to the phase-4
+     contract against the plain version on the same lanes; prints kernel
+     and wall ms per spp, paths/s, launches per frame, the walk work
+     (count_stats, with the transmittance walks) and the share of the bound.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
-for quick checks, ``--kitchen-spp`` phase 6; ``--profile`` adds a
+for quick checks and ``--kitchen-spp`` phase 6; phase 7 always runs at
+VPT_SPP samples per pixel and holds VPT_BLOCK lanes. ``--profile`` adds a
 torch.profiler breakdown of a few main-path passes of each scene.
 """
 
@@ -64,6 +80,12 @@ OPS_SLAB = 22
 OPS_TRI = 45
 RTOL, ATOL, MAX_LANE_FRAC = 1e-4, 1e-5, 0.02
 MEAN_TOL = 5e-3
+# lanes of the surface main path (phase 6) held to the plain version
+KITCHEN_BLOCK = 65536
+# the volume main path (phase 7): samples per pixel, and the lanes held to
+# the plain version (its run on this block stays under 30 s on an H100)
+VPT_SPP = 16
+VPT_BLOCK = 65536
 
 
 T0 = time.perf_counter()
@@ -224,7 +246,7 @@ def phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T):
         for i in range(4):
             rng = qmc.make_state("pcg", 0, perm, i)
             o, d, rng = cam_mod.generate_rays(cam, perm, rng)
-            L_p = mk.trace_megakernel_reference(scene, md, o, d, rng)
+            L_p = mk.trace_megakernel_reference(pack, md, o, d, rng)
             L_k = mk.trace_megakernel(pack, md, o, d, rng)
             frac, _ = check_contract(f"{name} pass {i}", L_k, L_p)
             worst = max(worst, frac)
@@ -243,6 +265,53 @@ def phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T):
     k = res["kitchen_small"]
     if not (k["has_env"] and k["textured"] and k["has_disp"]):
         raise SystemExit("kitchen_small did not set all three K3 flags")
+    return res
+
+
+def phase_kernel_media(mk, tts, dev, MaxDepthParams, T):
+    """Phase 4 for kernel K4: vpt packs of the media scenes, every launch of
+    the MED instantiation the scene needs."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+
+    md = MaxDepthParams()
+    variants = {
+        "medium_box": lambda: tts.medium_box(256, 256, device=dev),
+        "cornell_vpt": lambda: tts.cornell_vpt(256, 256, device=dev),
+        "nested_media": lambda: tts.nested_media(256, 256, device=dev),
+        "medium_box_dual_hg": lambda: tts.medium_box(256, 256, phase_type=T.PHASE_DUAL_HG,
+                                                     phase_g=(0.7, -0.4), phase_w=0.6,
+                                                     device=dev),
+        "medium_box_rayleigh": lambda: tts.medium_box(256, 256, phase_type=T.PHASE_RAYLEIGH,
+                                                      device=dev),
+        "medium_box_env": lambda: tts.medium_box(256, 256, env_scale=0.5, device=dev),
+    }
+    res = {}
+    for name, make in variants.items():
+        scene, cam, _ = make()
+        pack = mk.make_pack(scene, vpt=True)
+        want = "K3+ALL+MED" if pack.has_env else "ALL+MED"
+        perm, _ = mk.tile_swizzle(cam.width, cam.height, dev)
+        worst, means_k, means_p = 0.0, [], []
+        for i in range(4):
+            rng = qmc.make_state("pcg", 0, perm, i)
+            o, d, rng = cam_mod.generate_rays(cam, perm, rng)
+            L_p = mk.trace_megakernel_reference(pack, md, o, d, rng)
+            mk.reset_launches()
+            L_k = mk.trace_megakernel(pack, md, o, d, rng)
+            if mk.INSTANTIATION_LAUNCHES != {want: 1}:
+                raise SystemExit(f"{name}: launched {mk.INSTANTIATION_LAUNCHES}, not {want}")
+            frac, _ = check_contract(f"{name} pass {i}", L_k, L_p)
+            worst = max(worst, frac)
+            means_k.append(float(L_k.mean()))
+            means_p.append(float(L_p.mean()))
+        row = {"lanes_differ": worst, "mean_plain": float(np.mean(means_p)),
+               "mean_kernel": float(np.mean(means_k)), "instantiation": want}
+        res[name] = row
+        log(f"[4] {name} 256x256x4spp ({want}): lanes differing (worst pass) {worst:.5f}; means "
+            f"plain {row['mean_plain']:.6f} kernel {row['mean_kernel']:.6f}")
+        if abs(row["mean_kernel"] - row["mean_plain"]) > MEAN_TOL:
+            raise SystemExit(f"{name}: 4-spp image means differ by more than {MEAN_TOL}")
     return res
 
 
@@ -283,7 +352,7 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
     k_ms = events_ms(lambda: mk.trace_megakernel(pack, md, o, d, rng_bits), 10)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    L_p = mk.trace_megakernel_reference(r.scene, md, o, d, rng)
+    L_p = mk.trace_megakernel_reference(pack, md, o, d, rng)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     L_k, stats = mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
@@ -319,10 +388,7 @@ def bound_of(stats, B: int, pack_bytes: int) -> tuple:
 
 def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingConfig,
                   ParsedScene, Renderer):
-    """The slice's main path: the Renderer on full-size kitchen_stress."""
-    from cuda_pt_torch.core import camera as cam_mod
-    from cuda_pt_torch.core import qmc
-
+    """The surface main path: the Renderer on full-size kitchen_stress."""
     spp = args.kitchen_spp
     md = MaxDepthParams()
     parsed = ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height, md=md,
@@ -346,29 +412,45 @@ def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingC
         f"({wall * 1e3 / spp:.2f} ms per spp), launches {launches}, image mean "
         f"{float(img.mean()):.6f}, flags {r._pack.flags}")
 
-    # the main path's rays of sample 0 through the kernel at the full grid;
-    # one 65,536-lane Z-order block of its output (the one holding the image
-    # centre) against the plain version on the same lanes (lanes are
-    # independent)
-    pack = r._pack
+    k = hold_main_path(mk, r, md, KITCHEN_BLOCK, "6", "kitchen",
+                       f"incl. {mk.pack_bytes(r._pack, mk.K3_KEYS)} of uvs, texels and K3 tables")
+    return {
+        "name": "trace_megakernel (K3: has_env, textured, has_disp)", "route": "cuda",
+        "source": "cuda_pt_torch/csrc/megakernel.cu",
+        "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:1445",
+        "launches": launches["trace_megakernel"], **k, "library_ms": None,
+        "wall_ms_per_spp": wall * 1e3 / spp, "bvh_build_s": build_s,
+        "num_prims": scene.geom.num_prims,
+    }, r
+
+
+def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str = "") -> dict:
+    """The main path's rays of sample 0 through the kernel at the full grid;
+    one blk-lane Z-order block of its output (the one holding the image
+    centre) held to the phase-4 contract against the plain version on the
+    same lanes (lanes are independent); the kernel's time per spp (CUDA
+    events) and on the block alone; its walk work and bound."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+
+    cam, pack = r.camera, r._pack
     B = cam.width * cam.height
     perm, inv = mk.tile_swizzle(cam.width, cam.height, r.device)
     rng = qmc.make_state("pcg", 0, perm, 0)
-    o, d, rng = cam_mod.generate_rays(r.camera, perm, rng)
-    blk = 65536
+    o, d, rng = cam_mod.generate_rays(cam, perm, rng)
     k0 = int(inv[(cam.height // 2) * cam.width + cam.width // 2]) // blk * blk
     ob, db, rb = (x[k0:k0 + blk].contiguous() for x in (o, d, rng))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    L_p = mk.trace_megakernel_reference(r.scene, md, ob, db, rb)
+    L_p = mk.trace_megakernel_reference(pack, md, ob, db, rb)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     L_k = mk.trace_megakernel(pack, md, o, d, rng)
     torch.cuda.synchronize()
     if not torch.isfinite(L_k).all():
-        raise SystemExit("kitchen main path rays: non-finite kernel output")
+        raise SystemExit(f"{label} main path rays: non-finite kernel output")
     L_kb = L_k[k0:k0 + blk]
-    frac, dmean = check_contract(f"kitchen main path {B} rays, block of {blk}", L_kb, L_p)
+    frac, dmean = check_contract(f"{label} main path {B} rays, block of {blk}", L_kb, L_p)
     block_ms = events_ms(lambda: mk.trace_megakernel(pack, md, ob, db, mk.rng_bits(rb)), 5)
 
     rng_bits = mk.rng_bits(rng)
@@ -376,22 +458,60 @@ def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingC
     _, stats = mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
     torch.cuda.synchronize()
     bound_ms, bound_by, nodes, prims, nbytes = bound_of(stats, B, mk.pack_bytes(pack))
-    log(f"[6] kernel {k_ms:.3f} ms/spp, {B / (k_ms * 1e-3):.4g} paths/s; block of {blk} lanes "
-        f"of the {B}-ray launch vs the plain version ({plain_ms:.1f} ms on the block): "
+    log(f"[{phase}] kernel {k_ms:.3f} ms/spp, {B / (k_ms * 1e-3):.4g} paths/s; block of {blk} "
+        f"lanes of the {B}-ray launch vs the plain version ({plain_ms:.1f} ms on the block): "
         f"{frac:.7f} lanes differ, means differ by {dmean:.3g}; the kernel launched on the "
         f"block alone {block_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nodes} wide nodes, "
-        f"{prims} prim tests, {nbytes} bytes incl. {mk.pack_bytes(pack, mk.K3_KEYS)} of uvs, "
-        f"texels and K3 tables); {bound_ms / k_ms:.4f} of bound")
+        f"{prims} prim tests, {nbytes} bytes {bytes_note}); {bound_ms / k_ms:.4f} of bound")
+    return {"max_abs_err": float((L_kb - L_p).abs().max()), "ms": k_ms, "plain_ms": plain_ms,
+            "plain_lanes": blk, "block_kernel_ms": block_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
+            "mean_differ": dmean, "wide_nodes": nodes, "prim_tests": prims}
+
+
+def phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, ParsedScene,
+              Renderer):
+    """The volume path tracer's main path: the Renderer on full-size
+    medium_cbox through kernel K4."""
+    t0 = time.perf_counter()
+    scene, cam, _ = tts.medium_cbox(1024, 1024, device=dev)
+    build_s = time.perf_counter() - t0
+    spp = VPT_SPP
+    md = MaxDepthParams()
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height, md=md,
+                                                     seed=0))
+    r = Renderer(parsed, renderer=RendererType.VOLUME_PT, nee_candidates=1)  # device=None -> cuda
+    info = r.info()
+    if not info["has_media"]:
+        raise SystemExit(f"medium_cbox: the Renderer's pack has no media: {info}")
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(spp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    inst = dict(mk.INSTANTIATION_LAUNCHES)
+    if launches["trace_megakernel"] <= 0 or inst != {"ALL+MED": launches["trace_megakernel"]}:
+        raise SystemExit(f"VPT main path did not launch kernel K4 (MED) alone: {launches} {inst}")
+    if img.shape != (cam.height, cam.width, 3) or not np.isfinite(img).all():
+        raise SystemExit("VPT main path image is not finite / has the wrong shape")
+    log(f"[7] medium_cbox ({scene.geom.num_prims} triangles, BVH built in {build_s:.1f} s; "
+        f"{r._pack['nodes'].shape[0]} wide nodes, walk stack {r._pack.max_stack}, max leaf "
+        f"{r._pack.max_leaf}): Renderer VOLUME_PT {cam.width}x{cam.height}x{spp}spp: "
+        f"{wall:.2f} s wall ({wall * 1e3 / spp:.2f} ms per spp), launches {launches} {inst} "
+        f"({launches['trace_megakernel'] / spp:g} per spp), image mean {float(img.mean()):.6f}")
+
+    k = hold_main_path(mk, r, md, VPT_BLOCK, "7", "VPT",
+                       f"incl. {mk.pack_bytes(r._pack, mk.MED_KEYS)} of the media row; the "
+                       f"walk work incl. the transmittance walks")
     return {
-        "name": "trace_megakernel (K3: has_env, textured, has_disp)", "route": "cuda",
+        "name": "trace_megakernel (K4: has_media)", "route": "cuda",
         "source": "cuda_pt_torch/csrc/megakernel.cu",
-        "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:1445",
-        "launches": launches["trace_megakernel"], "max_abs_err": float((L_kb - L_p).abs().max()),
-        "ms": k_ms, "plain_ms": plain_ms, "plain_lanes": blk, "block_kernel_ms": block_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac, "mean_differ": dmean,
-        "wide_nodes": nodes, "prim_tests": prims, "wall_ms_per_spp": wall * 1e3 / spp,
-        "bvh_build_s": build_s, "num_prims": scene.geom.num_prims,
+        "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:1386",
+        "launches": launches["trace_megakernel"], **k, "library_ms": None,
+        "wall_ms_per_spp": wall * 1e3 / spp, "bvh_build_s": build_s,
+        "num_prims": scene.geom.num_prims, "instantiations": inst,
     }, r
 
 
@@ -440,7 +560,7 @@ def main():
         log("chip_smoke: CUDA is not available")
         return 1
     from cuda_pt_torch.api import Renderer
-    from cuda_pt_torch.core.config import MaxDepthParams, RenderingConfig
+    from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import cuda_build as cb
     from cuda_pt_torch.ops import megakernel as mk
     from cuda_pt_torch.scene import testscenes as tts
@@ -455,15 +575,19 @@ def main():
     walk = phase_walk(mk, tts, dev)
     walk_k, kscene, kcam, build_s = phase_walk_kitchen(mk, tts, dev)
     res4 = phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T)
+    res4_media = phase_kernel_media(mk, tts, dev, MaxDepthParams, T)
     k2, r = phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene, Renderer,
                        res4["cornell"]["mean_plain"])
     k3, rk = phase_kitchen(mk, dev, args, kscene, kcam, build_s, MaxDepthParams, RenderingConfig,
                            ParsedScene, Renderer)
-    extra = {"profile": phase_profile(r), "profile_kitchen": phase_profile(rk)} \
-        if args.profile else {}
+    k4, rv = phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, ParsedScene,
+                       Renderer)
+    extra = {"profile": phase_profile(r), "profile_kitchen": phase_profile(rk),
+             "profile_vpt": phase_profile(rv)} if args.profile else {}
     # the two result lines carry no time prefix: each is one JSON object
-    print(json.dumps({"kernels": [k2, k3], "card": card, "walk_check": walk,
-                      "walk_check_kitchen": walk_k, "kernel_check": res4, **extra}), flush=True)
+    print(json.dumps({"kernels": [k2, k3, k4], "card": card, "walk_check": walk,
+                      "walk_check_kitchen": walk_k, "kernel_check": res4,
+                      "kernel_check_media": res4_media, **extra}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,19 +1,23 @@
-"""High-level renderer API (port of cuda_pt_tpu/api.py, MEGAKERNEL_PT).
+"""High-level renderer API (port of cuda_pt_tpu/api.py, MEGAKERNEL_PT and
+VOLUME_PT).
 
 One stateful Renderer over a compiled scene: the film and the camera stay
 on the render device between passes, and every pass runs the path loop
 through the whole-path megakernel (ops/megakernel.py): the CUDA kernel on
 a CUDA device, its plain PyTorch version on the CPU. ``device=None`` means
 CUDA and raises where CUDA is absent; pass ``device="cpu"`` to render on
-the CPU. Every scene inside the fused kernel's surface envelope renders
-(all surface BSDF families but Plastic-forward, area / area-spot / point
+the CPU. Every scene inside the fused kernel's envelope renders (all
+surface BSDF families but Plastic-forward, area / area-spot / point
 emitters, envmaps, diffuse textures, dispersion; megakernel_ok), at every
 scene size: the reference sends scenes of 512 boxes or more to its
 sorted-wavefront kernel (K5), which the port does not have yet.
+RendererType.VOLUME_PT renders homogeneous participating media through
+the same kernel built for them (K4; a vpt pack, nee_candidates=1), as the
+reference's accelerator route does.
 
-Still to port (ROADMAP Queue 1): other renderer families, render_adaptive,
-render_aovs, denoise, film checkpoints, the XML parser, the Sobol sampler
-(the Renderer draws from pcg streams only).
+Still to port (ROADMAP Queue 1): other renderer families, grid media,
+render_adaptive, render_aovs, denoise, film checkpoints, the XML parser,
+the Sobol sampler (the Renderer draws from pcg streams only).
 """
 
 from __future__ import annotations
@@ -36,21 +40,22 @@ from .scene.xml_parser import ParsedScene, load_xml
 # renderer family -> the ROADMAP Queue 1 item that ports it
 _WAITING = {
     RendererType.WAVEFRONT_PT: "item 7 (models/wavefront.py)",
-    RendererType.VOLUME_PT: "item 8 (media and the volume path tracer)",
     RendererType.MEGAKERNEL_LT: "item 9 (models/light_tracer.py)",
     RendererType.DEPTH: "item 10 (models/debug_renderers.py)",
     RendererType.BVH_COST: "item 10 (models/debug_renderers.py)",
 }
 
 
-def _envelope_message(scene: T.Scene) -> str:
-    """Why a scene is outside the kernel's envelope, with the ROADMAP item
-    that would bring it in."""
+def _envelope_message(scene: T.Scene, vpt: bool) -> str:
+    """Why a scene is outside the kernel's envelope, with the renderer or
+    the ROADMAP item that would bring it in."""
     if T.BSDF_PLASTIC_FORWARD in scene.present_bsdfs:
         item = ("Plastic-forward stays outside the fused kernel, as in the reference; the "
                 "Renderer's composed-path route for it waits for ROADMAP Queue 1 item 5")
-    elif int(scene.objects.medium_in.max()) >= 0 or scene.cam_medium >= 0:
-        item = "media wait for kernel K4 (ROADMAP Queue 2) and Queue 1 item 8"
+    elif mk.scene_has_media(scene) and not vpt:
+        item = "participating media render with renderer=RendererType.VOLUME_PT"
+    elif vpt and bool((scene.bsdfs.tex_ids >= 0).any()):
+        item = "the fused volume path tracer takes no textures, as in the reference"
     else:
         item = "see megakernel_ok for the limits; ROADMAP Queue 2 lists what is to port"
     return f"scene outside the fused-megakernel envelope: {item}"
@@ -65,19 +70,27 @@ class Renderer:
         path (raises until the parser is ported).
 
         nee_candidates: M > 1 = RIS light sampling (M candidates, one
-        shadow ray). max_lanes_per_call: split a pass into full-width row
+        shadow ray); the volume path tracer takes 1. max_lanes_per_call: split a pass into full-width row
         bands of at most this many lanes, one kernel launch each (0 = one
         launch per pass; default from CUDA_PT_MAX_LANES_PER_CALL, else 0).
         Bands are bit-identical to the unbanded pass."""
         self.parsed: ParsedScene = load_xml(source) if isinstance(source, str) else source
         self.config = self.parsed.config
         self.rtype = RendererType(renderer or self.config.renderer)
-        if self.rtype != RendererType.MEGAKERNEL_PT:
+        if self.rtype not in (RendererType.MEGAKERNEL_PT, RendererType.VOLUME_PT):
             raise NotImplementedError(
                 f"renderer {self.rtype.value!r} waits for ROADMAP Queue 1 {_WAITING[self.rtype]}")
+        vpt = self.rtype == RendererType.VOLUME_PT
+        if vpt and int(nee_candidates) != 1:
+            raise ValueError("the fused volume path tracer takes nee_candidates=1, as in the "
+                             "reference")
+        scene = self.parsed.scene
+        if vpt and bool((scene.media.mtype == T.MEDIUM_GRID).any()):
+            raise NotImplementedError("grid media wait for kernel K6 (ROADMAP Queue 2) and "
+                                      "media/grid.py (ROADMAP Queue 1 item 8)")
         self.md: MaxDepthParams = self.config.md
-        if not mk.megakernel_ok(self.parsed.scene, self.md):
-            raise ValueError(_envelope_message(self.parsed.scene))
+        if not mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"):
+            raise ValueError(_envelope_message(scene, vpt))
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device=None) renders on CUDA, which is not available; "
@@ -89,7 +102,7 @@ class Renderer:
         if max_lanes_per_call is None:
             max_lanes_per_call = int(os.environ.get("CUDA_PT_MAX_LANES_PER_CALL", "0"))
         self.max_lanes_per_call = int(max_lanes_per_call)
-        self._pack = mk.make_pack(self.scene, node_fmt="w8")
+        self._pack = mk.make_pack(self.scene, node_fmt="w8", vpt=vpt)
         self.film = film_mod.make_film(self.camera.height, self.camera.width, self.device)
         self._frame_times = deque(maxlen=32)
         self._swizzles = {}  # (width, rows) -> Z-order (perm, inv) on the device
@@ -161,6 +174,7 @@ class Renderer:
             "sampler": "pcg",
             "nee_candidates": self.nee_candidates,
             **self._pack.flags,
+            "has_media": self._pack.has_media,
         }
 
     def update_camera(self, camera: cam_mod.Camera):

@@ -77,6 +77,9 @@
 //   tinfo : texture k at tinfo[k*4 + f], f = offset width height (int32)
 //   tdiff : diffuse texture id of bsdf b, -1 = none (int32)      (textured)
 //   envrow: tex_id scale azimuth zenith base(3) of the envmap    (has_env)
+// Kernel K4 reads attrs fields 12, 13 of prim p: medium_in (-1 = none),
+// is_null (forward BSDF or cullable object); its media row is not part of
+// the Pack (media.cuh, MedArgs).
 struct Pack {
     const float* nodes;
     const float* prims;

@@ -22,7 +22,11 @@ struct NeeCand {
     float phat; // luminance(f * le), the RIS target
 };
 
-template <bool ALL>
+// One NEE candidate: the light sample and, at a surface (SURF), the BSDF
+// toward it. The medium events of kernel K4 take the light sample alone
+// (SURF = false: m and sh unused, f / bpdf / phat unset) and weight it
+// with the phase function.
+template <bool ALL, bool SURF = true>
 __device__ __forceinline__ NeeCand nee_one(const Pack& pk, const Material& m, const Shading& sh,
                                            V3 p, uint32_t& sx, uint32_t& sy) {
     pcg2d(sx, sy);
@@ -103,8 +107,10 @@ __device__ __forceinline__ NeeCand nee_one(const Pack& pk, const Material& m, co
         c.delta = false;
     }
     c.valid = c.valid && (fmaxf(fmaxf(c.le.x, c.le.y), c.le.z) > 0.0f) && (c.pdf > 1e-12f);
-    c.f = eval_bsdf<ALL>(m, sh, c.dir, c.bpdf);
-    c.phat = 0.212671f * (c.f.x * c.le.x) + 0.715160f * (c.f.y * c.le.y)
-           + 0.072169f * (c.f.z * c.le.z);
+    if constexpr (SURF) {
+        c.f = eval_bsdf<ALL>(m, sh, c.dir, c.bpdf);
+        c.phat = 0.212671f * (c.f.x * c.le.x) + 0.715160f * (c.f.y * c.le.y)
+               + 0.072169f * (c.f.z * c.le.z);
+    }
     return c;
 }

@@ -120,7 +120,9 @@ struct ClosestHit {
 };
 
 // Closest hit over the whole scene (walk_closest_w8 + leaf_scan_closest).
-__device__ ClosestHit walk_closest(const Pack& pk, V3 o, V3 d, WalkStats& st) {
+// The non-inline walks are static: two translation units include them
+// (csrc/trace.cuh), and each keeps its own copy.
+static __device__ ClosestHit walk_closest(const Pack& pk, V3 o, V3 d, WalkStats& st) {
     V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
     int stack[MK_MAX_STACK];
     ClosestHit h{INFINITY, -1, 0.0f, 0.0f};
@@ -154,7 +156,7 @@ __device__ ClosestHit walk_closest(const Pack& pk, V3 o, V3 d, WalkStats& st) {
 
 // Any hit before t_lim * SHADOW_T_FACTOR (walk_anyhit_w8 + leaf_scan_any);
 // stops at the first occluder.
-__device__ bool walk_anyhit(const Pack& pk, V3 o, V3 d, float t_lim, WalkStats& st) {
+static __device__ bool walk_anyhit(const Pack& pk, V3 o, V3 d, float t_lim, WalkStats& st) {
     V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
     float t_gate = t_lim * SHADOW_T_FACTOR;
     int stack[MK_MAX_STACK];

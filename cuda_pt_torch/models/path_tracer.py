@@ -27,7 +27,7 @@ stratum), as in the kernel. This is the plain version of the CUDA
 megakernel (ops/megakernel.trace_megakernel_reference).
 
 Still narrowed: the differentiable mode and ToF gating (ROADMAP Queue 1
-item 4), participating media (item 8).
+item 4). Participating media render with models/volume_pt.py.
 """
 
 from __future__ import annotations
@@ -91,7 +91,8 @@ def check_supported(scene: T.Scene, md: MaxDepthParams):
     if md.max_time > 0.0:
         raise NotImplementedError("ToF gating waits for ROADMAP Queue 1 item 4")
     if int(scene.objects.medium_in.max()) >= 0 or scene.cam_medium >= 0:
-        raise NotImplementedError("participating media wait for ROADMAP Queue 1 item 8")
+        raise NotImplementedError("participating media render with models/volume_pt.py "
+                                  "(RendererType.VOLUME_PT)")
 
 
 def _on_lanes(fn, mask: torch.Tensor, fill: dict, *args):

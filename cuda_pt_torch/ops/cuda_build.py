@@ -35,7 +35,7 @@ _I = ctypes.c_int
 # entry point -> argtypes (csrc/megakernel.cu); the first pointer is a
 # host array of the pack's table pointers
 _SIGNATURES = {
-    "mk_trace": [_P] * 6 + [_I] * 12 + [_P],
+    "mk_trace": [_P] * 6 + [_I] * 15 + [_P, _P],
     "mk_closest_hit": [_P] * 7 + [_I] * 3 + [_P],
 }
 
@@ -85,6 +85,11 @@ def _sources() -> list:
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
 
 
+def units() -> list:
+    """The translation units linked into the library (csrc/*.cu)."""
+    return [f for f in _sources() if f.endswith(".cu")]
+
+
 def library_path(flags: list | None = None) -> str:
     h = hashlib.sha1(" ".join(_flags() if flags is None else flags).encode())
     for src in _sources():
@@ -102,7 +107,7 @@ def start_build(flags: list | None = None):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     log = open(out[:-3] + ".log", "w")
-    cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(CSRC, "megakernel.cu")]
+    cmd = [_nvcc(), *flags, "-o", tmp, *units()]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     proc.log, proc.tmp = log, tmp
     return proc, out

@@ -3,21 +3,27 @@
 
 ``trace_megakernel`` replaces the TPU kernel ``_kernel`` (megakernel.py:500)
 as driven by ``trace_megakernel`` (:2963, pallas_call :3083) over the TPU
-kernel's surface envelope: nine BSDF families (all but Plastic-forward),
-area, area-spot and point emitters, envmaps, diffuse-textured Lambertian
-and Oren-Nayar, and wavelength-locked dispersion (K2 with the K3 flags
-``has_env``, ``textured``, ``has_disp``), w8 nodes and f32 attrs and prims.
-The CUDA source is csrc/megakernel.cu; it is built with nvcc at first use
-(ops/cuda_build.py).
+kernel's envelope: nine BSDF families (all but Plastic-forward), area,
+area-spot and point emitters, envmaps, diffuse-textured Lambertian and
+Oren-Nayar, and wavelength-locked dispersion (K2 with the K3 flags
+``has_env``, ``textured``, ``has_disp``), and homogeneous participating
+media for the volume path tracer (K4, ``has_media``: packs made with
+``vpt=True``), w8 nodes and f32 attrs and prims. The CUDA source is
+csrc/megakernel.cu; it is built with nvcc at first use (ops/cuda_build.py).
 
 Every wrapper here takes the plain PyTorch version for CPU tensors and
 only for them; for CUDA tensors it launches its kernel or raises. Each
-launch adds one to ``LAUNCHES[name]``.
+launch adds one to ``LAUNCHES[name]``; a launch of the trace kernel also
+adds one to ``INSTANTIATION_LAUNCHES`` under the name of the template
+instantiation the C side reports it launched (``"K3+ALL+MED"``, ...).
 
 Kernels:
 - ``trace_megakernel``: the whole path per ray -> L (B, 3). Plain version
   ``trace_megakernel_reference``: the path tracer of models/path_tracer.py
-  in its ``fused`` mode (the TPU kernel's estimator) on ``kernel_scene``.
+  in its ``fused`` mode (the TPU kernel's estimator) on ``kernel_scene``;
+  for a pack with ``has_media`` the volume path tracer of
+  models/volume_pt.py in its ``fused`` mode. The pack alone decides both
+  this and the kernel's instantiation.
 - ``closest_hit_w8``: the same device walk alone -> (t, prim, b1, b2).
   Plain version: brute force up to path_tracer.BRUTE_FORCE_MAX_PRIMS
   prims, the skip walk of accel/traverse.py above. It exists so a walk
@@ -38,6 +44,7 @@ from ..accel import wide_build
 from ..core import camera as cam_mod
 from ..core import qmc
 from ..models import path_tracer as pt
+from ..models import volume_pt
 from ..scene import types as T
 from . import cuda_build
 from . import intersect as isect
@@ -60,13 +67,26 @@ KERNEL_BSDFS = (T.BSDF_LAMBERTIAN, T.BSDF_SPECULAR, T.BSDF_TRANSLUCENT, T.BSDF_P
 BASIC_BSDFS = (T.BSDF_LAMBERTIAN, T.BSDF_SPECULAR, T.BSDF_TRANSLUCENT)
 KERNEL_EMITTERS = (T.EMITTER_NULL, T.EMITTER_POINT, T.EMITTER_AREA, T.EMITTER_AREA_SPOT,
                    T.EMITTER_ENVMAP)
+# K4: the single media row holds 8 slots; the phase functions it evaluates
+# (SGGX falls back to isotropic)
+MAX_MEDIA = 8
+KERNEL_PHASES = (T.PHASE_ISOTROPIC, T.PHASE_HG, T.PHASE_DUAL_HG, T.PHASE_RAYLEIGH, T.PHASE_SGGX)
 
 LAUNCHES = {"trace_megakernel": 0, "closest_hit_w8": 0}
+INSTANTIATION_LAUNCHES = {}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    INSTANTIATION_LAUNCHES.clear()
+
+
+def instantiation_name(variant: int) -> str:
+    """csrc/megakernel.cu's instantiation bits (K3 1, ALL 2, MED 4) as a
+    name, "K2" for the pruned surface build."""
+    flags = [name for bit, name in ((1, "K3"), (2, "ALL"), (4, "MED")) if variant & bit]
+    return "+".join(flags) or "K2"
 
 
 # ---------------------------------------------------------------------------
@@ -83,16 +103,32 @@ def _real_k(cdf_row, sel_row) -> int:
     return k
 
 
-def megakernel_ok(scene: T.Scene, md=None) -> bool:
+def scene_has_media(scene: T.Scene) -> bool:
+    """An object holds a medium or the camera sits in one."""
+    return int(scene.objects.medium_in.max()) >= 0 or scene.cam_medium >= 0
+
+
+def megakernel_ok(scene: T.Scene, md=None, renderer: str = "pt") -> bool:
     """Host-side envelope check: the TPU kernel's (megakernel.py:131) without
     its VMEM-residency limits (FUSED_VMEM_BUDGET_BYTES, AUTO_COMPACT_BYTES,
     the tile-state bytes), which the card does not have: the kernel reads
     its tables from device memory. Families: all surface ones but
     Plastic-forward; emitters: null, point, area, area-spot, envmap;
     textures: the diffuse slot of Lambertian / Oren-Nayar on triangle
-    scenes only; no media, no ToF. The reference's strict=True cap (its
-    auto-pick's TPU-fault gate) has no counterpart: the port's Renderer
-    always takes the kernel, like an explicit traversal='fused' there."""
+    scenes only; no ToF. Media only under renderer="vpt" (the volume path
+    tracer), as on the TPU (:188-216): at most MAX_MEDIA of them,
+    homogeneous only (grid media need kernel K6), phases of KERNEL_PHASES,
+    no textures. The reference's strict=True cap (its auto-pick's
+    TPU-fault gate) has no counterpart: the port's Renderer always takes
+    the kernel, like an explicit traversal='fused' there."""
+    if scene_has_media(scene) or renderer == "vpt":
+        mt = _np(scene.media.mtype)
+        if renderer != "vpt" or mt.shape[0] > MAX_MEDIA or (mt == T.MEDIUM_GRID).any():
+            return False
+        if set(int(x) for x in _np(scene.media.phase_type)) - set(KERNEL_PHASES):
+            return False
+        if _np(scene.bsdfs.tex_ids).max(initial=-1) >= 0:
+            return False
     if set(scene.present_bsdfs) - set(KERNEL_BSDFS):
         return False
     bt = _np(scene.bsdfs.btype)
@@ -112,8 +148,6 @@ def megakernel_ok(scene: T.Scene, md=None) -> bool:
     sph = _np(scene.geom.is_sphere)
     if has_dt.any() and sph.any():
         return False  # the uv capture is triangle-only, as on the TPU
-    if int(scene.objects.medium_in.max()) >= 0 or scene.cam_medium >= 0:
-        return False
     if md is not None and md.max_time > 0.0:
         return False
     if int(scene.bvh.max_leaf) > MK_MAX_LEAF:
@@ -221,6 +255,31 @@ def pack_attrs(scene: T.Scene) -> np.ndarray:
         [n0[:, 0], n0[:, 1], n0[:, 2], n1[:, 0], n1[:, 1], n1[:, 2],
          n2[:, 0], n2[:, 1], n2[:, 2], eid, inv_a, bid.astype(np.float32), med, nul],
         [0.0] * 9 + [0.0, 0.0, 0.0, -1.0, 0.0])
+
+
+def pack_media(scene: T.Scene) -> np.ndarray:
+    """(1, 128): MAX_MEDIA slots of sigma_a(3) sigma_s(3) sigma_t(3), each
+    times the medium's scale, phase_type g1 g2 w is_grid (the TPU pack's
+    row; a grid medium's sigmas are zero there)."""
+    m = scene.media
+    V = int(m.mtype.shape[0])
+    if V > MAX_MEDIA:
+        raise ValueError(f"{V} media > MAX_MEDIA={MAX_MEDIA}")
+    sc = _np(m.scale).astype(np.float32)[:, None]
+    sa = _np(m.sigma_a).astype(np.float32) * sc
+    ss = _np(m.sigma_s).astype(np.float32) * sc
+    st = sa + ss
+    is_grid = (_np(m.mtype) == T.MEDIUM_GRID).astype(np.float32)
+    gz = (1.0 - is_grid)[:, None]
+    sa, ss, st = sa * gz, ss * gz, st * gz
+    g = _np(m.phase_g).astype(np.float32)
+    cols = [sa[:, 0], sa[:, 1], sa[:, 2], ss[:, 0], ss[:, 1], ss[:, 2], st[:, 0], st[:, 1],
+            st[:, 2], _np(m.phase_type).astype(np.float32), g[:, 0], g[:, 1],
+            _np(m.phase_w).astype(np.float32), is_grid]
+    out = [np.concatenate([c, np.zeros(MAX_MEDIA - V, np.float32)]) for c in cols]
+    while len(out) < SLOT_F:
+        out.append(np.zeros(MAX_MEDIA, np.float32))
+    return np.stack(out, axis=1).reshape(1, MAX_MEDIA * SLOT_F).astype(np.float32)
 
 
 def pack_bsdfs(scene: T.Scene) -> np.ndarray:
@@ -373,6 +432,10 @@ class MKPack:
     # a family beyond Lambertian / Specular / Translucent is present (the
     # kernel's compile-time family pruning, csrc/bsdf.cuh)
     all_families: bool = True
+    # K4 (the TPU pack's has_media, ambient_med): a vpt pack of a scene with
+    # media; the medium of an empty stack (scene.cam_medium, -1 = none)
+    has_media: bool = False
+    ambient_med: int = -1
 
     def __getitem__(self, k):
         return self.arrays[k]
@@ -386,16 +449,21 @@ class MKPack:
         return {"has_env": self.has_env, "textured": self.textured, "has_disp": self.has_disp}
 
 
-# The six tables of the TPU pack (bit-equal to it), then kernel K3's inputs.
+# The six tables of the TPU pack (bit-equal to it), then kernel K3's and
+# kernel K4's inputs.
 PACK_KEYS = ("nodes", "prims", "attrs", "erow", "eprims", "brows")
 K3_KEYS = ("uvs", "texels", "tinfo", "tdiff", "envrow")
+MED_KEYS = ("mrow",)
 
 
 def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
-              prim_fmt: str | None = None) -> MKPack:
+              prim_fmt: str | None = None, vpt: bool = False) -> MKPack:
     """Host-side scene pack on the scene's device. Only the w8 node format
-    with f32 attrs and prims is ported. The K3 tables are placeholders of
-    one row where their flag is off."""
+    with f32 attrs and prims is ported. vpt=True packs for the volume path
+    tracer: a scene with media then sets has_media and carries the media
+    row; without vpt such a scene raises, so the pack alone says which
+    estimator both the kernel and its plain version run. The K3 and K4
+    tables are placeholders of one row where their flag is off."""
     if node_fmt != "w8" or attr_fmt not in (None, "f32") or prim_fmt not in (None, "f32"):
         raise NotImplementedError(
             "only node_fmt='w8' with f32 attrs and prims is ported (ROADMAP Queue 2, K1)")
@@ -409,6 +477,12 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
     tdiff = _np(scene.bsdfs.tex_ids)[:, T.TEX_DIFFUSE].astype(np.int32)
     has_env = scene.env_emitter > 0
     textured = bool((tdiff >= 0).any())
+    has_media = scene_has_media(scene)
+    if has_media and not vpt:
+        raise ValueError("a scene with media packs only for the volume path tracer: "
+                         "make_pack(vpt=True), RendererType.VOLUME_PT")
+    if has_media and textured:
+        raise ValueError("the fused volume path tracer takes no textures (as on the TPU)")
     texels, tinfo = pack_textures(scene.textures)
     host = {
         "nodes": pack_nodes_w8(wb),
@@ -422,15 +496,17 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
         "tinfo": tinfo,
         "tdiff": tdiff,
         "envrow": pack_env(scene),
+        "mrow": pack_media(scene) if has_media else np.zeros((1, 128), np.float32),
     }
     arrays = {k: torch.as_tensor(v, device=scene.device).contiguous() for k, v in host.items()}
     return MKPack(arrays, scene, tri_only=not bool(scene.geom.is_sphere.any()),
                   max_leaf=int(scene.bvh.max_leaf), max_stack=max_stack, has_env=has_env,
                   textured=textured, has_disp=T.BSDF_DISPERSION in set(scene.present_bsdfs),
-                  all_families=bool(set(scene.present_bsdfs) - set(BASIC_BSDFS)))
+                  all_families=bool(set(scene.present_bsdfs) - set(BASIC_BSDFS)),
+                  has_media=has_media, ambient_med=int(scene.cam_medium) if vpt else -1)
 
 
-def pack_bytes(pack: MKPack, keys=PACK_KEYS + K3_KEYS) -> int:
+def pack_bytes(pack: MKPack, keys=PACK_KEYS + K3_KEYS + MED_KEYS) -> int:
     return sum(pack[k].numel() * pack[k].element_size() for k in keys)
 
 
@@ -476,7 +552,7 @@ def tile_swizzle(width: int, height: int, device="cpu"):
 def _tables(pack: MKPack):
     """Host array of the pack's table pointers (csrc/megakernel.cu
     make_pack_view order)."""
-    ptrs = [pack[k].data_ptr() for k in PACK_KEYS + K3_KEYS]
+    ptrs = [pack[k].data_ptr() for k in PACK_KEYS + K3_KEYS + MED_KEYS]
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
@@ -498,23 +574,34 @@ def rng_bits(rng: torch.Tensor) -> torch.Tensor:
     return torch.where(rng >= 2 ** 31, rng - 2 ** 32, rng).to(torch.int32).contiguous()
 
 
-def trace_megakernel_reference(scene: T.Scene, md, o, d, rng, nee_candidates: int = 1):
-    """Plain PyTorch version of the kernel: the path tracer's fused-kernel
-    estimator (envmap misses at MIS weight 1, deferred diffuse texels,
-    in-stream dispersion wavelength) on the kernel's emitter table. For
-    scenes without the K3 flags it is the composed estimator itself."""
-    return pt.trace_paths(kernel_scene(scene), md, o, d, rng, nee_candidates, fused=True)
+def trace_megakernel_reference(pack: MKPack, md, o, d, rng, nee_candidates: int = 1):
+    """Plain PyTorch version of the kernel on the pack's scene with the
+    kernel's emitter table. The pack decides the estimator, as it decides
+    the kernel's instantiation: with has_media (a vpt pack of a scene with
+    media, K4) the volume path tracer's fused estimator, else the path
+    tracer's (envmap misses at MIS weight 1, deferred diffuse texels,
+    in-stream dispersion wavelength; for scenes without the K3 flags the
+    composed estimator itself), which ignores any media in the scene."""
+    scene = kernel_scene(pack.scene)
+    if pack.has_media:
+        if nee_candidates != 1:
+            raise ValueError("the fused volume path tracer takes nee_candidates=1")
+        return volume_pt.trace_paths(scene, md, o, d, rng, fused=True)
+    return pt.trace_paths(scene, md, o, d, rng, nee_candidates, fused=True)
 
 
 def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor,
                      nee_candidates: int = 1, count_stats: bool = False):
     """(B, 3) rays + (B, 2) pcg states -> L (B, 3). CPU tensors run the plain
     version; CUDA tensors launch the kernel. count_stats (CUDA only) also
-    returns per-ray (B, 2) int32 [wide nodes expanded, prim tests]."""
+    returns per-ray (B, 2) int32 [wide nodes expanded, prim tests], the
+    shadow rays' transmittance walks included."""
+    if pack.has_media and nee_candidates != 1:
+        raise ValueError("the fused volume path tracer takes nee_candidates=1 (as on the TPU)")
     if o.device.type == "cpu":
         if count_stats:
             raise ValueError("count_stats counts kernel work; it needs CUDA tensors")
-        return trace_megakernel_reference(pack.scene, md, o, d, rng, nee_candidates)
+        return trace_megakernel_reference(pack, md, o, d, rng, nee_candidates)
     if o.dtype != torch.float32 or d.dtype != torch.float32 or o.shape != d.shape \
             or o.dim() != 2 or o.shape[1] != 3 or tuple(rng.shape) != (o.shape[0], 2):
         raise ValueError("expected o, d (B, 3) float32 and rng (B, 2)")
@@ -524,16 +611,20 @@ def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: to
     B = o.shape[0]
     L = torch.empty_like(o)
     stats = torch.zeros((B, 2), dtype=torch.int32, device=o.device) if count_stats else None
+    variant = ctypes.c_int(-1)
     rc = lib.mk_trace(_tables(pack), o.data_ptr(), d.data_ptr(), rng32.data_ptr(), L.data_ptr(),
                       stats.data_ptr() if stats is not None else None,
                       B, pack.max_leaf, int(pack.tri_only), int(pack.has_env),
                       int(pack.textured), int(pack.has_disp), int(pack.all_families),
+                      int(pack.has_media), int(pack.ambient_med),
                       int(md.max_depth), int(md.max_diffuse), int(md.max_specular),
-                      int(md.max_transmit), int(nee_candidates),
-                      torch.cuda.current_stream(o.device).cuda_stream)
+                      int(md.max_transmit), int(md.max_volume), int(nee_candidates),
+                      ctypes.byref(variant), torch.cuda.current_stream(o.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mk_trace launch failed: cudaError {rc}")
     LAUNCHES["trace_megakernel"] += 1
+    name = instantiation_name(variant.value)
+    INSTANTIATION_LAUNCHES[name] = INSTANTIATION_LAUNCHES.get(name, 0) + 1
     return (L, stats) if count_stats else L
 
 

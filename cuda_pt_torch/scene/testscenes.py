@@ -2,7 +2,10 @@
 ``quad``, ``cornell_box``, ``kitchen_stress`` with its torus mesh and
 procedural textures, and ``furnace``), plus small port-only scenes that
 hold the kernel's envelope to its plain version: ``cornell_box_lights``,
-``oren_nayar_forward``, ``spot_light`` and ``textured_floor``."""
+``oren_nayar_forward``, ``spot_light`` and ``textured_floor``; and the
+media scenes of the volume path tracer: ``medium_box`` and ``cornell_vpt``
+(scenes of the reference's tests), ``nested_media`` and the full-size
+``medium_cbox``."""
 
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import numpy as np
 
 from ..core import camera as cam_mod
 from . import types as T
-from .builder import BSDFSpec, EmitterSpec, SceneBuilder
+from .builder import BSDFSpec, EmitterSpec, MediumSpec, SceneBuilder
 
 
 def quad(p00, p10, p11, p01):
@@ -37,10 +40,25 @@ def _box_mesh(lo, hi):
     return np.concatenate(quads, axis=0)
 
 
-def cornell_box(width=64, height=64, light_scale=12.0, tall_box_bsdf=None, device="cpu"):
-    """Unit cornell box with an area light; returns (scene, camera, builder).
-    tall_box_bsdf: None (white lambertian) or a BSDFSpec for the tall box."""
-    b = SceneBuilder()
+def _closed_box(lo, hi):
+    """The six faces of an axis-aligned box as quads (the face order of the
+    reference's medium-box test scene)."""
+    x0, y0, z0 = lo
+    x1, y1, z1 = hi
+    faces = [
+        ([x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0]),
+        ([x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1]),
+        ([x0, y0, z0], [x0, y1, z0], [x0, y1, z1], [x0, y0, z1]),
+        ([x1, y0, z0], [x1, y1, z0], [x1, y1, z1], [x1, y0, z1]),
+        ([x0, y0, z0], [x1, y0, z0], [x1, y0, z1], [x0, y0, z1]),
+        ([x0, y1, z0], [x1, y1, z0], [x1, y1, z1], [x0, y1, z1]),
+    ]
+    return [quad(*f) for f in faces]
+
+
+def _cornell_shell(b: SceneBuilder, light_scale: float) -> int:
+    """The cornell box's walls, ceiling and ceiling light; returns the white
+    material's id."""
     white = b.add_bsdf(BSDFSpec(k_d=(0.73, 0.73, 0.73)))
     red = b.add_bsdf(BSDFSpec(k_d=(0.65, 0.05, 0.05)))
     green = b.add_bsdf(BSDFSpec(k_d=(0.12, 0.45, 0.15)))
@@ -58,6 +76,19 @@ def cornell_box(width=64, height=64, light_scale=12.0, tall_box_bsdf=None, devic
         quad([0.35, 0.998, 0.35], [0.65, 0.998, 0.35], [0.65, 0.998, 0.65],
              [0.35, 0.998, 0.65]),
         light_m, emitter_id=em)
+    return white
+
+
+def _cornell_camera(width, height, device):
+    return cam_mod.make_camera(origin=(0.5, 0.5, -1.35), target=(0.5, 0.5, 0.5), fov=40.0,
+                               width=width, height=height, device=device)
+
+
+def cornell_box(width=64, height=64, light_scale=12.0, tall_box_bsdf=None, device="cpu"):
+    """Unit cornell box with an area light; returns (scene, camera, builder).
+    tall_box_bsdf: None (white lambertian) or a BSDFSpec for the tall box."""
+    b = SceneBuilder()
+    white = _cornell_shell(b, light_scale)
     if tall_box_bsdf is None:
         tall_box_bsdf = white
     elif isinstance(tall_box_bsdf, BSDFSpec):
@@ -66,9 +97,7 @@ def cornell_box(width=64, height=64, light_scale=12.0, tall_box_bsdf=None, devic
     b.add_mesh(_box_mesh([0.15, 0.0, 0.15], [0.45, 0.3, 0.45]), white)
 
     scene = b.compile(device=device)
-    cam = cam_mod.make_camera(origin=(0.5, 0.5, -1.35), target=(0.5, 0.5, 0.5), fov=40.0,
-                              width=width, height=height, device=device)
-    return scene, cam, b
+    return scene, _cornell_camera(width, height, device), b
 
 
 def cornell_box_lights(width=64, height=64, device="cpu"):
@@ -288,3 +317,110 @@ def textured_floor(width=12, height=12, device="cpu"):
     cam = cam_mod.make_camera(origin=(0, 1.4, -2.6), target=(0, 0.1, 0), fov=50.0,
                               width=width, height=height, device=device)
     return scene, cam, b
+
+
+# ---------------------------------------------------------------------------
+# participating media (the volume path tracer, RendererType.VOLUME_PT)
+# ---------------------------------------------------------------------------
+
+# The scattering slab of medium_box and the fog of medium_cbox
+FOG_MEDIUM = dict(sigma_a=(0.05, 0.08, 0.05), sigma_s=(0.6, 0.5, 0.4), scale=1.5)
+
+
+def _media_room(b: SceneBuilder, env_scale: float) -> None:
+    """Grey floor and back wall, a dark area panel above them and, with
+    env_scale > 0, a constant envmap of that scale."""
+    grey = b.add_bsdf(BSDFSpec(k_d=(0.6, 0.55, 0.5)))
+    dark = b.add_bsdf(BSDFSpec(k_d=(0.0, 0.0, 0.0)))
+    panel = b.add_emitter(EmitterSpec(etype=T.EMITTER_AREA, emission=(1, 1, 1), scaler=25.0))
+    if env_scale > 0.0:
+        b.add_emitter(EmitterSpec(etype=T.EMITTER_ENVMAP, emission=(0.8, 0.9, 1.0), scaler=1.0,
+                                  extra=(env_scale, 0.0, 0.0, 0.0)))
+    b.add_mesh(quad([-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]), grey)
+    b.add_mesh(quad([-2, 0, 2], [2, 0, 2], [2, 2, 2], [-2, 2, 2]), grey)
+    b.add_mesh(quad([-0.4, 1.9, -0.4], [0.4, 1.9, -0.4], [0.4, 1.9, 0.4], [-0.4, 1.9, 0.4]), dark,
+               emitter_id=panel)
+
+
+def _media_room_camera(width, height, device):
+    return cam_mod.make_camera(origin=(0, 1.1, -2.8), target=(0, 0.5, 0), fov=50.0,
+                               width=width, height=height, device=device)
+
+
+def medium_box(width=10, height=10, phase_type=T.PHASE_HG, phase_g=(0.3, 0.0), phase_w=1.0,
+               env_scale=0.0, device="cpu"):
+    """A homogeneous scattering slab behind forward (null) faces in an open
+    grey room under an area panel: the scene of tests/test_round4_fixes.py::
+    _medium_box_scene at the defaults (HG g = 0.3). phase_type / phase_g /
+    phase_w change the slab's phase function and env_scale > 0 adds a
+    constant envmap (object order then differs from the reference scene).
+    Returns (scene, camera, builder)."""
+    b = SceneBuilder()
+    med = b.add_medium(MediumSpec(**FOG_MEDIUM, phase_type=phase_type, phase_g=phase_g,
+                                  phase_w=phase_w))
+    fog = b.add_bsdf(BSDFSpec(btype=T.BSDF_FORWARD))
+    if env_scale > 0.0:
+        _media_room(b, env_scale)
+    else:
+        # the reference scene's own order: floor, wall, fog faces, panel
+        grey = b.add_bsdf(BSDFSpec(k_d=(0.6, 0.55, 0.5)))
+        dark = b.add_bsdf(BSDFSpec(k_d=(0.0, 0.0, 0.0)))
+        panel = b.add_emitter(EmitterSpec(etype=T.EMITTER_AREA, emission=(1, 1, 1),
+                                          scaler=25.0))
+        b.add_mesh(quad([-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]), grey)
+        b.add_mesh(quad([-2, 0, 2], [2, 0, 2], [2, 2, 2], [-2, 2, 2]), grey)
+    for face in _closed_box((-0.8, 0.15, -0.8), (0.8, 1.1, 0.8)):
+        b.add_mesh(face, fog, medium_in=med)
+    if env_scale <= 0.0:
+        b.add_mesh(quad([-0.4, 1.9, -0.4], [0.4, 1.9, -0.4], [0.4, 1.9, 0.4],
+                        [-0.4, 1.9, 0.4]), dark, emitter_id=panel)
+    return b.compile(device=device), _media_room_camera(width, height, device), b
+
+
+def nested_media(width=8, height=8, device="cpu"):
+    """Media nested two deep, small: medium_box's HG slab (forward faces)
+    holding a smooth-glass box filled with a dense isotropic medium.
+    Returns (scene, camera, builder)."""
+    b = SceneBuilder()
+    hg = b.add_medium(MediumSpec(**FOG_MEDIUM, phase_type=T.PHASE_HG, phase_g=(0.3, 0.0)))
+    iso = b.add_medium(MediumSpec(sigma_a=(0.02, 0.02, 0.02), sigma_s=(2.0, 2.0, 2.0)))
+    fog = b.add_bsdf(BSDFSpec(btype=T.BSDF_FORWARD))
+    glass = b.add_bsdf(BSDFSpec(btype=T.BSDF_TRANSLUCENT, k_s=(0.98, 0.98, 0.98), ior=1.5))
+    _media_room(b, 0.0)
+    for face in _closed_box((-0.8, 0.15, -0.8), (0.8, 1.1, 0.8)):
+        b.add_mesh(face, fog, medium_in=hg)
+    for face in _closed_box((-0.35, 0.35, -0.35), (0.35, 0.8, 0.35)):
+        b.add_mesh(face, glass, medium_in=iso)
+    return b.compile(device=device), _media_room_camera(width, height, device), b
+
+
+def cornell_vpt(width=64, height=64, device="cpu"):
+    """cornell_box with the camera in a thin grey medium (scene.cam_medium =
+    0, sigma_a 0.05, sigma_s 0.25): the scene of tests/test_round4_fixes.py::
+    test_fused_vpt_camera_in_medium. Returns (scene, camera, builder)."""
+    _, cam, b = cornell_box(width, height, device=device)
+    b.add_medium(MediumSpec(sigma_a=(0.05, 0.05, 0.05), sigma_s=(0.25, 0.25, 0.25)))
+    b.cam_medium = 0
+    return b.compile(device=device), cam, b
+
+
+def medium_cbox(width=64, height=64, ns=192, nt=96, device="cpu"):
+    """The in-repo stand-in for the reference's medium-cbox.xml (a glass
+    bunny holding an isotropic medium inside an HG fog box): the cornell
+    walls and ceiling light; a fog box of forward faces, x, z in [0.1, 0.9]
+    and y in [0.002, 0.75], holding medium_box's HG medium (g 0.3); inside
+    it a smooth-glass torus (ior 1.5; R 0.22, r 0.09, ns x nt quads)
+    holding an isotropic medium (sigma_a 0.02, sigma_s 2.0). At the default
+    tessellation 36,888 triangles, media nested two deep. Returns (scene,
+    camera, builder)."""
+    b = SceneBuilder()
+    _cornell_shell(b, 12.0)
+    hg = b.add_medium(MediumSpec(**FOG_MEDIUM, phase_type=T.PHASE_HG, phase_g=(0.3, 0.0)))
+    iso = b.add_medium(MediumSpec(sigma_a=(0.02, 0.02, 0.02), sigma_s=(2.0, 2.0, 2.0)))
+    fog = b.add_bsdf(BSDFSpec(btype=T.BSDF_FORWARD))
+    glass = b.add_bsdf(BSDFSpec(btype=T.BSDF_TRANSLUCENT, k_s=(0.98, 0.98, 0.98), ior=1.5))
+    for face in _closed_box((0.1, 0.002, 0.1), (0.9, 0.75, 0.9)):
+        b.add_mesh(face, fog, medium_in=hg)
+    p, n, uv = _torus_mesh((0.5, 0.35, 0.5), R=0.22, r=0.09, ns=ns, nt=nt)
+    b.add_mesh(p, glass, n=n, uv=uv, medium_in=iso)
+    return b.compile(device=device), _cornell_camera(width, height, device), b

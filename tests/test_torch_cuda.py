@@ -7,7 +7,8 @@ a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -m cuda
 
 Per-lane contract: allclose(rtol=1e-4, atol=1e-5) on all three channels,
-with at most 2 % of lanes differing."""
+with at most 2 % of lanes differing. The media tests hold kernel K4 (the
+volume path tracer's MED instantiations) to the same contract."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import torch
 from cuda_pt_torch.api import Renderer
 from cuda_pt_torch.core import camera as t_cam
 from cuda_pt_torch.core import qmc as t_qmc
-from cuda_pt_torch.core.config import MaxDepthParams, RenderingConfig
+from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
 from cuda_pt_torch.ops import intersect as t_isect
 from cuda_pt_torch.ops import megakernel as t_mk
 from cuda_pt_torch.scene import testscenes as t_ts
@@ -45,6 +46,13 @@ K3_SCENES = {
     "textured_floor": lambda dev: t_ts.textured_floor(32, 32, device=dev),
     "kitchen_small": lambda dev: t_ts.kitchen_stress(32, 32, grid=2, ns=6, nt=4, device=dev),
 }
+# kernel K4 (the MED instantiations): vpt packs of media scenes
+MEDIA_SCENES = {
+    "medium_box": lambda dev: t_ts.medium_box(48, 48, device=dev),
+    "cornell_vpt": lambda dev: t_ts.cornell_vpt(48, 48, device=dev),
+    "nested_media": lambda dev: t_ts.nested_media(48, 48, device=dev),
+    "medium_box_env": lambda dev: t_ts.medium_box(48, 48, env_scale=0.5, device=dev),
+}
 
 
 @pytest.fixture
@@ -71,7 +79,7 @@ def test_kernel_matches_plain(cuda, kind, nee_m):
     Lk = t_mk.trace_megakernel(pack, md, o, d, rng, nee_candidates=nee_m)
     torch.cuda.synchronize()
     assert t_mk.LAUNCHES["trace_megakernel"] == n0 + 1
-    Lp = t_mk.trace_megakernel_reference(scene, md, o, d, rng, nee_candidates=nee_m)
+    Lp = t_mk.trace_megakernel_reference(pack, md, o, d, rng, nee_candidates=nee_m)
     assert torch.isfinite(Lk).all()
     assert _lanes_differing(Lk, Lp) <= 0.02
 
@@ -87,7 +95,7 @@ def test_kernel_matches_plain_k3_envelope(cuda, kind):
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
     md = MaxDepthParams()
     Lk = t_mk.trace_megakernel(pack, md, o, d, rng)
-    Lp = t_mk.trace_megakernel_reference(scene, md, o, d, rng)
+    Lp = t_mk.trace_megakernel_reference(pack, md, o, d, rng)
     assert torch.isfinite(Lk).all()
     assert _lanes_differing(Lk, Lp) <= 0.02
     assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3 * max(1.0, abs(float(Lp.mean())))
@@ -104,7 +112,7 @@ def test_kernel_matches_plain_multi_light(cuda, nee_m):
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
     md = MaxDepthParams()
     Lk = t_mk.trace_megakernel(pack, md, o, d, rng, nee_candidates=nee_m)
-    Lp = t_mk.trace_megakernel_reference(scene, md, o, d, rng, nee_candidates=nee_m)
+    Lp = t_mk.trace_megakernel_reference(pack, md, o, d, rng, nee_candidates=nee_m)
     assert torch.isfinite(Lk).all()
     assert _lanes_differing(Lk, Lp) <= 0.02
     assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3
@@ -136,3 +144,62 @@ def test_renderer_cuda_matches_cpu(cuda):
     img_p = Renderer(parsed, device="cpu").render(2)
     assert r.info()["device"].startswith("cuda") and np.isfinite(img_k).all()
     assert np.isclose(img_k, img_p, rtol=1e-4, atol=1e-5).mean() > 0.98
+
+
+@pytest.mark.parametrize("kind", list(MEDIA_SCENES))
+def test_k4_matches_plain(cuda, kind):
+    """Kernel K4 against the fused volume path tracer; the C side reports
+    the MED instantiation it launched (K3 x MED with the envmap)."""
+    scene, cam, _ = MEDIA_SCENES[kind](cuda)
+    pack = t_mk.make_pack(scene, vpt=True)
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
+    rng = t_qmc.make_state("pcg", 8, perm, 0)
+    o, d, rng = t_cam.generate_rays(cam, perm, rng)
+    md = MaxDepthParams()
+    t_mk.reset_launches()
+    Lk = t_mk.trace_megakernel(pack, md, o, d, rng)
+    torch.cuda.synchronize()
+    name = "K3+ALL+MED" if kind == "medium_box_env" else "ALL+MED"
+    assert t_mk.LAUNCHES["trace_megakernel"] == 1 and t_mk.INSTANTIATION_LAUNCHES == {name: 1}
+    Lp = t_mk.trace_megakernel_reference(pack, md, o, d, rng)
+    assert torch.isfinite(Lk).all() and float(Lp.mean()) > 0.01
+    assert _lanes_differing(Lk, Lp) <= 0.02
+    assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3
+
+
+def test_vpt_renderer_cuda_matches_cpu(cuda):
+    """Renderer(VOLUME_PT) on the card launches the MED instantiation and
+    matches the same Renderer on the CPU."""
+    scene, cam, _ = t_ts.nested_media(32, 24)
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=32, height=24,
+                                                     md=MaxDepthParams(max_depth=8)))
+    r = Renderer(parsed, renderer=RendererType.VOLUME_PT)  # device=None -> cuda
+    t_mk.reset_launches()
+    img_k = r.render(2)
+    assert t_mk.INSTANTIATION_LAUNCHES == {"ALL+MED": 2} and r.info()["has_media"]
+    img_p = Renderer(parsed, renderer=RendererType.VOLUME_PT, device="cpu").render(2)
+    assert np.isfinite(img_k).all()
+    assert np.isclose(img_k, img_p, rtol=1e-4, atol=1e-5).mean() > 0.98
+
+
+def test_wrapper_branches_agree_on_media_scene(cuda):
+    """A vpt pack of one media scene built on the card and on the CPU: the
+    CUDA branch of trace_megakernel (the MED instantiation) and its CPU
+    branch (the fused volume path tracer) agree per lane; without vpt the
+    scene does not pack at all."""
+    md = MaxDepthParams()
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene, cam, _ = t_ts.medium_box(48, 48, device=dev)
+        with pytest.raises(ValueError, match="vpt=True"):
+            t_mk.make_pack(scene)
+        pack = t_mk.make_pack(scene, vpt=True)
+        perm, _ = t_mk.tile_swizzle(cam.width, cam.height, dev)
+        rng = t_qmc.make_state("pcg", 9, perm, 0)
+        o, d, rng = t_cam.generate_rays(cam, perm, rng)
+        t_mk.reset_launches()
+        out[dev.type] = t_mk.trace_megakernel(pack, md, o, d, rng).cpu()
+        assert t_mk.INSTANTIATION_LAUNCHES == ({"ALL+MED": 1} if dev.type == "cuda" else {})
+    assert torch.isfinite(out["cuda"]).all() and float(out["cpu"].mean()) > 0.01
+    assert _lanes_differing(out["cuda"], out["cpu"]) <= 0.02
+    assert abs(float(out["cuda"].mean()) - float(out["cpu"].mean())) < 5e-3

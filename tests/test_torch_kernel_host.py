@@ -5,16 +5,19 @@ csrc/megakernel.cu runs only on a card, but its arithmetic is plain C++:
 with a small header that maps the CUDA built-ins it uses onto the C++
 library (device qualifiers, float4, __ldg, rsqrtf, the u32 -> f32 convert)
 and each <<<launch>>> rewritten as a loop over the grid's threads, g++
-builds it into a host library with the same C entry points. FMA
+builds its translation units into a host library with the same C entry
+points. FMA
 contraction is off, as in the nvcc build (ops/cuda_build._flags). These
 tests hold that library to trace_megakernel_reference lane by lane on
 small scenes of every template instantiation, so a fault in the kernel's
 logic shows here before a card sees it. The card itself is exercised by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py and chip_smoke.py. The media scenes run the MED
+instantiations (kernel K4) against the fused volume path tracer.
 
 Skips where no g++ is installed. Contract: allclose(rtol 1e-4, atol 1e-5)
 on >= 98 % of lanes, image means within 5e-3."""
 
+import ctypes
 import os
 import re
 import shutil
@@ -84,33 +87,50 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs g++ to build the CUDA source as host C++")
     d = tmp_path_factory.mktemp("host_kernel")
     (d / "cuda_runtime.h").write_text(_SHIM)
-    with open(os.path.join(cb.CSRC, "megakernel.cu")) as f:
-        src = f.read()
-    src, n = re.subn(
-        r"(\w+(?:<[^<>]*>)?)<<<[^>]*>>>\(([^;]*)\);",
-        lambda m: ("for (int b_ = 0; b_ < blocks; ++b_) for (int t_ = 0; t_ < threads; ++t_) "
-                   "{ blockIdx.x = b_; threadIdx.x = t_; blockDim.x = threads; "
-                   f"{m.group(1)}({m.group(2)}); }}"), src, flags=re.S)
-    assert n == 2  # the trace and closest-hit launches
-    (d / "megakernel_host.cpp").write_text(src)
+    launches = 0
+    for name in os.listdir(cb.CSRC):  # every source, launches rewritten
+        with open(os.path.join(cb.CSRC, name)) as f:
+            src = f.read()
+        src, n = re.subn(
+            r"(\w+(?:<[^<>]*>)?)<<<[^>]*>>>\(([^;]*)\);",
+            lambda m: ("for (int b_ = 0; b_ < blocks; ++b_) for (int t_ = 0; t_ < threads; ++t_) "
+                       "{ blockIdx.x = b_; threadIdx.x = t_; blockDim.x = threads; "
+                       f"{m.group(1)}({m.group(2)}); }}"), src, flags=re.S)
+        launches += n
+        (d / (name[:-3] + "_host.cpp" if name.endswith(".cu") else name)).write_text(src)
+    assert launches == 2  # the trace and closest-hit launches
     defines = [f for f in cb._flags() if f.startswith("-D")]
     out = d / "libmegakernel_host.so"
+    host_units = [str(d / (os.path.basename(u)[:-3] + "_host.cpp")) for u in cb.units()]
     res = subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                          f"-I{d}", f"-I{cb.CSRC}", *defines, str(d / "megakernel_host.cpp"),
-                          "-o", str(out)], capture_output=True, text=True)
+                          f"-I{d}", *defines, *host_units, "-o", str(out)],
+                         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-4000:]
     return cb.open_library(str(out))
 
 
-def _host_trace(lib, pack, md, o, d, rng, nee_m):
+# kernel K4 (the MED instantiations): vpt packs of media scenes
+MEDIA_SCENES = {
+    "medium_box": lambda: t_ts.medium_box(16, 16),
+    "cornell_vpt": lambda: t_ts.cornell_vpt(16, 16),
+    "nested_media": lambda: t_ts.nested_media(16, 16),
+    "medium_box_env": lambda: t_ts.medium_box(16, 16, env_scale=0.5),
+}
+
+
+def _host_trace(lib, pack, md, o, d, rng, nee_m, expect=None):
     L = torch.empty_like(o)
     rng32 = t_mk.rng_bits(rng)  # held: the call reads it through a raw pointer
+    variant = ctypes.c_int(-1)
     rc = lib.mk_trace(t_mk._tables(pack), o.data_ptr(), d.data_ptr(),
                       rng32.data_ptr(), L.data_ptr(), None, o.shape[0],
                       pack.max_leaf, int(pack.tri_only), int(pack.has_env), int(pack.textured),
-                      int(pack.has_disp), int(pack.all_families), md.max_depth, md.max_diffuse,
-                      md.max_specular, md.max_transmit, nee_m, None)
+                      int(pack.has_disp), int(pack.all_families), int(pack.has_media),
+                      pack.ambient_med, md.max_depth, md.max_diffuse, md.max_specular,
+                      md.max_transmit, md.max_volume, nee_m, ctypes.byref(variant), None)
     assert rc == 0
+    if expect is not None:
+        assert t_mk.instantiation_name(variant.value) == expect
     return L
 
 
@@ -124,10 +144,33 @@ def test_host_kernel_matches_plain(host_lib, kind):
         rng = t_qmc.make_state("pcg", 11, perm, nee_m)
         o, d, rng = t_cam.generate_rays(cam, perm, rng)
         Lk = _host_trace(host_lib, pack, md, o, d, rng, nee_m)
-        Lp = t_mk.trace_megakernel_reference(scene, md, o, d, rng, nee_m)
+        Lp = t_mk.trace_megakernel_reference(pack, md, o, d, rng, nee_m)
         assert torch.isfinite(Lk).all() and float(Lp.mean()) > 0.01
         close = torch.isclose(Lk, Lp, rtol=1e-4, atol=1e-5).all(dim=-1)
         assert float(close.float().mean()) >= 0.98, (kind, nee_m, float(close.float().mean()))
+        assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3
+
+
+@pytest.mark.parametrize("kind", list(MEDIA_SCENES))
+def test_host_kernel_media_matches_plain(host_lib, kind):
+    """The MED instantiations (K4; K3 x MED with the envmap) against the
+    fused volume path tracer, two passes at the default depth caps. Both
+    sides take the same vpt pack: the plain version is trace_megakernel's
+    own CPU branch, which the pack sends to the volume path tracer."""
+    scene, cam, _ = MEDIA_SCENES[kind]()
+    pack = t_mk.make_pack(scene, vpt=True)
+    assert pack.has_media and pack.has_env == (kind == "medium_box_env")
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height)
+    md = MaxDepthParams()
+    for i in range(2):
+        rng = t_qmc.make_state("pcg", 13, perm, i)
+        o, d, rng = t_cam.generate_rays(cam, perm, rng)
+        expect = "K3+ALL+MED" if pack.has_env else "ALL+MED"
+        Lk = _host_trace(host_lib, pack, md, o, d, rng, 1, expect)
+        Lp = t_mk.trace_megakernel(pack, md, o, d, rng)
+        assert torch.isfinite(Lk).all() and float(Lp.mean()) > 0.01
+        close = torch.isclose(Lk, Lp, rtol=1e-4, atol=1e-5).all(dim=-1)
+        assert float(close.float().mean()) >= 0.98, (kind, i, float(close.float().mean()))
         assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3
 
 

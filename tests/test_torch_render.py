@@ -15,7 +15,7 @@ from cuda_pt_torch.ops import megakernel as t_mk
 from cuda_pt_torch.scene import bridge
 from cuda_pt_torch.scene import testscenes as t_ts
 from cuda_pt_torch.scene import types as TT
-from cuda_pt_torch.scene.builder import BSDFSpec
+from cuda_pt_torch.scene.builder import BSDFSpec, MediumSpec
 from cuda_pt_torch.scene.xml_parser import ParsedScene
 from cuda_pt_tpu.core.config import MaxDepthParams as JMD
 from cuda_pt_tpu.models import path_tracer as j_pt
@@ -201,7 +201,14 @@ def test_composed_render_matches_golden(name, make):
 @pytest.mark.parametrize("rtype", [RendererType.WAVEFRONT_PT, RendererType.VOLUME_PT,
                                    RendererType.MEGAKERNEL_LT, RendererType.DEPTH])
 def test_unported_renderers_raise(rtype):
-    scene, cam, _ = t_ts.cornell_box(8, 8)
+    scene, cam, b = t_ts.cornell_box(8, 8)
+    if rtype == RendererType.VOLUME_PT:
+        # the volume path tracer renders homogeneous media; a grid medium
+        # waits for kernel K6
+        gid = b.add_grid(np.ones((2, 2, 2), np.float32), (0, 0, 0), (1, 1, 1))
+        b.add_medium(MediumSpec(mtype=TT.MEDIUM_GRID, grid_id=gid))
+        b.cam_medium = 0
+        scene = b.compile()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(_parsed(scene, cam, MaxDepthParams()), renderer=rtype, device="cpu")
     with pytest.raises(NotImplementedError):

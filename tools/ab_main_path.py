@@ -1,15 +1,16 @@
-"""Main-path timing of the cornell_box Renderer for one package tree.
+"""Main-path timing of the surface Renderer for one package tree.
 
-    python3 tools/ab_main_path.py TREE
+    python3 tools/ab_main_path.py TREE [cornell|kitchen]
 
 TREE is the root of a checkout holding cuda_pt_torch/ (this repository, or
-an unpacked parent commit to compare against). Renders cornell_box at
+an unpacked parent commit to compare against). Renders cornell_box (the
+default; 64-spp renders) or full-size kitchen_stress (16-spp renders) at
 1024x1024 through api.Renderer on the CUDA card and prints one line: the
-least wall ms per spp of four 64-spp renders, the device ms and kernel
-launches per pass from torch.profiler, and the kernel time of one spp of
-the main path's rays (CUDA events, 20 launches). Run it for two trees in
-turns inside one call (parent, change, change, parent) to compare them on
-one card.
+least wall ms per spp of four renders, the device ms and kernel launches
+per pass from torch.profiler, and the kernel time of one spp of the main
+path's rays (CUDA events, 20 launches). Run it for two trees in turns
+inside one call (parent, change, change, parent) to compare them on one
+card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from cuda_pt_torch.ops import megakernel as mk  # noqa: E402
 from cuda_pt_torch.scene import testscenes as tts  # noqa: E402
 from cuda_pt_torch.scene.xml_parser import ParsedScene  # noqa: E402
 
-SIZE, SPP = 1024, 64
+SCENE = sys.argv[2] if len(sys.argv) > 2 else "cornell"
+SIZE = 1024
+SPP = {"cornell": 64, "kitchen": 16}[SCENE]
 
 
 def main():
@@ -42,7 +45,8 @@ def main():
     if not mk.__file__.startswith(ROOT):
         raise SystemExit(f"imported {mk.__file__}, not the tree at {ROOT}")
     md = MaxDepthParams()
-    scene, cam, _ = tts.cornell_box(SIZE, SIZE)
+    make = tts.cornell_box if SCENE == "cornell" else tts.kitchen_stress
+    scene, cam, _ = make(SIZE, SIZE)
     r = Renderer(ParsedScene(scene, cam, RenderingConfig(width=SIZE, height=SIZE, md=md, seed=0)))
     r.render(2)
     walls = []
@@ -71,7 +75,7 @@ def main():
         mk.trace_megakernel(r._pack, md, o, d, rb)
     t1.record()
     torch.cuda.synchronize()
-    print(f"{ROOT}: wall {min(walls):.3f} ms/spp (runs {[round(w, 3) for w in walls]}), device "
+    print(f"{ROOT} {SCENE}: wall {min(walls):.3f} ms/spp (runs {[round(w, 3) for w in walls]}), device "
           f"{sum(u for u, _ in rows) / 4e3:.3f} ms/pass, {sum(n for _, n in rows) / 4:.0f} "
           f"launches/pass, kernel {t0.elapsed_time(t1) / 20:.4f} ms/spp", flush=True)
 

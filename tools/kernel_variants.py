@@ -91,7 +91,7 @@ def main():
     k0 = int(inv[(SIZE // 2) * SIZE + SIZE // 2]) // BLOCK * BLOCK
     ob, db, rb = (x[k0:k0 + BLOCK].contiguous() for x in (o, d, rng))
     t0 = time.perf_counter()
-    L_p = mk.trace_megakernel_reference(scenes["kitchen"][0], md, ob, db, rb)
+    L_p = mk.trace_megakernel_reference(pack, md, ob, db, rb)
     torch.cuda.synchronize()
     print(f"plain version, kitchen block of {BLOCK} lanes: {time.perf_counter() - t0:.1f} s",
           flush=True)
