@@ -5,13 +5,15 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the CUDA kernels from cuda_pt_torch/csrc (one nvcc, sm_90a) and
-     print the seconds and ptxas' register counts;
+  1. build the CUDA kernels from cuda_pt_torch/csrc (one nvcc per
+     translation unit, all started together, sm_90a) and print the seconds
+     and ptxas' register counts;
   2. print the card's name and power limit (nvidia-smi);
   3. closest_hit_w8 against closest_hit_brute on 65536 random rays in the
      cornell box, and against the skip walk (accel/traverse.py) on 16384
      random rays in full-size kitchen_stress (98,790 triangles): prim ids
-     equal except on exact ties;
+     equal except on exact ties; on the same kitchen rays, with every
+     fifth lane dead, the traverse kernel K6 against its plain version;
   4. the megakernel against its plain PyTorch version (the fused kernel's
      estimator), 256x256, 4 spp, default depth caps, per-lane
      allclose(rtol=1e-4, atol=1e-5) on >= 98% of lanes and the image means
@@ -20,40 +22,58 @@ Phases (any failure exits non-zero):
      emitters), the Oren-Nayar + Forward scene, the area-spot scene, the
      envmap furnace (its mean also within 0.05 of 1.0), the textured floor
      and kitchen_stress(grid=2, ns=6, nt=4) with all three K3 flags;
-  5. the main path on cornell_box: api.Renderer at 1024x1024, 64 spp,
-     default depth caps, pcg, nee_candidates=1; the kernel's launch count
-     must rise and the image must be finite; then one spp of the main
-     path's rays through the kernel and its plain version, held to the
-     phase-4 contract; prints the kernel time per spp (CUDA events),
-     paths/s, the plain version's time on the same rays and the bound;
-  6. the main path on full-size kitchen_stress (envmap, textures,
-     dispersion): api.Renderer at 1024x1024, 16 spp, the same settings;
-     launch count and finite image as in phase 5; one spp of its rays
-     through the kernel at the full grid, one 65,536-lane Z-order block of
-     that output held to the phase-4 contract against the plain version
-     (skip walk) on the same lanes; prints the BVH build seconds,
-     wall and kernel ms per spp, paths/s, the bound (count_stats, with the
-     texel and uv bytes) and the kernel's share of it;
   4 (media). kernel K4, the volume path tracer's MED instantiations,
      against its plain version (the fused volume path tracer) under the
      phase-4 contract, 256x256, 4 spp: medium_box (HG), cornell_vpt (the
      camera in a medium), nested_media (media nested two deep), medium_box
      with a dual-HG and with a Rayleigh phase, and medium_box with an
      envmap (the K3 x MED instantiation);
-  7. the main path of the volume path tracer on full-size medium_cbox
-     (36,888 triangles, media nested two deep): prints the BVH build
+  5. the main path on cornell_box (fewer than 512 boxes: the whole-path
+     kernel K2): api.Renderer at 1024x1024, 64 spp, default depth caps,
+     pcg, nee_candidates=1; the kernel's launch count must rise and the
+     image must be finite; then one spp of the main path's rays through
+     the kernel and its plain version, held to the phase-4 contract; the
+     same rays through the sorted-wavefront driver (kernel K5, auto_trace
+     bypassed) held to the whole-path kernel per lane; prints the kernel
+     time per spp (CUDA events), paths/s, the plain version's time on the
+     same rays and the bound;
+  6. the main path on full-size kitchen_stress (envmap, textures,
+     dispersion; 76,784 boxes: the sorted-wavefront driver, K5's
+     SEG+K3+ALL instantiation): api.Renderer at 1024x1024, 16 spp, the
+     same settings; launch counts (K5 only) and a finite image; one spp of
+     its rays through the driver, a 65,536-lane Z-order block of that
+     output held to the phase-4 contract against the driver on the plain
+     versions; the driver's loop run piece by piece here (swf_loop, held
+     bit for bit to the driver) for per spp K5's summed kernel time, the
+     sort-and-gather glue, the other glue, the wall and the launches, the
+     bound (the pack once plus the state planes K5 reads and writes,
+     k5_bytes) and its share; and the whole-path kernel
+     (K3, called directly) on the same rays: its time and a block held to
+     its plain version, as before;
+  7. the volume path tracer on full-size medium_cbox (36,888 triangles,
+     media nested two deep; K5's SEG+ALL+MED): prints the BVH build
      seconds; api.Renderer(renderer=VOLUME_PT) at 1024x1024, 16 spp,
-     default depth caps; the launch count (all of the MED instantiation)
-     and a finite image; one spp of its rays through the kernel at the full
-     grid, a 65,536-lane Z-order block of that output held to the phase-4
-     contract against the plain version on the same lanes; prints kernel
-     and wall ms per spp, paths/s, launches per frame, the walk work
-     (count_stats, with the transmittance walks) and the share of the bound.
+     default depth caps; the launch counts and a finite image; K5 held to
+     its plain version on a 65,536-lane block and to the whole-path kernel
+     K4 on every lane (untextured: the same estimator), with its timings
+     as in phase 6; and K4 called directly: its time and a block held to
+     its plain version;
+  8. grid media on grid_smoke with a density grid of 256^3 voxels (64 MiB,
+     the size of a production smoke asset; the reference's grid-cbox .nvdb
+     is absent): api.Renderer(renderer=VOLUME_PT) at 1024x1024, GRID_SPP
+     spp (cut: spp, so that the phase's 64-step tracking loops stay under
+     about a minute), default depth caps, through the split driver (K6 and
+     K5's SEG+SHADE+ALL+MED+GRID); the launch counts and a finite image;
+     the driver held to its plain version on a 65,536-lane block; K6's prim
+     ids against the plain walk on the first bounce of the main path's
+     rays; the timings of K5's shade phase and of K6.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
-for quick checks and ``--kitchen-spp`` phase 6; phase 7 always runs at
-VPT_SPP samples per pixel and holds VPT_BLOCK lanes. ``--profile`` adds a
-torch.profiler breakdown of a few main-path passes of each scene.
+for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
+at VPT_SPP and GRID_SPP samples per pixel and hold BLOCK lanes.
+``--profile`` adds a torch.profiler breakdown of a few main-path passes
+of each scene, and of kitchen_stress and medium_cbox through the
+whole-path kernel too.
 """
 
 from __future__ import annotations
@@ -80,12 +100,18 @@ OPS_SLAB = 22
 OPS_TRI = 45
 RTOL, ATOL, MAX_LANE_FRAC = 1e-4, 1e-5, 0.02
 MEAN_TOL = 5e-3
-# lanes of the surface main path (phase 6) held to the plain version
-KITCHEN_BLOCK = 65536
-# the volume main path (phase 7): samples per pixel, and the lanes held to
-# the plain version (its run on this block stays under 30 s on an H100)
+# lanes of each main path (phases 6-8) held to the plain version (its run
+# on this block stays under 30 s on an H100)
+BLOCK = 65536
+# samples per pixel of the volume main paths: medium_cbox (phase 7) and
+# grid_smoke (phase 8) with its grid of GRID_N^3 voxels
 VPT_SPP = 16
-VPT_BLOCK = 65536
+GRID_SPP = 8
+GRID_N = 256
+# the device sleep before a kernel timed alone (swf_loop): 0.5 ms at the
+# H100's highest SM clock (1.98 GHz), longer at lower clocks; it only has to
+# outlast the host's launch latency
+SETTLE_CYCLES = 1_000_000
 
 
 T0 = time.perf_counter()
@@ -192,6 +218,7 @@ def phase_walk_kitchen(mk, tts, dev):
     d_t = torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True), device=dev)
     _, prim_k, _, _ = mk.closest_hit_w8(pack, o_t, d_t)
     h = traverse.closest_hit_bvh(scene.geom, scene.bvh, o_t, d_t)
+    o_t, d_t = o_t.contiguous(), d_t.contiguous()
     differ = prim_k != h["prim"]
     # an exact tie: the walk's own prim is hit at the plain walk's t
     idx = torch.nonzero(differ & (prim_k >= 0))[:, 0]
@@ -207,7 +234,30 @@ def phase_walk_kitchen(mk, tts, dev):
         f"{ties} on exact ties, {bad} otherwise; hits {int((prim_k >= 0).sum())}")
     if bad:
         raise SystemExit(f"kitchen walk check failed: {bad} prim ids differ off exact ties")
-    return {"rays": B, "differ": int(differ.sum()), "exact_ties": ties}, scene, cam, build_s
+    k6 = check_k6(mk, pack, o_t, d_t, "kitchen_stress random rays")
+    return {"rays": B, "differ": int(differ.sum()), "exact_ties": ties, "k6": k6}, scene, cam, \
+        build_s
+
+
+def check_k6(mk, pack, o, d, label: str) -> dict:
+    """Kernel K6 (the traverse kernel) on rays (B, 3) with every fifth lane
+    dead, against its plain version: prim ids equal on every ray, dead
+    lanes without a hit."""
+    n = o.shape[0]
+    st = mk.seg_init(pack, o, d, torch.zeros((n, 2), dtype=torch.int64, device=o.device))
+    st.view(torch.float32)[mk.S_ACT, ::5] = 0.0
+    out = mk.traverse_closest(pack, st, n)
+    ref = mk.traverse_plain(pack, st, n)
+    torch.cuda.synchronize()
+    differ = int((out[1] != ref[1]).sum())
+    hits = int((out[1] >= 0).sum())
+    both = (out[1] >= 0) & (ref[1] >= 0)
+    err = float((out[0][both] - ref[0][both]).abs().max()) if bool(both.any()) else 0.0
+    log(f"[K6] traverse kernel vs plain walk on {n} {label} (every fifth dead): {differ} prim "
+        f"ids differ; hits {hits}")
+    if differ or not bool((out[1, ::5] == -1).all()):
+        raise SystemExit(f"K6 walk check failed on {label}: {differ} prim ids differ")
+    return {"rays": n, "differ": differ, "hits": hits, "max_abs_err_t": err}
 
 
 def phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T):
@@ -359,6 +409,13 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
     torch.cuda.synchronize()
     frac, dmean = check_contract(f"main path {size}x{size} rays", L_k, L_p)
     bound_ms, bound_by, nodes, prims, nbytes = bound_of(stats, B, mk.pack_bytes(pack))
+    # the sorted-wavefront driver on the same rays, auto_trace bypassed: the
+    # same estimator as the whole-path kernel, lane for lane
+    L_s = mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+    torch.cuda.synchronize()
+    frac_s, dmean_s = check_contract("cornell rays, K5 vs the whole-path kernel", L_s, L_k)
+    log(f"[5] K5 (driver, key pos_dir) vs K2 on the same {B} rays: {frac_s:.7f} lanes differ, "
+        f"{int((L_s != L_k).any(dim=-1).sum())} not bit-equal, means differ by {dmean_s:.3g}")
     log(f"[5] kernel {k_ms:.3f} ms/spp, {B / (k_ms * 1e-3):.4g} paths/s; plain version "
         f"{plain_ms:.1f} ms on the same rays ({frac:.7f} lanes differ, means differ by "
         f"{dmean:.3g}); bound {bound_ms:.4f} ms ({bound_by}: {nodes} wide nodes, "
@@ -371,6 +428,7 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
         "library_ms": None, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
         "mean_differ": dmean,
         "wide_nodes": nodes, "prim_tests": prims, "wall_ms_per_spp": wall * 1e3 / spp,
+        "k5_vs_k2_lanes_differ": frac_s,
     }, r
 
 
@@ -379,48 +437,247 @@ def bound_of(stats, B: int, pack_bytes: int) -> tuple:
     states and L once plus the pack, against this run's walk work."""
     nodes = int(stats[:, 0].sum(dtype=torch.int64))
     prims = int(stats[:, 1].sum(dtype=torch.int64))
-    ops = nodes * 8 * OPS_SLAB + prims * OPS_TRI
     nbytes = B * (6 * 4 + 2 * 4 + 3 * 4) + pack_bytes
-    bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_S) * 1e3
-    bound_by = "bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_F32_S else "operations"
-    return bound_ms, bound_by, nodes, prims, nbytes
+    return (*bound(nbytes, nodes, prims), nodes, prims, nbytes)
 
 
-def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingConfig,
-                  ParsedScene, Renderer):
-    """The surface main path: the Renderer on full-size kitchen_stress."""
-    spp = args.kitchen_spp
-    md = MaxDepthParams()
-    parsed = ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height, md=md,
-                                                     seed=0))
-    r = Renderer(parsed, nee_candidates=1)  # device=None -> cuda
-    info = r.info()
-    if not (info["has_env"] and info["textured"] and info["has_disp"]):
-        raise SystemExit(f"kitchen_stress did not set the K3 flags: {info}")
+def bound(nbytes: int, nodes: int, prims: int) -> tuple:
+    """(bound ms, what bounds it) of nbytes moved and a walk of nodes wide
+    nodes and prims prim tests."""
+    ops = nodes * 8 * OPS_SLAB + prims * OPS_TRI
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations"
+
+
+def render_main_path(mk, r, spp: int, label: str, want: dict) -> tuple:
+    """The Renderer's spp passes with every launch count set to 0 just
+    before and read just after; fails unless the path launched exactly the
+    kernels (LAUNCHES keys, each > 0) and instantiations of want
+    ({"launches": [...], "instantiations": [...]}), and the image is
+    finite. Returns (wall s, launches, instantiation launches)."""
     torch.cuda.synchronize()
     mk.reset_launches()
     t0 = time.perf_counter()
     img = r.render(spp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(mk.LAUNCHES)
-    if launches["trace_megakernel"] <= 0:
-        raise SystemExit("kitchen main path did not launch the megakernel")
-    if img.shape != (cam.height, cam.width, 3) or not np.isfinite(img).all():
-        raise SystemExit("kitchen main path image is not finite / has the wrong shape")
-    log(f"[6] Renderer kitchen_stress {cam.width}x{cam.height}x{spp}spp: {wall:.2f} s wall "
-        f"({wall * 1e3 / spp:.2f} ms per spp), launches {launches}, image mean "
-        f"{float(img.mean()):.6f}, flags {r._pack.flags}")
+    launches = {k: v for k, v in mk.LAUNCHES.items() if v}
+    inst = dict(mk.INSTANTIATION_LAUNCHES)
+    if sorted(launches) != sorted(want["launches"]) or sorted(inst) != sorted(want["instantiations"]):
+        raise SystemExit(f"{label} main path launched {launches} {inst}, not {want}")
+    if img.shape != (r.camera.height, r.camera.width, 3) or not np.isfinite(img).all():
+        raise SystemExit(f"{label} main path image is not finite / has the wrong shape")
+    return wall, launches, inst, float(img.mean())
 
-    k = hold_main_path(mk, r, md, KITCHEN_BLOCK, "6", "kitchen",
-                       f"incl. {mk.pack_bytes(r._pack, mk.K3_KEYS)} of uvs, texels and K3 tables")
-    return {
+
+def main_rays(mk, r, blk: int):
+    """The main path's rays of sample 0 (Z-order lanes) and the blk-lane
+    block of them that holds the image centre: (o, d, rng, slice)."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+
+    cam = r.camera
+    perm, inv = mk.tile_swizzle(cam.width, cam.height, r.device)
+    rng = qmc.make_state("pcg", 0, perm, 0)
+    o, d, rng = cam_mod.generate_rays(cam, perm, rng)
+    k0 = int(inv[(cam.height // 2) * cam.width + cam.width // 2]) // blk * blk
+    return o, d, rng, slice(k0, k0 + blk)
+
+
+def swf_loop(mk, pack, md, o, d, rng, timing: bool = False, count: bool = False) -> dict:
+    """The sorted-wavefront driver's loop (mk.trace_megakernel_swf on the
+    kernels, key "pos_dir") run here piece by piece, so that the package
+    carries no measurement code. timing: CUDA events around each phase,
+    summed per phase into "ms": "seg" (the K5 launches) and "traverse"
+    (K6), each kernel alone (it starts after a device sleep of
+    SETTLE_CYCLES that covers the host's launch latency; the sleep belongs
+    to no phase), "sort" (key, argsort, state gather, live count) and
+    "glue" (hit resolve, grid passes, texels, the envmap epilogue, the
+    un-permute), each from its first to its last operation, gaps while
+    the device waits for the host included. count: the walk work of K5 and
+    K6 per slot ("stats", "stats_t") and, per launch, the lanes whose
+    envmap miss record K5 wrote ("misses"). Returns those, L and the live
+    lanes of each launch."""
+    dev = o.device
+    B = o.shape[0]
+    ms, open_ = {}, [None]
+
+    def mark(name, settle: bool = False):
+        if not timing:
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if open_[0] is not None:
+            ms.setdefault(open_[0][0], []).append((open_[0][1], ev))
+        if settle:
+            torch.cuda._sleep(SETTLE_CYCLES)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        open_[0] = (name, ev) if name else None
+
+    stats = torch.zeros((B, 2), dtype=torch.int32, device=dev) if count else None
+    stats_t = torch.zeros((B, 2), dtype=torch.int32, device=dev) if count else None
+    env = mk.seg_layout(pack).env
+    st = mk.seg_init(pack, o, d, rng)
+    pix = torch.arange(B, device=dev)
+    lanes, misses = [], []
+    for bounce in range(md.max_depth):
+        mark("sort")
+        st, pix, n = mk.swf_sort(st, pix, "pos_dir")
+        if n == 0:
+            break
+        lanes.append(n)
+        hit = flight = None
+        if pack.has_grid:
+            mark("traverse", settle=True)
+            trav = mk.traverse_closest(pack, st, n, stats_t)
+            mark("glue")
+            hit = mk.resolve_hit(pack, trav)
+            flight = mk.grid_flight(pack, st, n, hit[0]).contiguous()
+        env0 = st[env:env + 6, :n].clone() if count and env >= 0 else None
+        mark("seg", settle=True)
+        mk.trace_megakernel_seg(pack, md, st, n, bounce, 1, hit, flight, stats)
+        mark("glue")
+        if env0 is not None:
+            misses.append(int((st[env:env + 6, :n] != env0).any(dim=0).sum()))
+        mk.swf_resolve(pack, st, n)
+    mark("glue")
+    L = mk.swf_result(pack, st, pix)
+    mark(None)
+    torch.cuda.synchronize()
+    return {"L": L, "live_lanes": lanes, "misses": misses, "stats": stats, "stats_t": stats_t,
+            "ms": {k: sum(a.elapsed_time(b) for a, b in v) for k, v in ms.items()}}
+
+
+def k5_bytes(pack, lanes: list, misses: list) -> tuple:
+    """(bytes, reads per lane, writes per lane) that K5 moves over the
+    launches of a driver run, as csrc/seg.cuh reads and writes the planes:
+    each launched lane (all live: the driver launches the live prefix)
+    reads planes 0-20, the medium stack (MED) and, in the SHADE form, the
+    hit planes it uses and the flight planes; it writes planes 0-20, the
+    medium stack, the texture record (textured) and the grid NEE record
+    (GRID); the envmap miss record only on a miss (misses: lanes per
+    launch). The pack counts once per run in the caller."""
+    med = 5 if pack.has_media else 0
+    shade = 0
+    if pack.has_grid:
+        shade = (10 + (0 if pack.tri_only else 1) + 1 + (2 if pack.textured else 0) + 1) + 5
+    reads = (21 + med + shade) * 4
+    writes = (21 + med + (6 if pack.textured else 0) + (9 if pack.has_grid else 0)) * 4
+    return sum(lanes) * (reads + writes) + sum(misses) * 24, reads, writes
+
+
+def hold_swf(mk, r, md, blk: int, phase: str, label: str) -> dict:
+    """Kernel K5 (and K6 in the split form) under the sorted-wavefront
+    driver on one spp of the main path's rays: a blk-lane block of the
+    output held to the phase-4 contract against the driver on the plain
+    versions on the same lanes; the driver's loop run here (swf_loop) held
+    bit for bit to the driver's output; per spp (three runs) K5's summed
+    kernel time, K6's, the sort-and-gather glue, the other glue, the wall
+    of an untimed driver run and the launches; the walk work and the
+    bound: the pack once plus what K5 moves (k5_bytes)."""
+    pack = r._pack
+    o, d, rng, blk_sl = main_rays(mk, r, blk)
+    B = o.shape[0]
+    ob, db, rb = (x[blk_sl].contiguous() for x in (o, d, rng))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L_p = mk.trace_megakernel_swf_reference(pack, md, ob, db, rb, key_mode="pos_dir")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    L_k = mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+    torch.cuda.synchronize()
+    if not torch.isfinite(L_k).all():
+        raise SystemExit(f"{label} main path rays: non-finite K5 output")
+    L_kb = L_k[blk_sl]
+    frac, dmean = check_contract(f"{label} K5 on {B} rays, block of {blk}", L_kb, L_p)
+    cnt = swf_loop(mk, pack, md, o, d, rng, count=True)
+    if not torch.equal(cnt["L"], L_k):
+        raise SystemExit(f"{label}: the measured loop is not the driver (its L differs)")
+    runs = []
+    for _ in range(3):
+        tm = swf_loop(mk, pack, md, o, d, rng, timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+        torch.cuda.synchronize()
+        runs.append({"wall_ms": (time.perf_counter() - t0) * 1e3, **tm["ms"]})
+    lanes, misses = cnt["live_lanes"], cnt["misses"]
+    state_bytes, reads, writes = k5_bytes(pack, lanes, misses)
+    nbytes = mk.pack_bytes(pack) + state_bytes
+    nodes = int(cnt["stats"][:, 0].sum(dtype=torch.int64))
+    prims = int(cnt["stats"][:, 1].sum(dtype=torch.int64))
+    bound_ms, bound_by = bound(nbytes, nodes, prims)
+    mean = {k: float(np.mean([run[k] for run in runs])) for k in runs[0]}
+    seg_ms = mean["seg"]
+    split = pack.has_grid
+    log(f"[{phase}] K5 {label}: {frac:.7f} of the block's {blk} lanes differ from the plain "
+        f"driver ({plain_ms:.1f} ms on the block), means differ by {dmean:.3g}; per spp (mean of "
+        f"3): K5 {seg_ms:.3f} ms over {len(lanes)} launches (live lanes {lanes}), sort+gather "
+        f"{mean['sort']:.3f} ms, other glue {mean['glue']:.3f} ms"
+        + (f", K6 {mean['traverse']:.3f} ms" if split else "")
+        + f", wall {mean['wall_ms']:.3f} ms; per live lane per launch {reads} B read, {writes} B "
+        f"written (+24 B on a miss: {sum(misses)} misses); bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nodes} wide nodes, {prims} prim tests, {nbytes} bytes of which {state_bytes} state); "
+        f"{bound_ms / seg_ms:.4f} of bound")
+    out = {"max_abs_err": float((L_kb - L_p).abs().max()), "ms": seg_ms, "plain_ms": plain_ms,
+           "plain_lanes": blk, "bound_ms": bound_ms, "bound_by": bound_by,
+           "lanes_differ": frac, "mean_differ": dmean, "wide_nodes": nodes, "prim_tests": prims,
+           "state_read_bytes_per_lane_launch": reads, "state_write_bytes_per_lane_launch": writes,
+           "env_misses": sum(misses), "state_bytes": state_bytes,
+           "launches_per_spp": len(lanes), "live_lanes": lanes, "sort_gather_ms": mean["sort"],
+           "glue_ms": mean["glue"], "swf_wall_ms": mean["wall_ms"], "runs": runs, "L": L_k}
+    if split:
+        t_nodes = int(cnt["stats_t"][:, 0].sum(dtype=torch.int64))
+        t_prims = int(cnt["stats_t"][:, 1].sum(dtype=torch.int64))
+        t_bytes = sum(lanes) * (7 + 4) * 4 + mk.pack_bytes(pack, ("nodes", "prims"))
+        t_bound, t_by = bound(t_bytes, t_nodes, t_prims)
+        out["k6"] = {"ms": mean["traverse"], "bound_ms": t_bound, "bound_by": t_by,
+                     "wide_nodes": t_nodes, "prim_tests": t_prims, "bytes": t_bytes}
+        log(f"[{phase}] K6 {label}: {mean['traverse']:.3f} ms per spp, bound {t_bound:.4f} ms "
+            f"({t_by}: {t_nodes} wide nodes, {t_prims} prim tests, {t_bytes} bytes); "
+            f"{t_bound / max(mean['traverse'], 1e-9):.4f} of bound")
+    return out
+
+
+def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingConfig,
+                  ParsedScene, Renderer):
+    """The surface main path at scale: the Renderer on full-size
+    kitchen_stress through the sorted-wavefront driver (K5), and K3 (the
+    whole-path kernel, called directly) on the same rays."""
+    spp = args.kitchen_spp
+    md = MaxDepthParams()
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height, md=md,
+                                                     seed=0))
+    r = Renderer(parsed, nee_candidates=1)  # device=None -> cuda
+    info = r.info()
+    if not (info["has_env"] and info["textured"] and info["has_disp"]) or info["driver"] != "swf":
+        raise SystemExit(f"kitchen_stress: not the K3 flags or not the swf driver: {info}")
+    wall, launches, inst, mean = render_main_path(
+        mk, r, spp, "kitchen", {"launches": ["trace_megakernel_seg"],
+                                "instantiations": ["SEG+K3+ALL"]})
+    log(f"[6] Renderer kitchen_stress {cam.width}x{cam.height}x{spp}spp ({mk.pack_boxes(r._pack)} "
+        f"boxes: driver {info['driver']}): {wall:.2f} s wall ({wall * 1e3 / spp:.2f} ms per spp), "
+        f"launches {launches} {inst}, image mean {mean:.6f}, flags {r._pack.flags}")
+    k5 = hold_swf(mk, r, md, BLOCK, "6", "kitchen")
+    k3 = hold_main_path(mk, r, md, BLOCK, "6", "kitchen",
+                        f"incl. {mk.pack_bytes(r._pack, mk.K3_KEYS)} of uvs, texels and K3 tables")
+    dmean = abs(float(k5.pop("L").mean()) - float(k3.pop("L").mean()))
+    log(f"[6] kitchen, one spp: K5 {k5['ms']:.3f} ms (driver wall {k5['swf_wall_ms']:.3f} ms) "
+        f"against the whole-path kernel's {k3['ms']:.3f} ms on the same rays; image means "
+        f"differ by {dmean:.3g} (inline against deferred texturing: the same estimator in the "
+        f"mean only)")
+    if dmean > MEAN_TOL:
+        raise SystemExit("kitchen: K5 and the whole-path kernel disagree in the mean")
+    k5.update({"wall_ms_per_spp": wall * 1e3 / spp, "launches": launches["trace_megakernel_seg"],
+               "instantiations": inst, "whole_path_ms": k3["ms"], "mean_vs_whole_path": dmean})
+    return k5, {
         "name": "trace_megakernel (K3: has_env, textured, has_disp)", "route": "cuda",
         "source": "cuda_pt_torch/csrc/megakernel.cu",
         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:1445",
-        "launches": launches["trace_megakernel"], **k, "library_ms": None,
-        "wall_ms_per_spp": wall * 1e3 / spp, "bvh_build_s": build_s,
+        "launches": 0, **k3, "library_ms": None, "bvh_build_s": build_s,
         "num_prims": scene.geom.num_prims,
+        "note": "off the main path since K5 takes scenes of 512 boxes or more; called directly",
     }, r
 
 
@@ -430,16 +687,10 @@ def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str 
     centre) held to the phase-4 contract against the plain version on the
     same lanes (lanes are independent); the kernel's time per spp (CUDA
     events) and on the block alone; its walk work and bound."""
-    from cuda_pt_torch.core import camera as cam_mod
-    from cuda_pt_torch.core import qmc
-
-    cam, pack = r.camera, r._pack
-    B = cam.width * cam.height
-    perm, inv = mk.tile_swizzle(cam.width, cam.height, r.device)
-    rng = qmc.make_state("pcg", 0, perm, 0)
-    o, d, rng = cam_mod.generate_rays(cam, perm, rng)
-    k0 = int(inv[(cam.height // 2) * cam.width + cam.width // 2]) // blk * blk
-    ob, db, rb = (x[k0:k0 + blk].contiguous() for x in (o, d, rng))
+    pack = r._pack
+    o, d, rng, blk_sl = main_rays(mk, r, blk)
+    B = o.shape[0]
+    ob, db, rb = (x[blk_sl].contiguous() for x in (o, d, rng))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     L_p = mk.trace_megakernel_reference(pack, md, ob, db, rb)
@@ -449,7 +700,7 @@ def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str 
     torch.cuda.synchronize()
     if not torch.isfinite(L_k).all():
         raise SystemExit(f"{label} main path rays: non-finite kernel output")
-    L_kb = L_k[k0:k0 + blk]
+    L_kb = L_k[blk_sl]
     frac, dmean = check_contract(f"{label} main path {B} rays, block of {blk}", L_kb, L_p)
     block_ms = events_ms(lambda: mk.trace_megakernel(pack, md, ob, db, mk.rng_bits(rb)), 5)
 
@@ -463,7 +714,8 @@ def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str 
         f"{frac:.7f} lanes differ, means differ by {dmean:.3g}; the kernel launched on the "
         f"block alone {block_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nodes} wide nodes, "
         f"{prims} prim tests, {nbytes} bytes {bytes_note}); {bound_ms / k_ms:.4f} of bound")
-    return {"max_abs_err": float((L_kb - L_p).abs().max()), "ms": k_ms, "plain_ms": plain_ms,
+    return {"L": L_k, "max_abs_err": float((L_kb - L_p).abs().max()), "ms": k_ms,
+            "plain_ms": plain_ms,
             "plain_lanes": blk, "block_kernel_ms": block_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
             "mean_differ": dmean, "wide_nodes": nodes, "prim_tests": prims}
@@ -472,7 +724,9 @@ def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str 
 def phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, ParsedScene,
               Renderer):
     """The volume path tracer's main path: the Renderer on full-size
-    medium_cbox through kernel K4."""
+    medium_cbox through the driver (K5), held to its plain version and to
+    K4 (the whole-path kernel, called directly) lane for lane; K4 held to
+    its plain version."""
     t0 = time.perf_counter()
     scene, cam, _ = tts.medium_cbox(1024, 1024, device=dev)
     build_s = time.perf_counter() - t0
@@ -482,41 +736,103 @@ def phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, Parse
                                                      seed=0))
     r = Renderer(parsed, renderer=RendererType.VOLUME_PT, nee_candidates=1)  # device=None -> cuda
     info = r.info()
-    if not info["has_media"]:
-        raise SystemExit(f"medium_cbox: the Renderer's pack has no media: {info}")
-    torch.cuda.synchronize()
-    mk.reset_launches()
-    t0 = time.perf_counter()
-    img = r.render(spp)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(mk.LAUNCHES)
-    inst = dict(mk.INSTANTIATION_LAUNCHES)
-    if launches["trace_megakernel"] <= 0 or inst != {"ALL+MED": launches["trace_megakernel"]}:
-        raise SystemExit(f"VPT main path did not launch kernel K4 (MED) alone: {launches} {inst}")
-    if img.shape != (cam.height, cam.width, 3) or not np.isfinite(img).all():
-        raise SystemExit("VPT main path image is not finite / has the wrong shape")
+    if not info["has_media"] or info["driver"] != "swf":
+        raise SystemExit(f"medium_cbox: no media in the pack or not the swf driver: {info}")
+    wall, launches, inst, mean = render_main_path(
+        mk, r, spp, "VPT", {"launches": ["trace_megakernel_seg"],
+                            "instantiations": ["SEG+ALL+MED"]})
     log(f"[7] medium_cbox ({scene.geom.num_prims} triangles, BVH built in {build_s:.1f} s; "
         f"{r._pack['nodes'].shape[0]} wide nodes, walk stack {r._pack.max_stack}, max leaf "
         f"{r._pack.max_leaf}): Renderer VOLUME_PT {cam.width}x{cam.height}x{spp}spp: "
         f"{wall:.2f} s wall ({wall * 1e3 / spp:.2f} ms per spp), launches {launches} {inst} "
-        f"({launches['trace_megakernel'] / spp:g} per spp), image mean {float(img.mean()):.6f}")
-
-    k = hold_main_path(mk, r, md, VPT_BLOCK, "7", "VPT",
-                       f"incl. {mk.pack_bytes(r._pack, mk.MED_KEYS)} of the media row; the "
-                       f"walk work incl. the transmittance walks")
-    return {
+        f"({launches['trace_megakernel_seg'] / spp:g} per spp), image mean {mean:.6f}")
+    k5 = hold_swf(mk, r, md, BLOCK, "7", "medium_cbox")
+    k4 = hold_main_path(mk, r, md, BLOCK, "7", "VPT",
+                        f"incl. {mk.pack_bytes(r._pack, mk.MED_KEYS)} of the media row; the "
+                        f"walk work incl. the transmittance walks")
+    L_w, L_s = k4.pop("L"), k5.pop("L")
+    frac_w, dmean_w = check_contract("medium_cbox, K5 vs the whole-path kernel K4", L_s, L_w)
+    log(f"[7] medium_cbox, one spp: K5 {k5['ms']:.3f} ms (driver wall {k5['swf_wall_ms']:.3f} ms) "
+        f"against K4's {k4['ms']:.3f} ms on the same rays; per lane {frac_w:.7f} differ, "
+        f"{int((L_s != L_w).any(dim=-1).sum())} not bit-equal, means differ by {dmean_w:.3g}")
+    k5.update({"wall_ms_per_spp": wall * 1e3 / spp, "launches": launches["trace_megakernel_seg"],
+               "instantiations": inst, "whole_path_ms": k4["ms"],
+               "lanes_differ_vs_whole_path": frac_w})
+    return k5, {
         "name": "trace_megakernel (K4: has_media)", "route": "cuda",
-        "source": "cuda_pt_torch/csrc/megakernel.cu",
+        "source": "cuda_pt_torch/csrc/megakernel_med.cu",
         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:1386",
-        "launches": launches["trace_megakernel"], **k, "library_ms": None,
-        "wall_ms_per_spp": wall * 1e3 / spp, "bvh_build_s": build_s,
-        "num_prims": scene.geom.num_prims, "instantiations": inst,
+        "launches": 0, **k4, "library_ms": None, "bvh_build_s": build_s,
+        "num_prims": scene.geom.num_prims,
+        "note": "off the main path since K5 takes scenes of 512 boxes or more; called directly",
     }, r
 
 
-def phase_profile(r, passes: int = 4) -> dict:
-    """Device time by kernel over a few Renderer passes (torch.profiler,
+def phase_grid(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, ParsedScene,
+               Renderer):
+    """Grid media: the Renderer on grid_smoke (a 256^3 density grid) through
+    the split driver, K6 and K5's shade phase, held to the plain versions."""
+    t0 = time.perf_counter()
+    scene, cam, _ = tts.grid_smoke(1024, 1024, n=GRID_N, device=dev)
+    build_s = time.perf_counter() - t0
+    md = MaxDepthParams()
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height, md=md,
+                                                     seed=0))
+    r = Renderer(parsed, renderer=RendererType.VOLUME_PT, nee_candidates=1)  # device=None -> cuda
+    info = r.info()
+    if info["driver"] != "swf_split" or not info["has_grid"]:
+        raise SystemExit(f"grid_smoke: not the split driver: {info}")
+    wall, launches, inst, mean = render_main_path(
+        mk, r, GRID_SPP, "grid", {"launches": ["trace_megakernel_seg", "traverse_closest"],
+                                  "instantiations": ["SEG+SHADE+ALL+MED+GRID"]})
+    grid_mib = r._pack["gr_density"].numel() * 4 / 2 ** 20
+    log(f"[8] grid_smoke (a {GRID_N}^3 density grid, {grid_mib:.0f} MiB; scene built in "
+        f"{build_s:.1f} s): Renderer VOLUME_PT {cam.width}x{cam.height}x{GRID_SPP}spp: "
+        f"{wall:.2f} s wall ({wall * 1e3 / GRID_SPP:.2f} ms per spp), launches {launches} {inst}, "
+        f"image mean {mean:.6f}")
+    o, d, _, _ = main_rays(mk, r, BLOCK)
+    k6_check = check_k6(mk, r._pack, o.contiguous(), d.contiguous(), "grid_smoke camera rays")
+    k5 = hold_swf(mk, r, md, BLOCK, "8", "grid_smoke")
+    k5.pop("L")
+    k6 = k5.pop("k6")
+    o_b = o[:BLOCK].contiguous()
+    st = mk.seg_init(r._pack, o_b, d[:BLOCK].contiguous(),
+                     torch.zeros((BLOCK, 2), dtype=torch.int64, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk.traverse_plain(r._pack, st, BLOCK)
+    torch.cuda.synchronize()
+    k6_plain = (time.perf_counter() - t0) * 1e3
+    k6_block = events_ms(lambda: mk.traverse_closest(r._pack, st, BLOCK), 10)
+    k5.update({"wall_ms_per_spp": wall * 1e3 / GRID_SPP,
+               "launches": launches["trace_megakernel_seg"], "instantiations": inst})
+    k6.update({"launches": launches["traverse_closest"], "plain_ms": k6_plain,
+               "plain_lanes": BLOCK, "block_kernel_ms": k6_block, "walk_check": k6_check,
+               "max_abs_err": k6_check["max_abs_err_t"]})
+    log(f"[8] K6 on the {BLOCK}-lane block: kernel {k6_block:.4f} ms, plain walk {k6_plain:.1f} ms")
+    return k5, k6
+
+
+def whole_path_pass(mk, r, md):
+    """A pass of the Renderer's scene through the whole-path kernel
+    (auto_trace bypassed): sample 0's pcg streams and camera rays over the
+    Z-order lanes (made once, as the Renderer caches them), then one
+    trace_megakernel."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+
+    perm, _ = mk.tile_swizzle(r.camera.width, r.camera.height, r.device)
+
+    def run():
+        rng = qmc.make_state("pcg", 0, perm, 0)
+        o, d, rng = cam_mod.generate_rays(r.camera, perm, rng)
+        mk.trace_megakernel(r._pack, md, o, d, rng)
+
+    return run
+
+
+def phase_profile(run, passes: int = 4) -> dict:
+    """Device time by kernel over a few passes of run() (torch.profiler,
     CUPTI), after one warm-up profile; the device busy share is the summed
     kernel time over the wall of the same passes run without the profiler."""
     from torch.autograd import DeviceType
@@ -525,13 +841,13 @@ def phase_profile(r, passes: int = 4) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(passes):
-        r.render_raw()
+        run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / passes
     for _ in range(2):  # the first profile pays CUPTI's start-up; keep the second
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(passes):
-                r.render_raw()
+                run()
             torch.cuda.synchronize()
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
@@ -578,14 +894,37 @@ def main():
     res4_media = phase_kernel_media(mk, tts, dev, MaxDepthParams, T)
     k2, r = phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene, Renderer,
                        res4["cornell"]["mean_plain"])
-    k3, rk = phase_kitchen(mk, dev, args, kscene, kcam, build_s, MaxDepthParams, RenderingConfig,
-                           ParsedScene, Renderer)
-    k4, rv = phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, ParsedScene,
-                       Renderer)
-    extra = {"profile": phase_profile(r), "profile_kitchen": phase_profile(rk),
-             "profile_vpt": phase_profile(rv)} if args.profile else {}
+    k5_kitchen, k3, rk = phase_kitchen(mk, dev, args, kscene, kcam, build_s, MaxDepthParams,
+                                       RenderingConfig, ParsedScene, Renderer)
+    k5_vpt, k4, rv = phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig,
+                               ParsedScene, Renderer)
+    k5_grid, k6 = phase_grid(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig,
+                             ParsedScene, Renderer)
+    seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
+           "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
+    kernels = [
+        k2, k3, k4,
+        {"name": "trace_megakernel_seg (K5, kitchen_stress: SEG+K3+ALL)", **seg, **k5_kitchen},
+        {"name": "trace_megakernel_seg (K5, medium_cbox: SEG+ALL+MED)", **seg, **k5_vpt},
+        {"name": "trace_megakernel_seg (K5 shade, grid_smoke: SEG+SHADE+ALL+MED+GRID)", **seg,
+         **k5_grid},
+        {"name": "traverse_closest (K6, grid_smoke)", "route": "cuda",
+         "source": "cuda_pt_torch/csrc/megakernel_split.cu",
+         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3390", "library_ms": None, **k6},
+    ]
+    for k in kernels:
+        k.pop("runs", None)
+    extra = {}
+    if args.profile:
+        md = MaxDepthParams()
+        for key, run in (("profile", r.render_raw), ("profile_kitchen", rk.render_raw),
+                         ("profile_kitchen_whole_path", whole_path_pass(mk, rk, md)),
+                         ("profile_vpt", rv.render_raw),
+                         ("profile_vpt_whole_path", whole_path_pass(mk, rv, md))):
+            log(f"[profile] {key}")
+            extra[key] = phase_profile(run)
     # the two result lines carry no time prefix: each is one JSON object
-    print(json.dumps({"kernels": [k2, k3, k4], "card": card, "walk_check": walk,
+    print(json.dumps({"kernels": kernels, "card": card, "walk_check": walk,
                       "walk_check_kitchen": walk_k, "kernel_check": res4,
                       "kernel_check_media": res4_media, **extra}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,22 +2,31 @@
 VOLUME_PT).
 
 One stateful Renderer over a compiled scene: the film and the camera stay
-on the render device between passes, and every pass runs the path loop
-through the whole-path megakernel (ops/megakernel.py): the CUDA kernel on
-a CUDA device, its plain PyTorch version on the CPU. ``device=None`` means
-CUDA and raises where CUDA is absent; pass ``device="cpu"`` to render on
-the CPU. Every scene inside the fused kernel's envelope renders (all
-surface BSDF families but Plastic-forward, area / area-spot / point
-emitters, envmaps, diffuse textures, dispersion; megakernel_ok), at every
-scene size: the reference sends scenes of 512 boxes or more to its
-sorted-wavefront kernel (K5), which the port does not have yet.
-RendererType.VOLUME_PT renders homogeneous participating media through
-the same kernel built for them (K4; a vpt pack, nee_candidates=1), as the
-reference's accelerator route does.
+on the render device between passes, and every pass runs the reference's
+driver pick (ops/megakernel.auto_trace): a scene of fewer than
+SWF_AUTO_BOXES (512) boxes takes the whole-path megakernel (K2 / K3, K4
+for media), a scene of 512 boxes or more the sorted-wavefront driver
+(kernel K5, one bounce per launch with the lanes re-sorted between
+bounces), and a scene with a grid medium that driver's split form
+(kernel K6 and K5's shade phase around delta-tracked flight and
+ratio-tracked NEE). On a CUDA device the kernels run, on the CPU their
+plain PyTorch versions. ``device=None`` means CUDA and raises where CUDA
+is absent; pass ``device="cpu"`` to render on the CPU. The two drivers
+compute the same estimator per lane on untextured scenes; on textured ones
+(kitchen_stress) the driver resolves each bounce's texel inline, so its
+Russian roulette sees the texels of the earlier bounces, and it agrees
+with the whole-path kernel in the mean only, as in the reference.
 
-Still to port (ROADMAP Queue 1): other renderer families, grid media,
-render_adaptive, render_aovs, denoise, film checkpoints, the XML parser,
-the Sobol sampler (the Renderer draws from pcg streams only).
+Every scene inside the fused kernel's envelope renders (all surface BSDF
+families but Plastic-forward, area / area-spot / point emitters, envmaps,
+diffuse textures, dispersion; megakernel_ok). RendererType.VOLUME_PT
+renders participating media (a vpt pack, nee_candidates=1): homogeneous
+media at any size, and grid media without an envmap or emission.
+
+Still to port (ROADMAP Queue 1): other renderer families, emissive grids
+and the composed volume path tracer's grid route, render_adaptive,
+render_aovs, denoise, film checkpoints, the XML parser, the Sobol sampler
+(the Renderer draws from pcg streams only).
 """
 
 from __future__ import annotations
@@ -85,11 +94,13 @@ class Renderer:
             raise ValueError("the fused volume path tracer takes nee_candidates=1, as in the "
                              "reference")
         scene = self.parsed.scene
-        if vpt and bool((scene.media.mtype == T.MEDIUM_GRID).any()):
-            raise NotImplementedError("grid media wait for kernel K6 (ROADMAP Queue 2) and "
-                                      "media/grid.py (ROADMAP Queue 1 item 8)")
         self.md: MaxDepthParams = self.config.md
         if not mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"):
+            if vpt and bool((scene.media.mtype == T.MEDIUM_GRID).any()):
+                raise NotImplementedError(
+                    "a grid medium with an envmap or with emission stays outside the fused "
+                    "route, as in the reference; the composed volume path tracer's grid route "
+                    "waits for ROADMAP Queue 1 item 8")
             raise ValueError(_envelope_message(scene, vpt))
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -170,11 +181,13 @@ class Renderer:
             "num_nodes": self.scene.bvh.num_nodes,
             "spp_accumulated": self.counter(),
             "traversal": "fused",
+            "driver": mk.driver_of(self._pack),
             "device": str(self.device),
             "sampler": "pcg",
             "nee_candidates": self.nee_candidates,
             **self._pack.flags,
             "has_media": self._pack.has_media,
+            "has_grid": self._pack.has_grid,
         }
 
     def update_camera(self, camera: cam_mod.Camera):

@@ -56,8 +56,11 @@
 // medium state to the same per-thread loop; it is bound by the same walk
 // operations.
 //
-// The kernel template is csrc/trace.cuh; this unit instantiates the four
-// surface builds, csrc/megakernel_med.cu the two MED ones (launch_trace_med).
+// The kernel template is csrc/trace.cuh (its loop body csrc/bounce.inc);
+// this unit instantiates the four surface builds, csrc/megakernel_med.cu
+// the two MED ones (launch_trace_med). The sorted-wavefront driver's
+// kernels, K5 (one bounce per launch, csrc/seg.cuh) and K6, are built in
+// csrc/megakernel_seg.cu and csrc/megakernel_split.cu.
 //
 // Two C entry points, called through ctypes (ops/megakernel.py):
 //   mk_trace        -> L (B, 3) for rays (B, 3) x 2 and pcg states (B, 2);
@@ -88,30 +91,6 @@ __global__ void __launch_bounds__(128) closest_hit_kernel(Pack pk,
     out_prim[i] = h.prim;
     out_b1[i] = h.b1;
     out_b2[i] = h.b2;
-}
-
-// The pack's tables in ops/megakernel.PACK_KEYS + K3_KEYS order (the
-// media row follows them, MED_KEYS).
-static Pack make_pack_view(const void* const* t, int max_leaf, int tri_only, int has_env,
-                           int textured, int has_disp) {
-    Pack pk;
-    pk.nodes = (const float*)t[0];
-    pk.prims = (const float*)t[1];
-    pk.attrs = (const float*)t[2];
-    pk.erow = (const float*)t[3];
-    pk.eprims = (const float*)t[4];
-    pk.brows = (const float*)t[5];
-    pk.uvs = (const float*)t[6];
-    pk.texels = (const float*)t[7];
-    pk.tinfo = (const int*)t[8];
-    pk.tdiff = (const int*)t[9];
-    pk.envrow = (const float*)t[10];
-    pk.max_leaf = max_leaf;
-    pk.tri_only = tri_only;
-    pk.has_env = has_env;
-    pk.textured = textured;
-    pk.has_disp = has_disp;
-    return pk;
 }
 
 extern "C" int mk_trace(const void* const* tables, const float* ray_o, const float* ray_d,

@@ -1,0 +1,51 @@
+// Kernel K5's SEG instantiations (csrc/seg.cuh: one bounce per launch on
+// carried state, the bounce walking its own closest hit), in a translation
+// unit of their own so that the whole-path kernels' module stays as it is
+// (csrc/trace.cuh), and the C entry point of every K5 launch:
+//   mk_trace_seg -> the state planes advanced by one bounce in place, for
+//                   the first n lanes; writes the instantiation it launched
+//                   to *variant (bits: K3 1, ALL 2, MED 4, SEG 8, SHADE 16,
+//                   GRID 32)
+// It returns cudaGetLastError() right after the launch.
+
+#include "seg.cuh"
+
+extern "C" int mk_trace_seg(const void* const* tables, int* state, int stride, int n, int bounce,
+                            const float* hit, const float* flight, int* stats, int max_leaf,
+                            int tri_only, int has_env, int textured, int has_disp,
+                            int all_families, int has_media, int has_grid, int ambient_med, int max_depth, int max_diffuse, int max_specular,
+                            int max_transmit, int max_volume, int nee_m, int* variant,
+                            void* stream) {
+    Pack pk = make_pack_view(tables, max_leaf, tri_only, has_env, textured, has_disp);
+    DepthCaps md{max_depth, max_diffuse, max_specular, max_transmit};
+    MedArgs ma{(const float*)tables[11], ambient_med, max_volume};
+    SegArgs a{bounce, state, stride, n, hit, flight, stats};
+    cudaStream_t st = (cudaStream_t)stream;
+    bool k3 = has_env || textured || has_disp;
+    // a grid pack (always with media) takes the split driver and the SHADE
+    // form: grid flight and NEE resolve between launches
+    bool grid = has_media && has_grid;
+    // MED and SHADE are built with ALL only
+    bool all = all_families || has_media;
+    if (variant != nullptr) {
+        *variant = (k3 ? 1 : 0) | (all ? 2 : 0) | (has_media ? 4 : 0) | 8 | (grid ? 16 | 32 : 0);
+    }
+    if (n > 0) {
+        if (grid) {
+            launch_shade(k3, pk, md, nee_m, a, ma, st);
+        } else if (has_media && k3) {
+            launch_seg<true, true, true, false, false>(pk, md, nee_m, a, ma, st);
+        } else if (has_media) {
+            launch_seg<false, true, true, false, false>(pk, md, nee_m, a, ma, st);
+        } else if (k3 && all) {
+            launch_seg<true, true, false, false, false>(pk, md, nee_m, a, ma, st);
+        } else if (k3) {
+            launch_seg<true, false, false, false, false>(pk, md, nee_m, a, ma, st);
+        } else if (all) {
+            launch_seg<false, true, false, false, false>(pk, md, nee_m, a, ma, st);
+        } else {
+            launch_seg<false, false, false, false, false>(pk, md, nee_m, a, ma, st);
+        }
+    }
+    return (int)cudaGetLastError();
+}

@@ -170,9 +170,14 @@ def hit_emitter_pdf(scene: T.Scene, obj: torch.Tensor, t: torch.Tensor, cos_l: t
     """Solid-angle pdf that NEE would have generated a BSDF-sampled hit on
     an area emitter (MIS weight at emitter hits)."""
     obj = torch.clamp(obj, min=0).long()
-    eid = scene.objects.emitter_id[obj].long()
+    return hit_emitter_pdf_of(scene, scene.objects.emitter_id[obj].long(),
+                              scene.objects.inv_area[obj], t, cos_l)
+
+
+def hit_emitter_pdf_of(scene: T.Scene, eid: torch.Tensor, inv_area: torch.Tensor, t: torch.Tensor,
+                       cos_l: torch.Tensor):
+    """hit_emitter_pdf from the hit object's emitter id and 1 / area."""
     sel = scene.emitters.sel_pmf[torch.clamp(eid, 0, scene.emitters.sel_pmf.shape[0] - 1)]
-    inv_area = scene.objects.inv_area[obj]
     return sel * inv_area * (t * t) / torch.clamp(cos_l, min=1e-6)
 
 

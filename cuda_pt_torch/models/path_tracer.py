@@ -26,6 +26,17 @@ The dispersion wavelength then comes from the in-stream draw (no
 stratum), as in the kernel. This is the plain version of the CUDA
 megakernel (ops/megakernel.trace_megakernel_reference).
 
+``seg=True`` (with ``fused``) is one bounce of the fused estimator as the
+segment kernel K5 runs it under the sorted-wavefront driver
+(ops/megakernel.trace_megakernel_swf), which resolves what the bounce
+records between bounces (the state's ``rec``):
+- envmap: a miss records its direction and throughput (``miss_d``,
+  ``miss_thp``, carried); the driver adds thp * Le after the last bounce;
+- diffuse textures (inline texturing): the NEE contribution is recorded
+  before the hit's texel (``nee``) with the hit's bsdf id and uv (``bid``,
+  ``uv``); the driver multiplies the texel into it and into the
+  throughput, so Russian roulette sees the texels of the earlier bounces.
+
 Still narrowed: the differentiable mode and ToF gating (ROADMAP Queue 1
 item 4). Participating media render with models/volume_pt.py.
 """
@@ -74,6 +85,7 @@ class PTState:
     bounce: int
     wl_u: torch.Tensor | None = None  # per-lane wavelength stratum (None = drawn)
     tex: torch.Tensor | None = None  # fused: running product of diffuse texels
+    rec: dict | None = None  # seg: the bounce's records (module docstring)
 
 
 def wl_stratum_u(seed, s_idx, lane: torch.Tensor) -> torch.Tensor:
@@ -136,16 +148,59 @@ def occluded(scene: T.Scene, o, d, t_far, need: torch.Tensor):
         need, False, o, d, t_far)
 
 
+def scene_textured(scene: T.Scene) -> bool:
+    """A material has a diffuse texture (the fused kernel's textured flag)."""
+    return bool((scene.bsdfs.tex_ids[:, T.TEX_DIFFUSE] >= 0).any())
+
+
+def env_record(s, miss: torch.Tensor, thp: torch.Tensor) -> dict:
+    """seg: the carried envmap miss record with this bounce's misses."""
+    rec = s.rec or {}
+    md_ = rec.get("miss_d", torch.zeros_like(s.d))
+    mt_ = rec.get("miss_thp", torch.zeros_like(s.d))
+    return {"miss_d": torch.where(miss[:, None], s.d, md_),
+            "miss_thp": torch.where(miss[:, None], thp, mt_)}
+
+
+def surface_record(scene: T.Scene, hit: dict, p, d) -> dict:
+    """The hit's shading record: n_s, n_g, uv, bid, eid, inv_area, med_obj;
+    from the walk's (prim, b1, b2), or from resolved hit planes
+    (ops/megakernel.resolve_hit: raw normals, a sphere's centre, the
+    attributes)."""
+    if "ns" not in hit:
+        prim = torch.clamp(hit["prim"], min=0)
+        inter = isect.surface_interaction(scene.geom, prim, hit["b1"], hit["b2"], p, d)
+        obj = inter["obj"]
+        return {"n_s": inter["n_s"], "n_g": inter["n_g"], "uv": inter["uv"],
+                "bid": torch.clamp(scene.objects.bsdf_id[obj], min=0).long(),
+                "eid": scene.objects.emitter_id[obj].long(),
+                "inv_area": scene.objects.inv_area[obj],
+                "med_obj": scene.objects.medium_in[obj]}
+    n_sph = vm.normalize(p - hit["ns"])
+    n_s = vm.normalize(hit["ns"])
+    n_g = vm.normalize(hit["ng"])
+    n_g = torch.where(vm.dot(n_g, n_s, keepdim=True) < 0.0, -n_g, n_g)
+    sph = hit["sph"][:, None]
+    return {"n_s": torch.where(sph, n_sph, n_s), "n_g": torch.where(sph, n_sph, n_g),
+            "uv": hit["uv"], "bid": hit["bid"], "eid": hit["eid"], "inv_area": hit["inva"],
+            "med_obj": hit["med_obj"]}
+
+
 def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
-                nee_candidates: int = 1, fused: bool = False) -> PTState:
+                nee_candidates: int = 1, fused: bool = False, seg: bool = False) -> PTState:
     B = s.o.shape[0]
     t = hit["t"]
     hit_ok = hit["hit"] & s.active
     miss = s.active & ~hit["hit"]
-    tex_p = s.tex if fused else 1.0
+    inline_tex = seg and scene_textured(scene)
+    tex_p = s.tex if (fused and not seg) else 1.0
+    rec = {}
 
     # ---- miss: environment (MIS against the cached envmap NEE pdf) -------
-    if scene.env_emitter > 0:
+    if scene.env_emitter > 0 and seg:
+        rec.update(env_record(s, miss, s.thp))
+        L = s.L
+    elif scene.env_emitter > 0:
         env_le = emitters.env_radiance(scene, s.d)
         w_env = 1.0 if fused else torch.where(
             s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, s.env_pdf))[:, None]
@@ -154,27 +209,29 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
         L = s.L
 
     # ---- surface interaction -------------------------------------------
-    prim = torch.clamp(hit["prim"], min=0)
     t_safe = torch.where(hit_ok, t, 1.0)
     p = s.o + t_safe[:, None] * s.d
-    inter = isect.surface_interaction(scene.geom, prim, hit["b1"], hit["b2"], p, s.d)
-    obj = inter["obj"]
-    bid = torch.clamp(scene.objects.bsdf_id[obj], min=0).long()
-    eid = scene.objects.emitter_id[obj].long()
+    sf = surface_record(scene, hit, p, s.d)
+    bid, eid = sf["bid"], sf["eid"]
 
     # ---- emitter hit MIS -------------------------------------------------
-    cos_l = -vm.dot(s.d, inter["n_g"])
-    le_hit = emitters.emitter_radiance_hit(scene, torch.clamp(eid, min=0), inter["uv"], cos_l)
-    pdf_l = emitters.hit_emitter_pdf(scene, obj, t_safe, torch.clamp(cos_l, min=1e-6))
+    cos_l = -vm.dot(s.d, sf["n_g"])
+    le_hit = emitters.emitter_radiance_hit(scene, torch.clamp(eid, min=0), sf["uv"], cos_l)
+    pdf_l = emitters.hit_emitter_pdf_of(scene, eid, sf["inv_area"], t_safe,
+                                        torch.clamp(cos_l, min=1e-6))
     w_hit = torch.where(s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, pdf_l))
     emit_mask = hit_ok & (eid > 0) & (cos_l > 1e-6)
     L = L + torch.where(emit_mask[:, None], s.thp * tex_p * le_hit * w_hit[:, None], 0.0)
 
     # ---- material; the fused estimator keeps the diffuse texel apart ----
-    ctx = bsdf_eval.make_ctx(scene, bid, inter["uv"], inter["n_s"], textured=not fused)
-    if fused:
+    ctx = bsdf_eval.make_ctx(scene, bid, sf["uv"], sf["n_s"], textured=not fused)
+    if inline_tex:
+        tex_here = 1.0
+        rec["bid"] = torch.where(hit_ok, bid, -1)
+        rec["uv"] = torch.where(hit_ok[:, None], sf["uv"], 0.0)
+    elif fused:
         texel = tex.sample_texture(scene.textures, scene.bsdfs.tex_ids[bid, T.TEX_DIFFUSE],
-                                   inter["uv"])[:, :3]
+                                   sf["uv"])[:, :3]
         tex_here = tex_p * texel
     else:
         tex_here = 1.0
@@ -208,10 +265,10 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
                        for k, v in cand.items()}
         es, f_cos, bpdf = res, res["f_cos"], res["bpdf"]
         inv_density = wsum / (nee_candidates * torch.clamp(res["phat"], min=1e-12))
-    off_sign = torch.sign(vm.dot(inter["n_g"], es["dir"], keepdim=True))
-    p_shadow = p + inter["n_g"] * off_sign * isect.RAY_OFFSET
+    off_sign = torch.sign(vm.dot(sf["n_g"], es["dir"], keepdim=True))
+    p_shadow = p + sf["n_g"] * off_sign * isect.RAY_OFFSET
     # the origin offset shortens the true segment: subtract its projection
-    dist_shadow = es["dist"] - torch.abs(vm.dot(inter["n_g"], es["dir"])) * isect.RAY_OFFSET
+    dist_shadow = es["dist"] - torch.abs(vm.dot(sf["n_g"], es["dir"])) * isect.RAY_OFFSET
     need = hit_ok & es["valid"] & (torch.amax(f_cos, dim=-1) > 0.0)
     occ = occluded(scene, p_shadow, es["dir"], dist_shadow, need)
     # at the last bounce the BSDF continuation is never traced, so NEE
@@ -220,14 +277,17 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     w_nee = torch.where(es["delta"] | last_bounce, 1.0, sampling.power_heuristic(es["pdf"], bpdf))
     nee_ok = need & ~occ
     contrib = s.thp * tex_here * f_cos * es["le"] * (w_nee * inv_density)[:, None]
-    L = L + torch.where(nee_ok[:, None], contrib, 0.0)
+    if inline_tex:
+        rec["nee"] = torch.where(nee_ok[:, None], contrib, 0.0)
+    else:
+        L = L + torch.where(nee_ok[:, None], contrib, 0.0)
 
     # ---- BSDF sampling -----------------------------------------------------
     bs, rng = bsdf_eval.sample_bsdf(ctx, wo, rng, wl=s.wl, u_wl=s.wl_u)
     thp = s.thp * bs["weight"]
     thp = torch.where(torch.isfinite(thp), thp, 0.0)  # NaN guard
-    off2 = torch.sign(vm.dot(inter["n_g"], bs["wi"], keepdim=True))
-    o_new = p + inter["n_g"] * off2 * isect.RAY_OFFSET
+    off2 = torch.sign(vm.dot(sf["n_g"], bs["wi"], keepdim=True))
+    o_new = p + sf["n_g"] * off2 * isect.RAY_OFFSET
     env_pdf = emitters.env_nee_pdf(scene, ctx["n"], bs["wi"])
 
     # ---- per-lobe depth caps -------------------------------------------
@@ -264,15 +324,17 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
         wl=torch.where(active, bs["wl"], s.wl),
         bounce=s.bounce + 1,
         wl_u=s.wl_u,
-        tex=torch.where(hit_ok[:, None], tex_here, s.tex) if fused else None,
+        tex=torch.where(hit_ok[:, None], tex_here, s.tex) if (fused and not seg) else None,
+        rec=rec if seg else None,
     )
 
 
 def pt_bounce(scene: T.Scene, md: MaxDepthParams, s: PTState, nee_candidates: int = 1,
-              fused: bool = False) -> PTState:
-    """One full bounce: closest hit, then shading."""
+              fused: bool = False, seg: bool = False) -> PTState:
+    """One full bounce: closest hit, then shading. seg (with fused): the
+    segment kernel's bounce (module docstring)."""
     hit = closest_hit(scene, s.o, s.d, s.active)
-    return shade_stage(scene, md, s, hit, nee_candidates, fused)
+    return shade_stage(scene, md, s, hit, nee_candidates, fused, seg)
 
 
 def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None,

@@ -30,8 +30,20 @@ composed estimator in:
 - an escape adds thp * Le with MIS weight 1 (K3's envmap rule); the
   dispersion wavelength comes from the in-stream draw.
 
-Still narrowed: grid media (kernel K6, ROADMAP Queue 2), ToF gating and the
-differentiable mode (Queue 1 item 4), compaction (item 7).
+``seg=True`` (with ``fused``) is one bounce as the segment kernel K5 runs
+it under the sorted-wavefront driver (ops/megakernel.trace_megakernel_swf):
+an escape records its direction and throughput (path_tracer's ``seg``).
+Grid media ride only the driver's split form, around this bounce: the
+closest hit arrives resolved (``hit`` planes, from kernel K6 and a row
+gather), the flight through a grid medium arrives delta-tracked
+(``flight``, media/grid.py), and the NEE contribution is recorded with its
+shadow segment (``rec``: ``gc``, ``gp0``, ``gp1``) for the driver's ratio
+tracking. The kernel's media row holds zero sigmas for a grid medium, so
+every analytic factor of a grid lane is 1.
+
+Still narrowed: the composed estimator's grid route (ROADMAP Queue 1 item
+8), ToF gating and the differentiable mode (Queue 1 item 4), compaction
+(item 7).
 """
 
 from __future__ import annotations
@@ -84,6 +96,7 @@ class VPTState:
     med_top: torch.Tensor  # (B,) int32, -1 = empty (the ambient medium)
     bounce: int
     wl_u: torch.Tensor | None = None
+    rec: dict | None = None  # seg: the bounce's records (module docstring)
 
 
 def _peek(s: VPTState, ambient: int) -> torch.Tensor:
@@ -102,8 +115,10 @@ def _pop(top, do):
     return torch.where(do, torch.clamp(top - 1, min=-1), top)
 
 
-def check_supported(scene: T.Scene, md: MaxDepthParams, differentiable=False, compact=False):
-    """Raise for what this slice does not port."""
+def check_supported(scene: T.Scene, md: MaxDepthParams, differentiable=False, compact=False,
+                    fused=False):
+    """Raise for what this slice does not port. Grid media render only on
+    the fused path, through the split sorted-wavefront driver."""
     if md.max_time > 0.0:
         raise NotImplementedError("ToF gating waits for ROADMAP Queue 1 item 4")
     if differentiable:
@@ -113,8 +128,13 @@ def check_supported(scene: T.Scene, md: MaxDepthParams, differentiable=False, co
         raise NotImplementedError(
             "live-lane compaction waits for ROADMAP Queue 1 item 7 (models/wavefront.py)")
     if bool((scene.media.mtype == T.MEDIUM_GRID).any()):
+        if not fused:
+            raise NotImplementedError(
+                "the composed volume path tracer's grid route waits for ROADMAP Queue 1 item 8; "
+                "grid media render fused (RendererType.VOLUME_PT)")
         raise NotImplementedError(
-            "grid media wait for kernel K6 (ROADMAP Queue 2) and media/grid.py (Queue 1 item 8)")
+            "grid media ride the split sorted-wavefront driver (kernels K6 and K5's shade "
+            "phase, ops/megakernel.trace_megakernel_swf), not the whole-path loop")
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +147,12 @@ def _medium_params(scene: T.Scene, mid: torch.Tensor) -> dict:
     outside any medium (mid < 0) read the row's padding: zero sigmas,
     isotropic, w = 1."""
     m = torch.clamp(mid, min=0).long()
-    inm = (mid >= 0)[:, None]
-    _, ss, st = homo.sigma_at(scene.media, mid)
     md_ = scene.media
+    grid = (mid >= 0) & (md_.mtype[m] == T.MEDIUM_GRID)
+    inm = ((mid >= 0) & ~grid)[:, None]  # a grid medium's row holds zero sigmas
+    _, ss, st = homo.sigma_at(scene.media, mid)
     return {
+        "grid": grid,
         "ss": torch.where(inm, ss, 0.0), "st": torch.where(inm, st, 0.0),
         "ptype": torch.where(mid >= 0, md_.phase_type[m], T.PHASE_ISOTROPIC),
         "g1": torch.where(mid >= 0, md_.phase_g[m, 0], 0.0),
@@ -183,9 +205,11 @@ def phase_sample_fused(mp: dict, d: torch.Tensor, up0, up1, upick):
     return vm.to_world(local, d), phase_value_fused(mp, cos_ph)
 
 
-def _flight_fused(mp: dict, in_med, hit_ok, t_hit, u):
+def _flight_fused(mp: dict, in_med, hit_ok, t_hit, u, flight=None):
     """The kernel's free flight (megakernel.py:1398-1439) -> (med_event,
-    t_evt, weight (B, 3))."""
+    t_evt, weight (B, 3)). flight: the delta-tracked flight of grid lanes
+    (dict t, is_medium, weight), which replaces the analytic one there
+    (:1408-1436)."""
     u_ch, u_t = u[..., 0], u[..., 1]
     st = mp["st"]
     st_c = torch.where(u_ch >= 2.0 / 3.0, st[:, 2], torch.where(u_ch >= 1.0 / 3.0, st[:, 1],
@@ -194,12 +218,18 @@ def _flight_fused(mp: dict, in_med, hit_ok, t_hit, u):
     t_med = -torch.log(torch.clamp(1.0 - u_t, min=1e-12)) / st_c
     t_surf = torch.where(hit_ok, t_hit, T_MISS_FUSED)
     med_event = in_med & (t_med < t_surf)
+    if flight is not None:
+        in_grid = in_med & mp["grid"]
+        med_event = torch.where(in_grid, flight["is_medium"] & (flight["t"] < t_surf), med_event)
+        t_med = torch.where(in_grid, flight["t"], t_med)
     t_evt = torch.where(med_event, t_med, t_surf)
     e = torch.exp(-st * t_evt[:, None])
     pdf_m = (st[:, 0] * e[:, 0] + st[:, 1] * e[:, 1] + st[:, 2] * e[:, 2]) / 3.0
     pdf_s = (e[:, 0] + e[:, 1] + e[:, 2]) / 3.0
     w = torch.where(med_event[:, None], mp["ss"] * e / torch.clamp(pdf_m, min=1e-12)[:, None],
                     e / torch.clamp(pdf_s, min=1e-12)[:, None])
+    if flight is not None:
+        w = torch.where(in_grid[:, None], flight["weight"], w)
     return med_event, t_evt, w
 
 
@@ -279,16 +309,23 @@ def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, active, fused: b
 # ---------------------------------------------------------------------------
 
 
-def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = False) -> VPTState:
+def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = False,
+               seg: bool = False, hit: dict | None = None, flight: dict | None = None) -> VPTState:
+    """One bounce. seg (with fused): the segment kernel's bounce; hit: the
+    closest hit resolved from planes instead of walked; flight: the
+    delta-tracked flight of grid lanes (module docstring)."""
     cur_med = _peek(s, scene.cam_medium)
-    hit = pt.closest_hit(scene, s.o, s.d, s.active)
+    if hit is None:
+        hit = pt.closest_hit(scene, s.o, s.d, s.active)
     mp = _medium_params(scene, cur_med)
+    grid_rec = seg and bool((scene.media.mtype == T.MEDIUM_GRID).any())
 
     # ---- free flight through the current medium ---------------------------
     if fused:
         u, rng = prng.next2d(s.rng)
         in_med = (cur_med >= 0) & s.active
-        med_event, t_evt, w_flight = _flight_fused(mp, in_med, hit["hit"] & s.active, hit["t"], u)
+        med_event, t_evt, w_flight = _flight_fused(mp, in_med, hit["hit"] & s.active, hit["t"], u,
+                                                   flight)
         thp = torch.where(in_med[:, None], s.thp * w_flight, s.thp)
     else:
         t_surf = torch.where(hit["hit"], hit["t"], T_MISS)
@@ -301,26 +338,27 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     # ---- escape: environment --------------------------------------------------
     esc = s.active & ~hit["hit"] & ~med_event
     L = s.L
-    if scene.env_emitter > 0:
+    rec = {}
+    if scene.env_emitter > 0 and seg:
+        rec.update(pt.env_record(s, esc, thp))
+    elif scene.env_emitter > 0:
         w_env = 1.0 if fused else torch.where(
             s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, s.env_pdf))[:, None]
         L = L + torch.where(esc[:, None], thp * emitters.env_radiance(scene, s.d) * w_env, 0.0)
 
     # ---- surface interaction and emitter-hit MIS ---------------------------
-    prim = torch.clamp(hit["prim"], min=0)
-    inter = isect.surface_interaction(scene.geom, prim, hit["b1"], hit["b2"], p_evt, s.d)
-    obj = inter["obj"]
-    bid = torch.clamp(scene.objects.bsdf_id[obj], min=0).long()
-    eid = scene.objects.emitter_id[obj].long()
-    cos_l = -vm.dot(s.d, inter["n_g"])
-    le_hit = emitters.emitter_radiance_hit(scene, torch.clamp(eid, min=0), inter["uv"], cos_l)
-    pdf_l = emitters.hit_emitter_pdf(scene, obj, t_evt, torch.clamp(cos_l, min=1e-6))
+    sf = pt.surface_record(scene, hit, p_evt, s.d)
+    bid, eid = sf["bid"], sf["eid"]
+    cos_l = -vm.dot(s.d, sf["n_g"])
+    le_hit = emitters.emitter_radiance_hit(scene, torch.clamp(eid, min=0), sf["uv"], cos_l)
+    pdf_l = emitters.hit_emitter_pdf_of(scene, eid, sf["inv_area"], t_evt,
+                                        torch.clamp(cos_l, min=1e-6))
     w_hit = torch.where(s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, pdf_l))
     emit_mask = srf_event & (eid > 0) & (cos_l > 1e-6)
     L = L + torch.where(emit_mask[:, None], thp * le_hit * w_hit[:, None], 0.0)
 
     # ---- NEE from either event kind, through the media ------------------------
-    ctx = bsdf_eval.make_ctx(scene, bid, inter["uv"], inter["n_s"])
+    ctx = bsdf_eval.make_ctx(scene, bid, sf["uv"], sf["n_s"])
     wo = -s.d
     es, rng = emitters.sample_emitter(scene, p_evt, ctx["n"], rng)
     f_srf, bpdf_srf = bsdf_eval.eval_bsdf(ctx, wo, es["dir"])
@@ -330,9 +368,9 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
         pv = phase_mod.phase_eval(mp["ptype"], mp["g1"], mp["g2"], mp["w"], s.d, es["dir"])
     f_evt = torch.where(med_event[:, None], pv[:, None], f_srf)
     pdf_evt = torch.where(med_event, pv, bpdf_srf)
-    gdir = vm.dot(inter["n_g"], es["dir"])
+    gdir = vm.dot(sf["n_g"], es["dir"])
     off_sign = torch.where(med_event, 0.0, torch.sign(gdir))
-    p_shadow = p_evt + inter["n_g"] * off_sign[:, None] * isect.RAY_OFFSET
+    p_shadow = p_evt + sf["n_g"] * off_sign[:, None] * isect.RAY_OFFSET
     dist_shadow = es["dist"] - torch.abs(off_sign * gdir) * isect.RAY_OFFSET
     nee_try = (med_event | srf_event) & es["valid"] & (torch.amax(f_evt, dim=-1) > 0.0)
     tr_nee = transmittance_estimate(scene, p_shadow, es["dir"], dist_shadow, cur_med, nee_try,
@@ -346,7 +384,12 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     else:
         contrib = thp * f_evt * es["le"] * tr_nee * (
             w_nee / torch.clamp(es["pdf"], min=1e-12))[:, None]
-    L = L + torch.where(nee_try[:, None], contrib, 0.0)
+    if grid_rec:  # the driver ratio-tracks the segment through the grids
+        rec["gc"] = torch.where(nee_try[:, None], contrib, 0.0)
+        rec["gp0"] = p_shadow
+        rec["gp1"] = p_shadow + es["dir"] * dist_shadow[:, None]
+    else:
+        L = L + torch.where(nee_try[:, None], contrib, 0.0)
 
     # ---- scatter: phase sample (medium) or BSDF sample (surface) -------------
     u2, rng = prng.next2d(rng)
@@ -361,12 +404,12 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     w_new = torch.where(med_event[:, None], 1.0, bs["weight"])  # phase: f / pdf = 1
     thp = thp * torch.where((med_event | srf_event)[:, None], w_new, 1.0)
     thp = torch.where(torch.isfinite(thp), thp, 0.0)  # NaN guard
-    off2 = torch.where(med_event, 0.0, torch.sign(vm.dot(inter["n_g"], d_new)))
-    o_new = p_evt + inter["n_g"] * off2[:, None] * isect.RAY_OFFSET
+    off2 = torch.where(med_event, 0.0, torch.sign(vm.dot(sf["n_g"], d_new)))
+    o_new = p_evt + sf["n_g"] * off2[:, None] * isect.RAY_OFFSET
     env_pdf = s.env_pdf if fused else emitters.env_nee_pdf(scene, ctx["n"], d_new)
 
     # ---- medium stack on transmission: object-identity toggle --------------
-    med_obj = scene.objects.medium_in[obj]
+    med_obj = sf["med_obj"]
     transmitted = srf_event & (bs["lobe"] == bsdf_eval.LOBE_TRANSMIT) & (med_obj >= 0)
     do_pop = transmitted & (cur_med == med_obj)
     med_stack, med_top = _push(s.med_stack, s.med_top, med_obj, transmitted & ~do_pop)
@@ -395,7 +438,8 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
         env_pdf=torch.where(active, env_pdf, s.env_pdf),
         n_diff=n_diff, n_spec=n_spec, n_trans=n_trans, n_vol=n_vol,
         wl=torch.where(active & srf_event, bs["wl"], s.wl),
-        med_stack=med_stack, med_top=med_top, bounce=s.bounce + 1, wl_u=s.wl_u)
+        med_stack=med_stack, med_top=med_top, bounce=s.bounce + 1, wl_u=s.wl_u,
+        rec=rec if seg else None)
 
 
 def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None) -> VPTState:
@@ -416,7 +460,7 @@ def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, wl_u=None, fused:
                 differentiable: bool = False, compact: bool = False) -> torch.Tensor:
     """Radiance (B, 3) of rays (B, 3) with pcg states (B, 2): the bounce
     loop until every lane is done or max_depth is reached."""
-    check_supported(scene, md, differentiable, compact)
+    check_supported(scene, md, differentiable, compact, fused)
     s = init_state(o, d, rng, wl_u)
     while s.bounce < md.max_depth and bool(s.active.any()):
         s = vpt_bounce(scene, md, s, fused)

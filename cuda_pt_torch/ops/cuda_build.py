@@ -2,7 +2,8 @@
 
 Each library is compiled at first use for sm_90a into build/cuda_pt_torch/
 (listed in .gitignore) under a name that hashes its sources and flags, so
-an edit rebuilds and an unchanged tree reuses the library. The C entry
+an edit rebuilds and an unchanged tree reuses the library. Its translation
+units compile in parallel, one nvcc each, and are then linked. The C entry
 points take raw pointers and the stream as ``c_void_p`` and return
 cudaGetLastError() of their launch. Nothing here runs at import time.
 """
@@ -37,6 +38,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mk_trace": [_P] * 6 + [_I] * 15 + [_P, _P],
     "mk_closest_hit": [_P] * 7 + [_I] * 3 + [_P],
+    "mk_trace_seg": [_P, _P, _I, _I, _I, _P, _P, _P] + [_I] * 15 + [_P, _P],
+    "mk_traverse": [_P, _P, _I, _I, _P, _P, _I, _I, _P],
 }
 
 _lib = None  # the CDLL, built from the sources as they were at first load
@@ -77,12 +80,13 @@ def _flags(fmad: bool = False, min_blocks: int = MK_MIN_BLOCKS) -> list:
     # FMA contraction off: the kernel then rounds as the plain PyTorch
     # version does, which keeps per-lane agreement on scenes whose specular
     # chains amplify rounding (PERF.md records the cost and the gain).
-    return [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    return [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
             f"-fmad={str(fmad).lower()}", *_defines(min_blocks)]
 
 
 def _sources() -> list:
-    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh", ".inc")))
 
 
 def units() -> list:
@@ -99,7 +103,8 @@ def library_path(flags: list | None = None) -> str:
 
 
 def start_build(flags: list | None = None):
-    """Start nvcc; returns (Popen or None if built, path)."""
+    """Start one nvcc per translation unit; returns (the running build, or
+    None if the library is built, its path)."""
     flags = _flags() if flags is None else flags
     out = library_path(flags)
     if os.path.exists(out):
@@ -107,21 +112,37 @@ def start_build(flags: list | None = None):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     log = open(out[:-3] + ".log", "w")
-    cmd = [_nvcc(), *flags, "-o", tmp, *units()]
-    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-    proc.log, proc.tmp = log, tmp
-    return proc, out
+    objs, procs = [], []
+    for unit in units():
+        obj = f"{tmp}.{os.path.basename(unit)[:-3]}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([_nvcc(), *flags, "-c", "-o", obj, unit],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    return {"procs": procs, "objs": objs, "log": log, "tmp": tmp, "flags": flags}, out
 
 
-def finish_build(proc, out: str) -> str:
-    if proc is None:
+def finish_build(build, out: str) -> str:
+    """Wait for start_build's compiles, link them into the library at out."""
+    if build is None:
         return out
-    rc = proc.wait()
-    proc.log.close()
-    if rc != 0:
+    log, rcs = build["log"], []
+    for proc in build["procs"]:
+        log.write(proc.communicate()[0].decode(errors="replace"))
+        rcs.append(proc.returncode)
+    if not any(rcs):
+        arch = [f for f in build["flags"] if f.startswith("-gencode")]
+        link = subprocess.run([_nvcc(), *arch, "-shared", "-o", build["tmp"], *build["objs"]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        log.write(link.stdout.decode(errors="replace"))
+        rcs.append(link.returncode)
+    log.close()
+    for obj in build["objs"]:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if any(rcs):
         with open(out[:-3] + ".log") as f:
-            raise RuntimeError(f"nvcc failed ({rc}):\n{f.read()}")
-    os.replace(proc.tmp, out)
+            raise RuntimeError(f"nvcc failed ({rcs}):\n{f.read()}")
+    os.replace(build["tmp"], out)
     return out
 
 

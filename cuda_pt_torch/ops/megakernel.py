@@ -1,5 +1,5 @@
-"""Fused whole-path megakernel: scene pack, envelope check, kernel wrappers
-(port of cuda_pt_tpu/ops/pallas/megakernel.py for the whole-path mode).
+"""Fused megakernel: scene pack, envelope check, kernel wrappers and the
+sorted-wavefront driver (port of cuda_pt_tpu/ops/pallas/megakernel.py).
 
 ``trace_megakernel`` replaces the TPU kernel ``_kernel`` (megakernel.py:500)
 as driven by ``trace_megakernel`` (:2963, pallas_call :3083) over the TPU
@@ -13,9 +13,10 @@ csrc/megakernel.cu; it is built with nvcc at first use (ops/cuda_build.py).
 
 Every wrapper here takes the plain PyTorch version for CPU tensors and
 only for them; for CUDA tensors it launches its kernel or raises. Each
-launch adds one to ``LAUNCHES[name]``; a launch of the trace kernel also
-adds one to ``INSTANTIATION_LAUNCHES`` under the name of the template
-instantiation the C side reports it launched (``"K3+ALL+MED"``, ...).
+launch adds one to ``LAUNCHES[name]``; a launch of the trace kernel or of
+the segment kernel also adds one to ``INSTANTIATION_LAUNCHES`` under the
+name of the template instantiation the C side reports it launched
+(``"K3+ALL+MED"``, ``"SEG+K3+ALL"``, ``"SEG+SHADE+ALL+MED+GRID"``, ...).
 
 Kernels:
 - ``trace_megakernel``: the whole path per ray -> L (B, 3). Plain version
@@ -28,6 +29,24 @@ Kernels:
   Plain version: brute force up to path_tracer.BRUTE_FORCE_MAX_PRIMS
   prims, the skip walk of accel/traverse.py above. It exists so a walk
   bug shows as wrong prim ids, not as a noisy image.
+- ``trace_megakernel_seg`` (K5, csrc/seg.cuh): one bounce of the same path
+  code on the carried state planes of the first n lanes, in place. Plain
+  version ``seg_step_reference``: one ``seg`` bounce of the path tracer
+  (models/path_tracer.py) or of the volume path tracer
+  (models/volume_pt.py) on the pack's kernel scene.
+- ``traverse_closest`` (K6, csrc/megakernel_split.cu): the closest walk
+  of the live lanes of the state planes -> (t, gid, u, v) planes. Plain
+  version: closest_hit_plain on the live lanes.
+
+``trace_megakernel_swf`` is the sorted-wavefront driver (K5 per bounce,
+with the lanes re-sorted between bounces; for a grid pack its split form
+adds K6 and the grid-media passes), ``auto_trace`` the reference's pick between it and
+the whole-path kernel: the driver for a pack of SWF_AUTO_BOXES boxes or
+more or with a grid medium, the whole-path kernel below. The two compute
+the same estimator on untextured scenes (per lane); on textured ones the
+driver's inline texturing lets Russian roulette see the texels of the
+earlier bounces, where the whole-path kernel's deferred texturing does
+not, so they agree in the mean only, as in the reference.
 """
 
 from __future__ import annotations
@@ -43,8 +62,12 @@ from ..accel import traverse
 from ..accel import wide_build
 from ..core import camera as cam_mod
 from ..core import qmc
+from ..core import rng as prng
+from ..emitters import emitters
+from ..media import grid as gridmod
 from ..models import path_tracer as pt
 from ..models import volume_pt
+from ..scene import textures as tex
 from ..scene import types as T
 from . import cuda_build
 from . import intersect as isect
@@ -72,7 +95,12 @@ KERNEL_EMITTERS = (T.EMITTER_NULL, T.EMITTER_POINT, T.EMITTER_AREA, T.EMITTER_AR
 MAX_MEDIA = 8
 KERNEL_PHASES = (T.PHASE_ISOTROPIC, T.PHASE_HG, T.PHASE_DUAL_HG, T.PHASE_RAYLEIGH, T.PHASE_SGGX)
 
-LAUNCHES = {"trace_megakernel": 0, "closest_hit_w8": 0}
+# The driver pick (auto_trace): packs of this many boxes (w8 node rows x 8)
+# or more take the sorted-wavefront driver, as in the reference.
+SWF_AUTO_BOXES = 512
+
+LAUNCHES = {"trace_megakernel": 0, "closest_hit_w8": 0, "trace_megakernel_seg": 0,
+            "traverse_closest": 0}
 INSTANTIATION_LAUNCHES = {}
 
 
@@ -83,10 +111,14 @@ def reset_launches():
 
 
 def instantiation_name(variant: int) -> str:
-    """csrc/megakernel.cu's instantiation bits (K3 1, ALL 2, MED 4) as a
-    name, "K2" for the pruned surface build."""
-    flags = [name for bit, name in ((1, "K3"), (2, "ALL"), (4, "MED")) if variant & bit]
-    return "+".join(flags) or "K2"
+    """The instantiation bits the C side reports (K3 1, ALL 2, MED 4; the
+    segment kernel K5: SEG 8, SHADE 16, GRID 32) as a name, "K2" for the
+    pruned surface build ("SEG+K2" in segment form)."""
+    bits = ((8, "SEG"), (16, "SHADE"), (1, "K3"), (2, "ALL"), (4, "MED"), (32, "GRID"))
+    flags = [name for bit, name in bits if variant & bit]
+    if not variant & 7:
+        flags.insert(1 if variant & 8 else 0, "K2")
+    return "+".join(flags)
 
 
 # ---------------------------------------------------------------------------
@@ -116,15 +148,20 @@ def megakernel_ok(scene: T.Scene, md=None, renderer: str = "pt") -> bool:
     Plastic-forward; emitters: null, point, area, area-spot, envmap;
     textures: the diffuse slot of Lambertian / Oren-Nayar on triangle
     scenes only; no ToF. Media only under renderer="vpt" (the volume path
-    tracer), as on the TPU (:188-216): at most MAX_MEDIA of them,
-    homogeneous only (grid media need kernel K6), phases of KERNEL_PHASES,
-    no textures. The reference's strict=True cap (its auto-pick's
+    tracer), as on the TPU (:188-216): at most MAX_MEDIA of them, phases
+    of KERNEL_PHASES, no textures; grid media (the split sorted-wavefront
+    driver) without an envmap and without emission. The reference's strict=True cap (its auto-pick's
     TPU-fault gate) has no counterpart: the port's Renderer always takes
     the kernel, like an explicit traversal='fused' there."""
     if scene_has_media(scene) or renderer == "vpt":
         mt = _np(scene.media.mtype)
-        if renderer != "vpt" or mt.shape[0] > MAX_MEDIA or (mt == T.MEDIUM_GRID).any():
+        if renderer != "vpt" or mt.shape[0] > MAX_MEDIA:
             return False
+        if (mt == T.MEDIUM_GRID).any():
+            if (_np(scene.emitters.etype) == T.EMITTER_ENVMAP).any():
+                return False  # escaping rays would skip the grid transmittance
+            if (_np(scene.media.emission_scale)[mt == T.MEDIUM_GRID] > 0.0).any():
+                return False  # emissive grids stay on the composed route
         if set(int(x) for x in _np(scene.media.phase_type)) - set(KERNEL_PHASES):
             return False
         if _np(scene.bsdfs.tex_ids).max(initial=-1) >= 0:
@@ -413,6 +450,96 @@ def pack_env(scene: T.Scene) -> np.ndarray:
     return out
 
 
+def _np_sa(lo, hi) -> float:
+    d = np.maximum(hi - lo, 0.0)
+    return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+
+def treelet_boxes_w8(wb: T.WideBVHArrays, max_tl: int = 64) -> np.ndarray:
+    """(max_tl, 8) f32 treelet-root boxes [lo(3), hi(3), 0, 0] for the
+    treelet sort keys (swf_sort_key "tl_*"): from the wide root, expand the
+    frontier entry of largest surface area (interior entries only) until an
+    expansion would exceed max_tl entries. The frontier (wide subtree roots
+    and leaf boxes) partitions the scene; padding rows are inverted boxes."""
+    cmin = _np(wb.child_min).astype(np.float32)
+    cmax = _np(wb.child_max).astype(np.float32)
+    enc = _np(wb.child_node)
+
+    def entry(w, c):
+        return (float(_np_sa(cmin[w, c], cmax[w, c])), cmin[w, c], cmax[w, c],
+                int(enc[w, c]) if enc[w, c] >= 0 else -1)
+
+    frontier = [entry(0, c) for c in range(8) if enc[0, c] != wide_build.EMPTY]
+    while True:
+        cand = [f for f in frontier if f[3] >= 0]
+        if not cand:
+            break
+        best = max(cand, key=lambda f: f[0])
+        w = best[3]
+        kids = [entry(w, c) for c in range(8) if enc[w, c] != wide_build.EMPTY]
+        if len(frontier) - 1 + len(kids) > max_tl:
+            break
+        frontier.remove(best)
+        frontier.extend(kids)
+    out = np.zeros((max_tl, 8), np.float32)
+    out[:, 0:3] = np.float32(1e30)
+    out[:, 3:6] = -np.float32(1e30)
+    for i, (_, lo, hi, _w) in enumerate(frontier):
+        out[i, 0:3] = lo
+        out[i, 3:6] = hi
+    return out
+
+
+def pack_hit_matrix(scene: T.Scene) -> np.ndarray:
+    """(M, 32) f32 per-prim rows from which one row gather resolves a hit
+    for the split driver (resolve_hit): 0-2 n0, 3-5 n1, 6-8 n2, 9-11
+    cross(e1, e2), 12-14 p0 (a sphere's centre), 15 eid, 16 bid, 17
+    inv_area, 18 is_sphere, 19 medium_in, 20 is_null, 21-26 uv0 uv1 uv2."""
+    g = scene.geom
+    obj = _np(g.obj_idx)
+    e1 = _np(g.e1).astype(np.float32)
+    e2 = _np(g.e2).astype(np.float32)
+    M = e1.shape[0]
+    out = np.zeros((max(M, 1), 32), np.float32)
+    if M:
+        med, nul = _prim_medium_null(scene)
+        out[:, 0:3] = _np(g.n0)
+        out[:, 3:6] = _np(g.n1)
+        out[:, 6:9] = _np(g.n2)
+        out[:, 9:12] = np.cross(e1, e2)
+        out[:, 12:15] = _np(g.p0)
+        out[:, 15] = _np(scene.objects.emitter_id)[obj]
+        out[:, 16] = np.maximum(_np(scene.objects.bsdf_id)[obj], 0)
+        out[:, 17] = _np(scene.objects.inv_area)[obj]
+        out[:, 18] = _np(g.is_sphere)
+        out[:, 19] = med
+        out[:, 20] = nul
+        out[:, 21:23] = _np(g.uv0)
+        out[:, 23:25] = _np(g.uv1)
+        out[:, 25:27] = _np(g.uv2)
+    return out
+
+
+def pack_grids(scene: T.Scene) -> dict:
+    """The split driver's grid tables (never read by a kernel): the dense
+    grids of media/grid.py and per-medium gid, scale, albedo, is_grid, and
+    per grid the density scale of the first medium that references it
+    (the NEE pass tracks per grid)."""
+    g, m = scene.grids, scene.media
+    gids = _np(m.grid_id)
+    scale = _np(m.scale).astype(np.float32)
+    G = int(g.majorant.shape[0])
+    gscale = np.ones(G, np.float32)
+    for j in range(G):
+        ref = np.nonzero(gids == j)[0]
+        if ref.size:
+            gscale[j] = scale[ref[0]]
+    return {"gr_density": g.density, "gr_emis": g.emission, "gr_bmin": g.bbox_min,
+            "gr_bmax": g.bbox_max, "gr_major": g.majorant, "gr_avg": g.avg_density,
+            "gr_gid": m.grid_id, "gr_scale": m.scale, "gr_albedo": m.sigma_s,
+            "gr_isg": (_np(m.mtype) == T.MEDIUM_GRID).astype(np.float32), "gr_gscale": gscale}
+
+
 @dataclasses.dataclass
 class MKPack:
     """Kernel scene pack: row-packed f32 tables + static format flags, plus
@@ -436,6 +563,8 @@ class MKPack:
     # media; the medium of an empty stack (scene.cam_medium, -1 = none)
     has_media: bool = False
     ambient_med: int = -1
+    # a grid medium: the split sorted-wavefront driver (the TPU pack's has_grid)
+    has_grid: bool = False
 
     def __getitem__(self, k):
         return self.arrays[k]
@@ -450,10 +579,12 @@ class MKPack:
 
 
 # The six tables of the TPU pack (bit-equal to it), then kernel K3's and
-# kernel K4's inputs.
+# kernel K4's inputs; the sorted-wavefront driver's tables (treelet boxes,
+# the hit matrix of the split form), and with a grid medium pack_grids'.
 PACK_KEYS = ("nodes", "prims", "attrs", "erow", "eprims", "brows")
 K3_KEYS = ("uvs", "texels", "tinfo", "tdiff", "envrow")
 MED_KEYS = ("mrow",)
+SWF_KEYS = ("tlbox", "g_hit")
 
 
 def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
@@ -463,7 +594,10 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
     tracer: a scene with media then sets has_media and carries the media
     row; without vpt such a scene raises, so the pack alone says which
     estimator both the kernel and its plain version run. The K3 and K4
-    tables are placeholders of one row where their flag is off."""
+    tables are placeholders of one row where their flag is off. Every pack
+    carries the driver's tlbox and g_hit (as the reference's w8 pack);
+    a vpt pack with a grid medium sets has_grid and carries pack_grids'
+    tables."""
     if node_fmt != "w8" or attr_fmt not in (None, "f32") or prim_fmt not in (None, "f32"):
         raise NotImplementedError(
             "only node_fmt='w8' with f32 attrs and prims is ported (ROADMAP Queue 2, K1)")
@@ -497,13 +631,19 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
         "tdiff": tdiff,
         "envrow": pack_env(scene),
         "mrow": pack_media(scene) if has_media else np.zeros((1, 128), np.float32),
+        "tlbox": treelet_boxes_w8(wb),
+        "g_hit": pack_hit_matrix(scene),
     }
+    has_grid = has_media and bool((_np(scene.media.mtype) == T.MEDIUM_GRID).any())
+    if has_grid:
+        host.update(pack_grids(scene))
     arrays = {k: torch.as_tensor(v, device=scene.device).contiguous() for k, v in host.items()}
     return MKPack(arrays, scene, tri_only=not bool(scene.geom.is_sphere.any()),
                   max_leaf=int(scene.bvh.max_leaf), max_stack=max_stack, has_env=has_env,
                   textured=textured, has_disp=T.BSDF_DISPERSION in set(scene.present_bsdfs),
                   all_families=bool(set(scene.present_bsdfs) - set(BASIC_BSDFS)),
-                  has_media=has_media, ambient_med=int(scene.cam_medium) if vpt else -1)
+                  has_media=has_media, ambient_med=int(scene.cam_medium) if vpt else -1,
+                  has_grid=has_grid)
 
 
 def pack_bytes(pack: MKPack, keys=PACK_KEYS + K3_KEYS + MED_KEYS) -> int:
@@ -598,6 +738,9 @@ def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: to
     shadow rays' transmittance walks included."""
     if pack.has_media and nee_candidates != 1:
         raise ValueError("the fused volume path tracer takes nee_candidates=1 (as on the TPU)")
+    if pack.has_grid:
+        raise ValueError("a grid-media pack takes the split sorted-wavefront driver "
+                         "(trace_megakernel_swf: kernels K6 and K5's shade phase)")
     if o.device.type == "cpu":
         if count_stats:
             raise ValueError("count_stats counts kernel work; it needs CUDA tensors")
@@ -660,20 +803,559 @@ def closest_hit_w8(pack: MKPack, o: torch.Tensor, d: torch.Tensor):
     return t, prim.long(), b1, b2
 
 
+# ---------------------------------------------------------------------------
+# the sorted-wavefront driver: kernels K5 (one bounce per launch) and K6
+# ---------------------------------------------------------------------------
+
+# State planes of the segment kernel (csrc/seg.cuh): int32 (n_state, B),
+# floats as their bits, the pcg state as u32 bits (the reference's
+# _SEG_STATE order, megakernel.py:2445-2455).
+S_O, S_D, S_THP, S_L, S_ACT = 2, 5, 8, 11, 14
+S_PPDF, S_PDELTA, S_NDIFF, S_WL, S_ENV = 15, 16, 17, 20, 21
+# sort key of a dead lane: dead lanes sort last
+DEAD_KEY = 1 << 30
+KEY_MODES = ("none", "dir_pos", "pos_dir", "tl_pos", "tl_oct")
+
+
+@dataclasses.dataclass(frozen=True)
+class SegLayout:
+    """First plane of each optional block of the state, -1 where absent."""
+
+    n_state: int
+    env: int  # has_env: miss direction(3), miss throughput(3)
+    med: int  # has_media: stk0 stk1 stk2 mtop n_vol
+    tex: int  # textured: NEE contribution(3), bid, u, v
+    grid: int  # has_grid: NEE contribution(3), segment start(3), end(3)
+
+
+def seg_layout(pack: MKPack) -> SegLayout:
+    med = S_ENV + (6 if pack.has_env else 0)
+    rec = med + (5 if pack.has_media else 0)
+    n = rec + (6 if pack.textured else 0) + (9 if pack.has_grid else 0)
+    return SegLayout(n, S_ENV if pack.has_env else -1, med if pack.has_media else -1,
+                     rec if pack.textured else -1, rec if pack.has_grid else -1)
+
+
+def seg_init(pack: MKPack, o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor) -> torch.Tensor:
+    """The state planes of rays (B, 3) with pcg states (B, 2) at bounce 0."""
+    lay = seg_layout(pack)
+    f = torch.zeros((lay.n_state, o.shape[0]), dtype=torch.float32, device=o.device)
+    f[S_O:S_O + 3] = o.T
+    f[S_D:S_D + 3] = d.T
+    f[S_THP:S_THP + 3] = 1.0
+    f[S_ACT] = 1.0
+    f[S_PPDF] = 1.0
+    f[S_PDELTA] = 1.0
+    if lay.env >= 0:
+        f[lay.env + 2] = 1.0  # the reference's unused miss direction (0, 0, 1)
+    if lay.med >= 0:
+        f[lay.med:lay.med + 4] = -1.0
+    if lay.tex >= 0:
+        f[lay.tex + 3] = -1.0
+    st = f.view(torch.int32)
+    st[0:2] = rng_bits(rng).T
+    return st
+
+
+def _f32(st: torch.Tensor) -> torch.Tensor:
+    return st.view(torch.float32)
+
+
+def _vec(f: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    return f[k:k + 3, :n].T.contiguous()
+
+
+def _seg_state(pack: MKPack, st: torch.Tensor, n: int, bounce: int):
+    """The first n lanes of the planes as the plain bounce's path state."""
+    lay = seg_layout(pack)
+    f = _f32(st)
+    common = dict(
+        o=_vec(f, S_O, n), d=_vec(f, S_D, n), thp=_vec(f, S_THP, n), L=_vec(f, S_L, n),
+        rng=(st[0:2, :n].T.to(torch.int64) & prng.MASK32).contiguous(),
+        active=f[S_ACT, :n] > 0.5, prev_pdf=f[S_PPDF, :n].clone(),
+        prev_delta=f[S_PDELTA, :n] > 0.5, env_pdf=torch.zeros(n, device=st.device),
+        n_diff=f[S_NDIFF, :n].to(torch.int32), n_spec=f[S_NDIFF + 1, :n].to(torch.int32),
+        n_trans=f[S_NDIFF + 2, :n].to(torch.int32), wl=f[S_WL, :n].clone(), bounce=bounce)
+    rec = None
+    if lay.env >= 0:
+        rec = {"miss_d": _vec(f, lay.env, n), "miss_thp": _vec(f, lay.env + 3, n)}
+    if lay.med < 0:
+        return pt.PTState(**common, rec=rec)
+    return volume_pt.VPTState(
+        **common, n_vol=f[lay.med + 4, :n].to(torch.int32),
+        med_stack=f[lay.med:lay.med + 3, :n].T.to(torch.int32).contiguous(),
+        med_top=f[lay.med + 3, :n].to(torch.int32), rec=rec)
+
+
+def _seg_store(pack: MKPack, st: torch.Tensor, n: int, s):
+    """Write the plain bounce's state and records into the first n lanes."""
+    lay = seg_layout(pack)
+    f = _f32(st)
+    st[0:2, :n] = rng_bits(s.rng).T
+    for k, v in ((S_O, s.o), (S_D, s.d), (S_THP, s.thp), (S_L, s.L)):
+        f[k:k + 3, :n] = v.T
+    f[S_ACT, :n] = s.active.float()
+    f[S_PPDF, :n] = s.prev_pdf
+    f[S_PDELTA, :n] = s.prev_delta.float()
+    for k, v in enumerate((s.n_diff, s.n_spec, s.n_trans)):
+        f[S_NDIFF + k, :n] = v.float()
+    f[S_WL, :n] = s.wl
+    rec = s.rec or {}
+    if lay.env >= 0:
+        f[lay.env:lay.env + 3, :n] = rec["miss_d"].T
+        f[lay.env + 3:lay.env + 6, :n] = rec["miss_thp"].T
+    if lay.med >= 0:
+        f[lay.med:lay.med + 3, :n] = s.med_stack.T.float()
+        f[lay.med + 3, :n] = s.med_top.float()
+        f[lay.med + 4, :n] = s.n_vol.float()
+    if lay.tex >= 0:
+        f[lay.tex:lay.tex + 3, :n] = rec["nee"].T
+        f[lay.tex + 3, :n] = rec["bid"].float()
+        f[lay.tex + 4:lay.tex + 6, :n] = rec["uv"].T
+    if lay.grid >= 0:
+        for j, key in enumerate(("gc", "gp0", "gp1")):
+            f[lay.grid + 3 * j:lay.grid + 3 * j + 3, :n] = rec[key].T
+
+
+def _hit_dict(pack: MKPack, hp: torch.Tensor) -> dict:
+    """resolve_hit's planes as the plain bounce's resolved hit."""
+    n = hp.shape[1]
+    k = 10
+    hit = {"t": hp[0], "hit": hp[1] > 0.5, "ns": hp[2:5].T, "ng": hp[5:8].T,
+           "eid": hp[8].long(), "inva": hp[9],
+           "sph": torch.zeros(n, dtype=torch.bool, device=hp.device)}
+    if not pack.tri_only:
+        hit["sph"] = hp[k] > 0.5
+        k += 1
+    hit["bid"] = hp[k].long()
+    k += 1
+    hit["uv"] = torch.zeros((n, 2), device=hp.device)
+    if pack.textured:
+        hit["uv"] = hp[k:k + 2].T
+        k += 2
+    hit["med_obj"] = torch.full((n,), -1, dtype=torch.int32, device=hp.device)
+    if pack.has_media:
+        hit["med_obj"] = hp[k].to(torch.int32)
+    return hit
+
+
+def seg_step_reference(pack: MKPack, md, st: torch.Tensor, n: int, bounce: int,
+                       nee_candidates: int = 1, hit: torch.Tensor | None = None,
+                       flight: torch.Tensor | None = None, stats=None):
+    """Plain version of the segment kernel: one ``seg`` bounce of the fused
+    path tracer (the volume path tracer for a pack with media) on the
+    first n lanes of the planes, in place. hit: resolve_hit's planes and
+    flight: grid_flight's (the split driver, grid packs only); stats (the
+    kernel's walk counters) is not counted here."""
+    scene = kernel_scene(pack.scene)
+    s = _seg_state(pack, st, n, bounce)
+    hd = _hit_dict(pack, hit) if hit is not None else None
+    if pack.has_media:
+        if nee_candidates != 1:
+            raise ValueError("the fused volume path tracer takes nee_candidates=1")
+        fl = None if flight is None else {"t": flight[0], "is_medium": flight[1] > 0.5,
+                                          "weight": flight[2:5].T}
+        s = volume_pt.vpt_bounce(scene, md, s, fused=True, seg=True, hit=hd, flight=fl)
+    else:
+        s = pt.pt_bounce(scene, md, s, nee_candidates, fused=True, seg=True)
+    _seg_store(pack, st, n, s)
+
+
+def _check_state(pack: MKPack, st: torch.Tensor, n: int, *planes):
+    if st.device.type != "cuda":
+        raise ValueError(f"kernel inputs must be CUDA tensors, got {st.device}")
+    if pack.device != st.device:
+        raise ValueError(f"pack on {pack.device}, state on {st.device}")
+    if st.dtype != torch.int32 or not st.is_contiguous() or st.dim() != 2 \
+            or st.shape[0] != seg_layout(pack).n_state or not 0 <= n <= st.shape[1]:
+        raise ValueError("expected contiguous int32 state planes (n_state, B) and 0 <= n <= B")
+    for x in planes:
+        if x is not None and (x.device != st.device or x.dtype != torch.float32
+                              or not x.is_contiguous() or x.shape[1] != n):
+            raise ValueError("hit and flight planes must be contiguous float32 (k, n) on the "
+                             "state's device")
+
+
+def trace_megakernel_seg(pack: MKPack, md, st: torch.Tensor, n: int, bounce: int,
+                         nee_candidates: int = 1, hit: torch.Tensor | None = None,
+                         flight: torch.Tensor | None = None, stats: torch.Tensor | None = None):
+    """One bounce of the first n lanes of the state planes (n_state, B)
+    int32, in place (kernel K5). A grid pack takes the SHADE form, which
+    needs the split driver's resolved hit planes and flight planes; no
+    other pack takes them. stats (CUDA only; (B, 2) int32) accumulates
+    the walk work per slot. CPU tensors run seg_step_reference; CUDA
+    tensors launch the kernel."""
+    if pack.has_media and nee_candidates != 1:
+        raise ValueError("the fused volume path tracer takes nee_candidates=1 (as on the TPU)")
+    if pack.has_grid != (hit is not None) or pack.has_grid != (flight is not None):
+        raise ValueError("a grid-media pack's bounce takes the split driver's hit and flight "
+                         "planes, and only such a pack's")
+    if st.device.type == "cpu":
+        return seg_step_reference(pack, md, st, n, bounce, nee_candidates, hit, flight)
+    _check_state(pack, st, n, hit, flight)
+    lib = cuda_build.load()
+    variant = ctypes.c_int(-1)
+    rc = lib.mk_trace_seg(_tables(pack), st.data_ptr(), st.shape[1], n, bounce,
+                          hit.data_ptr() if hit is not None else None,
+                          flight.data_ptr() if flight is not None else None,
+                          stats.data_ptr() if stats is not None else None,
+                          pack.max_leaf, int(pack.tri_only), int(pack.has_env), int(pack.textured),
+                          int(pack.has_disp), int(pack.all_families), int(pack.has_media),
+                          int(pack.has_grid), int(pack.ambient_med),
+                          int(md.max_depth), int(md.max_diffuse), int(md.max_specular),
+                          int(md.max_transmit), int(md.max_volume), int(nee_candidates),
+                          ctypes.byref(variant), torch.cuda.current_stream(st.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mk_trace_seg launch failed: cudaError {rc}")
+    LAUNCHES["trace_megakernel_seg"] += 1
+    name = instantiation_name(variant.value)
+    INSTANTIATION_LAUNCHES[name] = INSTANTIATION_LAUNCHES.get(name, 0) + 1
+
+
+def traverse_plain(pack: MKPack, st: torch.Tensor, n: int, stats=None) -> torch.Tensor:
+    """Plain version of K6: closest_hit_plain of the live lanes among the
+    first n -> (4, n) planes t, gid, u, v (gid -1, t inf, u = v = 0 on a
+    miss or a dead lane)."""
+    f = _f32(st)
+    live = f[S_ACT, :n] > 0.5
+    h = pt.closest_hit(pack.scene, _vec(f, S_O, n), _vec(f, S_D, n), live)
+    ok = live & h["hit"]
+    return torch.stack([torch.where(ok, h["t"], torch.inf), torch.where(ok, h["prim"], -1).float(),
+                        torch.where(ok, h["b1"], 0.0), torch.where(ok, h["b2"], 0.0)])
+
+
+def traverse_closest(pack: MKPack, st: torch.Tensor, n: int,
+                     stats: torch.Tensor | None = None) -> torch.Tensor:
+    """The closest hit of the live lanes among the first n of the state
+    planes -> (4, n) float32 planes t, gid, u, v (kernel K6). CPU tensors
+    run traverse_plain; CUDA tensors launch the kernel."""
+    if st.device.type == "cpu":
+        return traverse_plain(pack, st, n)
+    _check_state(pack, st, n)
+    out = torch.empty((4, n), dtype=torch.float32, device=st.device)
+    rc = cuda_build.load().mk_traverse(
+        _tables(pack), st.data_ptr(), st.shape[1], n, out.data_ptr(),
+        stats.data_ptr() if stats is not None else None, pack.max_leaf, int(pack.tri_only),
+        torch.cuda.current_stream(st.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mk_traverse launch failed: cudaError {rc}")
+    LAUNCHES["traverse_closest"] += 1
+    return out
+
+
+def resolve_hit(pack: MKPack, trav: torch.Tensor) -> torch.Tensor:
+    """K6's (t, gid, u, v) -> the SHADE kernel's hit planes by one row
+    gather from the pack's g_hit (the reference's resolve_hit, :3404): t,
+    hit, interpolated ns(3), raw ng(3) (a sphere's centre for both), eid,
+    inv_area, [sphere flag], bid, [uv(2)], [medium_in, is_null]."""
+    t, gidf, u, v = trav[0], trav[1], trav[2], trav[3]
+    ghit = pack["g_hit"]
+    row = ghit[torch.clamp(gidf.to(torch.int32), 0, ghit.shape[0] - 1).long()]
+    w0 = 1.0 - u - v
+    ns = w0[:, None] * row[:, 0:3] + u[:, None] * row[:, 3:6] + v[:, None] * row[:, 6:9]
+    ng = row[:, 9:12]
+    if not pack.tri_only:
+        sph = (row[:, 18] > 0.5)[:, None]
+        ns = torch.where(sph, row[:, 12:15], ns)
+        ng = torch.where(sph, row[:, 12:15], ng)
+    planes = [t, (gidf >= 0.0).float(), ns[:, 0], ns[:, 1], ns[:, 2], ng[:, 0], ng[:, 1],
+              ng[:, 2], row[:, 15], row[:, 17]]
+    if not pack.tri_only:
+        planes.append(row[:, 18])
+    planes.append(row[:, 16])
+    if pack.textured:
+        uv = w0[:, None] * row[:, 21:23] + u[:, None] * row[:, 23:25] + v[:, None] * row[:, 25:27]
+        planes += [uv[:, 0], uv[:, 1]]
+    if pack.has_media:
+        planes += [row[:, 19], row[:, 20]]
+    return torch.stack(planes).contiguous()
+
+
+def _side_rng(st: torch.Tensor, n: int) -> torch.Tensor:
+    """The grid passes' own pcg stream, xor-derived from the lane's (:3448):
+    the kernel's stream advances a fixed number of draws per bounce, so the
+    two never collide."""
+    x = (st[0, :n].to(torch.int64) & prng.MASK32) ^ 0x9E3779B9
+    y = (st[1, :n].to(torch.int64) & prng.MASK32) ^ 0x85EBCA6B
+    return torch.stack([x, y], dim=-1)
+
+
+def _grids(pack: MKPack) -> T.GridMediumData:
+    return T.GridMediumData(density=pack["gr_density"], emission=pack["gr_emis"],
+                            bbox_min=pack["gr_bmin"], bbox_max=pack["gr_bmax"],
+                            majorant=pack["gr_major"], avg_density=pack["gr_avg"])
+
+
+def grid_flight(pack: MKPack, st: torch.Tensor, n: int, t_surf: torch.Tensor) -> torch.Tensor:
+    """Delta-tracked flight of the live lanes among the first n that run
+    through a grid medium (:3458) -> (5, n) planes t, is_medium,
+    weight(3); t_surf: the closest hit's t (inf on a miss)."""
+    lay = seg_layout(pack)
+    f = _f32(st)
+    mtop = f[lay.med + 3, :n]
+    s0, s1, s2 = f[lay.med, :n], f[lay.med + 1, :n], f[lay.med + 2, :n]
+    cur = torch.where(mtop >= 2.0, s2, torch.where(mtop >= 1.0, s1, torch.where(
+        mtop >= 0.0, s0, torch.full_like(s0, float(pack.ambient_med)))))
+    curi = torch.clamp(cur.to(torch.int32), 0, pack["gr_isg"].shape[0] - 1).long()
+    in_grid = (cur >= 0.0) & (pack["gr_isg"][curi] > 0.5) & (f[S_ACT, :n] > 0.5)
+    gid = torch.clamp(pack["gr_gid"][curi], min=0).long()
+    scale = pack["gr_scale"][curi]
+    maj = torch.clamp(pack["gr_major"][gid] * scale, min=1e-6)
+    res, _ = gridmod.sample_distance_arrays(
+        _grids(pack), gid, scale, maj, pack["gr_albedo"][curi], _vec(f, S_O, n), _vec(f, S_D, n),
+        torch.where(torch.isfinite(t_surf), t_surf, 1e8), _side_rng(st, n), in_grid)
+    w = res["weight"]
+    return torch.stack([res["t"], res["is_medium"].float(), w[:, 0], w[:, 1], w[:, 2]])
+
+
+def grid_nee_resolve(pack: MKPack, st: torch.Tensor, n: int):
+    """Ratio-track the recorded NEE segments of the first n lanes through
+    every grid and add contribution * Tr to L, in place (:3482)."""
+    lay = seg_layout(pack)
+    f = _f32(st)
+    c = f[lay.grid:lay.grid + 3, :n]
+    p = _vec(f, lay.grid + 3, n)
+    seg = _vec(f, lay.grid + 6, n) - p
+    dist = torch.sqrt(torch.sum(seg * seg, dim=-1))
+    dirn = seg / torch.clamp(dist, min=1e-8)[:, None]
+    have = (c[0] + c[1] + c[2]) > 0.0
+    tr_tot = torch.ones_like(dist)
+    rng_t = _side_rng(st, n) ^ 0x51633E2D
+    inv = 1.0 / torch.where(torch.abs(dirn) < 1e-9, torch.where(dirn < 0, -1e-9, 1e-9), dirn)
+    grids = _grids(pack)
+    for g in range(pack["gr_major"].shape[0]):
+        t0s = (pack["gr_bmin"][g][None, :] - p) * inv
+        t1s = (pack["gr_bmax"][g][None, :] - p) * inv
+        tn = torch.amax(torch.minimum(t0s, t1s), dim=-1)
+        tf = torch.amin(torch.maximum(t0s, t1s), dim=-1)
+        t_in = torch.clamp(tn, min=0.0)
+        seg_len = torch.clamp(torch.minimum(tf, dist) - t_in, min=0.0)
+        act_g = have & (seg_len > 1e-6)
+        scale = pack["gr_gscale"][g]
+        maj = torch.clamp(pack["gr_major"][g] * scale, min=1e-6)
+        tr_g, _ = gridmod.transmittance_residual_arrays(
+            grids, torch.full_like(dist, g, dtype=torch.int64), scale, maj,
+            p + t_in[:, None] * dirn, dirn, seg_len, rng_t ^ ((g * 0x632BE5AB) & prng.MASK32),
+            act_g)
+        tr_tot = tr_tot * torch.where(act_g, tr_g, 1.0)
+    f[S_L:S_L + 3, :n] += c * tr_tot
+
+
+def resolve_texels(pack: MKPack, st: torch.Tensor, n: int):
+    """Inline texturing between bounces (:3593): the diffuse texel of each
+    of the first n lanes' recorded hit multiplies its recorded NEE
+    contribution, added to L, and its throughput, in place."""
+    lay = seg_layout(pack)
+    f = _f32(st)
+    bidq = f[lay.tex + 3, :n]
+    tdiff = pack["tdiff"]
+    bid = torch.clamp(bidq.to(torch.int32), 0, tdiff.shape[0] - 1).long()
+    tid = torch.where(bidq >= 0.0, tdiff[bid], -1)
+    m = tex.sample_texture(pack.scene.textures, tid, _vec(f, lay.tex + 4, n)[:, :2])[:, :3]
+    m = torch.where((tid >= 0)[:, None], m, 1.0).T
+    f[S_L:S_L + 3, :n] += f[lay.tex:lay.tex + 3, :n] * m
+    f[S_THP:S_THP + 3, :n] *= m
+
+
+def _morton21(qx, qy, qz):
+    """Interleave three 7-bit ints into a 21-bit Morton code."""
+
+    def spread(v):
+        v = v & 0x3FF
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
+
+    return spread(qx) | (spread(qy) << 1) | (spread(qz) << 2)
+
+
+def _nearest_treelet(tlbox, o, d):
+    """Per-lane nearest-entered treelet box -> (entry t, exit t, index);
+    a lane entering none gets index len(tlbox) and entry t 0."""
+
+    def inv(v):
+        return torch.where(torch.abs(v) < 1e-12, torch.full_like(v, 1e12), 1.0 / v)
+
+    iv = torch.stack([inv(d[:, 0]), inv(d[:, 1]), inv(d[:, 2])], dim=-1)[:, None, :]
+    t0 = (tlbox[None, :, 0:3] - o[:, None, :]) * iv
+    t1 = (tlbox[None, :, 3:6] - o[:, None, :]) * iv
+    tn = torch.amax(torch.minimum(t0, t1), dim=-1)
+    tf = torch.amin(torch.maximum(t0, t1), dim=-1)
+    entered = (tn <= tf) & (tf > 1e-5)
+    tval = torch.where(entered, torch.clamp(tn, min=0.0), torch.inf)
+    tl = torch.argmin(tval, dim=1).to(torch.int32)
+    tmin = torch.amin(tval, dim=1)
+    none = ~entered.any(dim=1)
+    tl = torch.where(none, tlbox.shape[0], tl).to(torch.int32)
+    return torch.where(none, 0.0, tmin), tf, tl
+
+
+def swf_sort_key(st: torch.Tensor, key_mode: str = "dir_pos", tlbox=None) -> torch.Tensor:
+    """The reference's inter-bounce key (:3172) of the state planes, int32
+    (B,): dead lanes DEAD_KEY (they sort last), live lanes grouped for walk
+    coherence. "dir_pos": direction octant, then the Morton cell of the
+    origin; "pos_dir": the reverse; "tl_pos": the nearest-entered treelet
+    box (tlbox, make_pack's), then the Morton cell of the entry point;
+    "tl_oct": the treelet, then the octant. Cells quantize each coordinate
+    to 7 bits over the batch's range."""
+    f = _f32(st)
+    o = f[S_O:S_O + 3].T
+    d = f[S_D:S_D + 3].T
+
+    def q7(v):
+        n_ = torch.clamp((v - v.min()) / torch.clamp(v.max() - v.min(), min=1e-12), 0.0, 0.9999)
+        return (n_ * 128.0).to(torch.int32)
+
+    oct_ = ((d[:, 0] < 0).to(torch.int32) * 4 + (d[:, 1] < 0).to(torch.int32) * 2
+            + (d[:, 2] < 0).to(torch.int32))
+    if key_mode.startswith("tl"):
+        if tlbox is None:
+            raise ValueError("treelet sort keys need the pack's treelet boxes (tlbox)")
+        tn, _, tl = _nearest_treelet(tlbox, o, d)
+        if key_mode == "tl_oct":
+            key = (tl << 3) | oct_
+        else:
+            e = o + tn[:, None] * d
+            key = (tl << 21) | _morton21(q7(e[:, 0]), q7(e[:, 1]), q7(e[:, 2]))
+    else:
+        m = _morton21(q7(o[:, 0]), q7(o[:, 1]), q7(o[:, 2]))
+        key = (m << 3) | oct_ if key_mode == "pos_dir" else (oct_ << 21) | m
+    return torch.where(f[S_ACT] > 0.5, key, DEAD_KEY).to(torch.int32)
+
+
+def swf_sort(st: torch.Tensor, pix: torch.Tensor, key_mode: str, tlbox=None):
+    """One re-sort of the driver's lanes by swf_sort_key, with one gather of
+    all state planes as int32 (the pcg bits never pass through a float
+    dtype) -> (state, pixel of each lane, live prefix n). Dead lanes sort
+    last; key_mode "none" keeps the lanes in place and n is every lane
+    while any is live, else 0."""
+    if key_mode == "none":
+        return st, pix, st.shape[1] if bool((_f32(st)[S_ACT] > 0.5).any()) else 0
+    key = swf_sort_key(st, key_mode, tlbox)
+    perm = torch.argsort(key, stable=True)
+    return st[:, perm].contiguous(), pix[perm], int((key < DEAD_KEY).sum())
+
+
+def swf_resolve(pack: MKPack, st: torch.Tensor, n: int):
+    """The passes after a segment launch on the first n lanes, in place:
+    the grid NEE segments ratio-tracked (grid_nee_resolve), the texels of
+    the recorded hits (resolve_texels)."""
+    if pack.has_grid:
+        grid_nee_resolve(pack, st, n)
+    if pack.textured:
+        resolve_texels(pack, st, n)
+
+
+def swf_result(pack: MKPack, st: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """L (B, 3) in pixel order: the planes' L plus the envmap epilogue
+    thp * Le(d) of the recorded misses, un-permuted."""
+    lay = seg_layout(pack)
+    f = _f32(st)
+    B = st.shape[1]
+    L_s = f[S_L:S_L + 3].T
+    if lay.env >= 0:
+        L_s = L_s + _vec(f, lay.env + 3, B) * emitters.env_radiance(pack.scene, _vec(f, lay.env, B))
+    L = torch.empty((B, 3), dtype=torch.float32, device=st.device)
+    L[pix] = L_s
+    return L
+
+
+def trace_megakernel_swf(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor,
+                         nee_candidates: int = 1, key_mode: str = "dir_pos",
+                         plain: bool | None = None):
+    """Sorted-wavefront driver (the reference's trace_megakernel_swf, :3248):
+    (B, 3) rays + (B, 2) pcg states -> L (B, 3). Per bounce: the lanes
+    re-sorted (swf_sort; key_mode "none": kept in place), then one segment
+    launch on the live prefix the sort leaves (dead lanes sort last;
+    unsorted, every lane), then swf_resolve; until no lane is live or
+    max_depth is reached; then swf_result. A grid pack takes the split
+    form (as the reference forces it, :3332): each bounce first walks with
+    K6, resolves the hit by a row gather (resolve_hit) and delta-tracks the
+    flight through the grid (grid_flight); the shade form of the segment
+    kernel takes both.
+
+    plain (default: CPU tensors) runs the plain versions of K5 and K6 on
+    any device."""
+    if key_mode not in KEY_MODES:
+        raise ValueError(f"key_mode {key_mode!r} not in {KEY_MODES}")
+    if pack.has_media and nee_candidates != 1:
+        raise ValueError("the fused volume path tracer takes nee_candidates=1 (as on the TPU)")
+    if o.dtype != torch.float32 or d.dtype != torch.float32 or o.shape != d.shape \
+            or o.dim() != 2 or o.shape[1] != 3 or tuple(rng.shape) != (o.shape[0], 2):
+        raise ValueError("expected o, d (B, 3) float32 and rng (B, 2)")
+    if plain is None:
+        plain = o.device.type == "cpu"
+    if not plain:
+        _check_rays(pack, o.contiguous())
+    tlbox = pack["tlbox"] if key_mode.startswith("tl") else None
+    step = seg_step_reference if plain else trace_megakernel_seg
+    walk = traverse_plain if plain else traverse_closest
+    st = seg_init(pack, o, d, rng)
+    pix = torch.arange(o.shape[0], device=o.device)
+    for bounce in range(md.max_depth):
+        st, pix, n = swf_sort(st, pix, key_mode, tlbox)
+        if n == 0:
+            break
+        hit = flight = None
+        if pack.has_grid:
+            hit = resolve_hit(pack, walk(pack, st, n))
+            flight = grid_flight(pack, st, n, hit[0]).contiguous()
+        step(pack, md, st, n, bounce, nee_candidates, hit, flight)
+        swf_resolve(pack, st, n)
+    return swf_result(pack, st, pix)
+
+
+def trace_megakernel_swf_reference(pack: MKPack, md, o, d, rng, nee_candidates: int = 1,
+                                   key_mode: str = "dir_pos"):
+    """Plain version of the driver on any device: the plain versions of K5
+    and K6 in the same driver."""
+    return trace_megakernel_swf(pack, md, o, d, rng, nee_candidates, key_mode, plain=True)
+
+
+def pack_boxes(pack: MKPack) -> int:
+    """Boxes of the pack's node table: w8 rows x 8 children."""
+    return pack["nodes"].shape[0] * 8
+
+
+def driver_of(pack: MKPack) -> str:
+    """The driver auto_trace takes for the pack: "whole_path", "swf" or
+    "swf_split"."""
+    if pack.has_grid:
+        return "swf_split"
+    return "swf" if pack_boxes(pack) >= SWF_AUTO_BOXES else "whole_path"
+
+
 def auto_trace(pack: MKPack, md, o, d, rng, nee_candidates: int = 1):
-    """Driver pick of the reference (megakernel.py:3684). The TPU sent
-    scenes of 512 boxes or more to the sorted-wavefront driver (kernel K5,
-    not ported yet); here every scene takes the whole-path kernel, which
-    has no VMEM limit and computes the same estimator."""
-    return trace_megakernel(pack, md, o, d, rng, nee_candidates=nee_candidates)
+    """The reference's driver pick (megakernel.py:3684): a pack with a grid
+    medium or of SWF_AUTO_BOXES boxes or more takes the sorted-wavefront
+    driver with key_mode "pos_dir" (kernel K5; its split form with K6 for
+    grid media), a smaller one the whole-path kernel. Per lane the two
+    agree on untextured scenes; on textured ones the driver's inline
+    texturing and the kernel's deferred texturing agree in the mean only
+    (trace_megakernel_swf). A failing build or launch raises: there is no
+    fallback to the other driver or to the CPU."""
+    if driver_of(pack) == "whole_path":
+        return trace_megakernel(pack, md, o, d, rng, nee_candidates=nee_candidates)
+    return trace_megakernel_swf(pack, md, o, d, rng, nee_candidates=nee_candidates,
+                                key_mode="pos_dir")
 
 
 def render_pack(pack: MKPack, cam: cam_mod.Camera, md, spp: int, seed,
                 nee_candidates: int = 1) -> torch.Tensor:
     """spp-pass render from a prebuilt pack -> (H, W, 3) mean, with the same
-    per-(pixel, sample) pcg streams as models/path_tracer.render."""
+    per-(pixel, sample) pcg streams as models/path_tracer.render. A pack of
+    SWF_AUTO_BOXES boxes or more traces all spp samples in one driver call
+    (more lanes per sort; the image is the same), as in the reference."""
     B = cam.width * cam.height
     perm, inv = tile_swizzle(cam.width, cam.height, pack.device)
+    if pack_boxes(pack) >= SWF_AUTO_BOXES and spp > 1:
+        lanes = perm.repeat(spp)
+        idx = torch.arange(spp, device=pack.device).repeat_interleave(B)
+        rng = qmc.make_state("pcg", seed, lanes, idx)
+        o, d, rng = cam_mod.generate_rays(cam, lanes, rng)
+        acc = auto_trace(pack, md, o, d, rng, nee_candidates).reshape(spp, B, 3).sum(dim=0)
+        return (acc[inv] / spp).reshape(cam.height, cam.width, 3)
     acc = torch.zeros((B, 3), device=pack.device)
     for i in range(spp):
         rng = qmc.make_state("pcg", seed, perm, i)

@@ -4,8 +4,8 @@ procedural textures, and ``furnace``), plus small port-only scenes that
 hold the kernel's envelope to its plain version: ``cornell_box_lights``,
 ``oren_nayar_forward``, ``spot_light`` and ``textured_floor``; and the
 media scenes of the volume path tracer: ``medium_box`` and ``cornell_vpt``
-(scenes of the reference's tests), ``nested_media`` and the full-size
-``medium_cbox``."""
+(scenes of the reference's tests), ``nested_media``, the full-size
+``medium_cbox`` and the reference's grid-medium scene ``grid_smoke``."""
 
 from __future__ import annotations
 
@@ -424,3 +424,35 @@ def medium_cbox(width=64, height=64, ns=192, nt=96, device="cpu"):
     p, n, uv = _torus_mesh((0.5, 0.35, 0.5), R=0.22, r=0.09, ns=ns, nt=nt)
     b.add_mesh(p, glass, n=n, uv=uv, medium_in=iso)
     return b.compile(device=device), _cornell_camera(width, height, device), b
+
+
+def grid_smoke(width=16, height=16, n=16, sigma=4.0, light_scale=6.0, device="cpu"):
+    """The reference's smoke ball in a cube (cuda_pt_tpu/scene/testscenes.
+    grid_smoke): a soft-sphere density grid of n^3 voxels (density
+    sigma * max(0, 1 - r), albedo 0.9) inside a null-interface
+    (forward-BSDF, cullable) cube [-1, 1]^3 under an area light, above a
+    floor. Returns (scene, camera, builder)."""
+    b = SceneBuilder()
+    white = b.add_bsdf(BSDFSpec(k_d=(0.7, 0.7, 0.7)))
+    fwd = b.add_bsdf(BSDFSpec(btype=T.BSDF_FORWARD))
+    em = b.add_emitter(EmitterSpec(etype=T.EMITTER_AREA, emission=(1, 1, 1), scaler=light_scale))
+    b.add_mesh(quad([-1, 2, -1], [1, 2, -1], [1, 2, 1], [-1, 2, 1]), white, emitter_id=em)
+    g = np.linspace(-1, 1, n)
+    zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
+    dens = np.maximum(0.0, 1.0 - np.sqrt(xx ** 2 + yy ** 2 + zz ** 2)) * sigma
+    gid = b.add_grid(dens.astype(np.float32), (-1, -1, -1), (1, 1, 1))
+    med = b.add_medium(MediumSpec(mtype=T.MEDIUM_GRID, grid_id=gid, sigma_s=(0.9, 0.9, 0.9),
+                                  scale=1.0))
+    cube = np.concatenate([
+        quad([-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1]),
+        quad([1, -1, 1], [-1, -1, 1], [-1, 1, 1], [1, 1, 1]),
+        quad([-1, -1, 1], [-1, -1, -1], [-1, 1, -1], [-1, 1, 1]),
+        quad([1, -1, -1], [1, -1, 1], [1, 1, 1], [1, 1, -1]),
+        quad([-1, 1, -1], [1, 1, -1], [1, 1, 1], [-1, 1, 1]),
+        quad([-1, -1, 1], [1, -1, 1], [1, -1, -1], [-1, -1, -1]),
+    ], axis=0)
+    b.add_mesh(cube, fwd, medium_in=med, cullable=True)
+    b.add_mesh(quad([-3, -1.2, -3], [3, -1.2, -3], [3, -1.2, 3], [-3, -1.2, 3]), white)
+    cam = cam_mod.make_camera((0, 0.2, -4), (0, 0, 0), fov=35, width=width, height=height,
+                              device=device)
+    return b.compile(device=device), cam, b

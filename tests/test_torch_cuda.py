@@ -8,7 +8,9 @@ a machine that has only PyTorch:
 
 Per-lane contract: allclose(rtol=1e-4, atol=1e-5) on all three channels,
 with at most 2 % of lanes differing. The media tests hold kernel K4 (the
-volume path tracer's MED instantiations) to the same contract."""
+volume path tracer's MED instantiations) to the same contract, and the
+sorted-wavefront tests kernel K5 (the segment kernel, under
+trace_megakernel_swf) and K6 (the traverse kernel of its split form)."""
 
 import numpy as np
 import pytest
@@ -53,6 +55,16 @@ MEDIA_SCENES = {
     "nested_media": lambda dev: t_ts.nested_media(48, 48, device=dev),
     "medium_box_env": lambda dev: t_ts.medium_box(48, 48, env_scale=0.5, device=dev),
 }
+
+
+def grid_smoke_dispersion(width: int, height: int, device="cpu"):
+    """grid_smoke with a dispersive glass sphere beside the cube: a grid
+    pack with has_disp, the split driver's K3 shade instantiation."""
+    _, cam, b = t_ts.grid_smoke(width, height, device=device)
+    glass = b.add_bsdf(BSDFSpec(btype=TT.BSDF_DISPERSION, k_s=(0.99, 0.99, 0.99),
+                                cauchy_a=1.5046, cauchy_b=0.0042))
+    b.add_sphere((1.5, -0.7, -0.9), 0.5, glass)
+    return b.compile(device=device), cam, b
 
 
 @pytest.fixture
@@ -203,3 +215,101 @@ def test_wrapper_branches_agree_on_media_scene(cuda):
     assert torch.isfinite(out["cuda"]).all() and float(out["cpu"].mean()) > 0.01
     assert _lanes_differing(out["cuda"], out["cpu"]) <= 0.02
     assert abs(float(out["cuda"].mean()) - float(out["cpu"].mean())) < 5e-3
+
+
+# kernel K5 under the sorted-wavefront driver: (scene, vpt pack, the
+# segment instantiation launched); a grid pack takes the split form (K6 and
+# the SHADE instantiations)
+SEG_SCENES = {
+    "cornell": (lambda dev: t_ts.cornell_box(48, 48, device=dev), False, "SEG+K2"),
+    "kitchen_small": (K3_SCENES["kitchen_small"], False, "SEG+K3+ALL"),
+    "textured_floor": (K3_SCENES["textured_floor"], False, "SEG+K3"),
+    "medium_box_env": (MEDIA_SCENES["medium_box_env"], True, "SEG+K3+ALL+MED"),
+    "nested_media": (MEDIA_SCENES["nested_media"], True, "SEG+ALL+MED"),
+    "grid_smoke": (lambda dev: t_ts.grid_smoke(48, 48, device=dev), True,
+                   "SEG+SHADE+ALL+MED+GRID"),
+    "grid_smoke_dispersion": (lambda dev: grid_smoke_dispersion(48, 48, device=dev), True,
+                              "SEG+SHADE+K3+ALL+MED+GRID"),
+}
+
+
+@pytest.mark.parametrize("kind", list(SEG_SCENES))
+def test_k5_matches_plain(cuda, kind):
+    """The driver on the kernels against the same driver on their plain
+    versions (same rays, key "pos_dir"); the instantiations launched."""
+    make, vpt, name = SEG_SCENES[kind]
+    scene, cam, _ = make(cuda)
+    pack = t_mk.make_pack(scene, vpt=vpt)
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
+    rng = t_qmc.make_state("pcg", 12, perm, 0)
+    o, d, rng = t_cam.generate_rays(cam, perm, rng)
+    md = MaxDepthParams()
+    t_mk.reset_launches()
+    Lk = t_mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+    torch.cuda.synchronize()
+    assert set(t_mk.INSTANTIATION_LAUNCHES) == {name}
+    assert (t_mk.LAUNCHES["traverse_closest"] > 0) == pack.has_grid
+    assert t_mk.LAUNCHES["trace_megakernel"] == 0
+    Lp = t_mk.trace_megakernel_swf_reference(pack, md, o, d, rng, key_mode="pos_dir")
+    assert torch.isfinite(Lk).all() and float(Lp.mean()) > 0.01
+    assert _lanes_differing(Lk, Lp) <= 0.02
+    assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3
+
+
+@pytest.mark.parametrize("kind", ["cornell", "nested_media"])
+def test_k5_matches_whole_path_kernel(cuda, kind):
+    """On untextured scenes the driver on K5 and the whole-path kernel
+    compute the same estimator lane for lane."""
+    make, vpt, _ = SEG_SCENES[kind]
+    scene, cam, _ = make(cuda)
+    pack = t_mk.make_pack(scene, vpt=vpt)
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
+    rng = t_qmc.make_state("pcg", 13, perm, 0)
+    o, d, rng = t_cam.generate_rays(cam, perm, rng)
+    md = MaxDepthParams()
+    L_whole = t_mk.trace_megakernel(pack, md, o, d, rng)
+    L_swf = t_mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+    assert float(L_whole.mean()) > 0.01
+    assert _lanes_differing(L_swf, L_whole) <= 0.02
+
+
+def test_k6_matches_plain_walk(cuda):
+    """The traverse kernel's prim ids against the plain walk's on kitchen
+    rays with every fifth lane dead (no hit there)."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=16, nt=12, device=cuda)
+    pack = t_mk.make_pack(scene)
+    rs = np.random.default_rng(6)
+    n = 16384
+    lo, hi = scene.bvh.node_min[0].cpu().numpy(), scene.bvh.node_max[0].cpu().numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (n, 3)).astype(np.float32), device=cuda)
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32),
+                                                      device=cuda), dim=1)
+    st = t_mk.seg_init(pack, o, d, torch.zeros((n, 2), dtype=torch.int64, device=cuda))
+    st.view(torch.float32)[t_mk.S_ACT, ::5] = 0.0
+    t_mk.reset_launches()
+    out = t_mk.traverse_closest(pack, st, n)
+    assert t_mk.LAUNCHES["traverse_closest"] == 1
+    ref = t_mk.traverse_plain(pack, st, n)
+    assert torch.equal(out[1], ref[1]) and bool((out[1, ::5] == -1).all())
+
+
+def test_renderer_routes_as_the_reference(cuda):
+    """The Renderer takes K5 on a scene of 512 boxes or more and the split
+    driver (K6 + K5's shade phase) on grid_smoke, whose image matches the
+    same Renderer on the CPU."""
+    scene, cam, _ = t_ts.kitchen_stress(32, 24, grid=2, ns=16, nt=12)
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=32, height=24, md=MaxDepthParams()))
+    r = Renderer(parsed)
+    t_mk.reset_launches()
+    r.render(1)
+    assert r.info()["driver"] == "swf" and set(t_mk.INSTANTIATION_LAUNCHES) == {"SEG+K3+ALL"}
+    scene, cam, _ = t_ts.grid_smoke(32, 24)
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=32, height=24,
+                                                     md=MaxDepthParams(max_depth=6)))
+    r = Renderer(parsed, renderer=RendererType.VOLUME_PT)
+    t_mk.reset_launches()
+    img_k = r.render(2)
+    assert r.info()["driver"] == "swf_split" and t_mk.LAUNCHES["traverse_closest"] > 0
+    img_p = Renderer(parsed, renderer=RendererType.VOLUME_PT, device="cpu").render(2)
+    assert np.isfinite(img_k).all() and img_k.mean() > 0.01
+    assert np.isclose(img_k, img_p, rtol=1e-4, atol=1e-5).mean() > 0.98

@@ -41,6 +41,7 @@ _SHIM = r"""
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #define __device__
 #define __global__
 #define __host__
@@ -52,6 +53,8 @@ struct float4 { float x, y, z, w; };
 inline float4 __ldg(const float4* p) { return *p; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float __uint2float_rn(unsigned x) { return (float)x; }
+inline float __int_as_float(int x) { float f; std::memcpy(&f, &x, 4); return f; }
+inline int __float_as_int(float f) { int x; std::memcpy(&x, &f, 4); return x; }
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 struct HostDim { int x; };
@@ -98,7 +101,7 @@ def host_lib(tmp_path_factory):
                        f"{m.group(1)}({m.group(2)}); }}"), src, flags=re.S)
         launches += n
         (d / (name[:-3] + "_host.cpp" if name.endswith(".cu") else name)).write_text(src)
-    assert launches == 2  # the trace and closest-hit launches
+    assert launches == 4  # the trace, closest-hit, segment and traverse launches
     defines = [f for f in cb._flags() if f.startswith("-D")]
     out = d / "libmegakernel_host.so"
     host_units = [str(d / (os.path.basename(u)[:-3] + "_host.cpp")) for u in cb.units()]
@@ -195,3 +198,114 @@ def test_host_walk_matches_skip_walk(host_lib):
     np.testing.assert_array_equal(prim.long().numpy(), h["prim"].numpy())
     hit = h["hit"].numpy()
     np.testing.assert_allclose(t.numpy()[hit], h["t"].numpy()[hit], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernels K5 (the segment kernel, SEG and SHADE forms) and K6 (the traverse
+# kernel) under the sorted-wavefront driver
+# ---------------------------------------------------------------------------
+
+
+def _host_driver(monkeypatch, lib, launched: set):
+    """Point trace_megakernel_swf's kernel route at the host library: its
+    segment and traverse steps call mk_trace_seg and mk_traverse on CPU
+    tensors, recording the instantiations launched."""
+
+    def seg(pack, md, st, n, bounce, nee_m=1, hit=None, flight=None, stats=None):
+        variant = ctypes.c_int(-1)
+        rc = lib.mk_trace_seg(
+            t_mk._tables(pack), st.data_ptr(), st.shape[1], n, bounce,
+            hit.data_ptr() if hit is not None else None,
+            flight.data_ptr() if flight is not None else None, None, pack.max_leaf,
+            int(pack.tri_only), int(pack.has_env), int(pack.textured), int(pack.has_disp),
+            int(pack.all_families), int(pack.has_media), int(pack.has_grid), pack.ambient_med, md.max_depth, md.max_diffuse, md.max_specular, md.max_transmit,
+            md.max_volume, nee_m, ctypes.byref(variant), None)
+        assert rc == 0
+        launched.add(t_mk.instantiation_name(variant.value))
+
+    def walk(pack, st, n, stats=None):
+        out = torch.empty((4, n))
+        rc = lib.mk_traverse(t_mk._tables(pack), st.data_ptr(), st.shape[1], n, out.data_ptr(),
+                             None, pack.max_leaf, int(pack.tri_only), None)
+        assert rc == 0
+        launched.add("K6")
+        return out
+
+    monkeypatch.setattr(t_mk, "trace_megakernel_seg", seg)
+    monkeypatch.setattr(t_mk, "traverse_closest", walk)
+    monkeypatch.setattr(t_mk, "_check_rays", lambda *a: None)
+
+
+def grid_smoke_dispersion(width: int, height: int, device="cpu"):
+    """grid_smoke with a dispersive glass sphere beside the cube: a grid
+    pack with has_disp, the split driver's K3 shade instantiation."""
+    _, cam, b = t_ts.grid_smoke(width, height, device=device)
+    glass = b.add_bsdf(BSDFSpec(btype=TT.BSDF_DISPERSION, k_s=(0.99, 0.99, 0.99),
+                                cauchy_a=1.5046, cauchy_b=0.0042))
+    b.add_sphere((1.5, -0.7, -0.9), 0.5, glass)
+    return b.compile(device=device), cam, b
+
+
+SEG_SCENES = {
+    # name: (scene, vpt pack, the segment instantiation it runs); a grid
+    # pack takes the split driver: K6 and the SHADE form
+    "cornell": (lambda: t_ts.cornell_box(16, 16), False, "SEG+K2"),
+    "glass": (SCENES["glass"], False, "SEG+K2"),
+    "furnace": (SCENES["furnace"], False, "SEG+K3"),
+    "textured_floor": (SCENES["textured_floor"], False, "SEG+K3"),
+    "kitchen_small": (SCENES["kitchen_small"], False, "SEG+K3+ALL"),
+    "gold": (SCENES["gold"], False, "SEG+ALL"),
+    "medium_box": (MEDIA_SCENES["medium_box"], True, "SEG+ALL+MED"),
+    "medium_box_env": (MEDIA_SCENES["medium_box_env"], True, "SEG+K3+ALL+MED"),
+    "nested_media": (MEDIA_SCENES["nested_media"], True, "SEG+ALL+MED"),
+    "grid_smoke": (lambda: t_ts.grid_smoke(12, 12), True, "SEG+SHADE+ALL+MED+GRID"),
+    "grid_smoke_dispersion": (lambda: grid_smoke_dispersion(12, 12), True,
+                              "SEG+SHADE+K3+ALL+MED+GRID"),
+}
+
+
+@pytest.mark.parametrize("kind", list(SEG_SCENES))
+def test_host_segment_kernel_matches_plain(host_lib, monkeypatch, kind):
+    """The driver on the host-built K5 (and K6 in its split form) against
+    the same driver on the plain versions, default depth caps, key
+    "pos_dir": the phase-4 contract, and the instantiation expected."""
+    make, vpt, expect = SEG_SCENES[kind]
+    scene, cam, _ = make()
+    pack = t_mk.make_pack(scene, vpt=vpt)
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height)
+    rng = t_qmc.make_state("pcg", 17, perm, 0)
+    o, d, rng = t_cam.generate_rays(cam, perm, rng)
+    md = MaxDepthParams()
+    Lp = t_mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+    launched = set()
+    _host_driver(monkeypatch, host_lib, launched)
+    Lk = t_mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir", plain=False)
+    assert launched == ({expect, "K6"} if pack.has_grid else {expect})
+    assert torch.isfinite(Lk).all() and float(Lp.mean()) > 0.01
+    close = torch.isclose(Lk, Lp, rtol=1e-4, atol=1e-5).all(dim=-1)
+    assert float(close.float().mean()) >= 0.98, (kind, float(close.float().mean()))
+    assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3
+
+
+def test_host_traverse_matches_plain(host_lib):
+    """mk_traverse (K6) against traverse_plain on kitchen: prim ids equal, a
+    dead lane reports no hit."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    pack = t_mk.make_pack(scene)
+    rs = np.random.default_rng(5)
+    n = 2048
+    lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (n, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32)),
+                                      dim=1)
+    st = t_mk.seg_init(pack, o, d, torch.zeros((n, 2), dtype=torch.int64))
+    st.view(torch.float32)[t_mk.S_ACT, ::5] = 0.0
+    out = torch.empty((4, n))
+    rc = host_lib.mk_traverse(t_mk._tables(pack), st.data_ptr(), n, n, out.data_ptr(), None,
+                              pack.max_leaf, int(pack.tri_only), None)
+    assert rc == 0
+    ref = t_mk.traverse_plain(pack, st, n)
+    np.testing.assert_array_equal(out[1].numpy(), ref[1].numpy())
+    assert (out[1, ::5] == -1).all() and (out[1] >= 0).float().mean() > 0.2
+    hit = ref[1] >= 0
+    np.testing.assert_allclose(out[0][hit].numpy(), ref[0][hit].numpy(), rtol=1e-6)

@@ -203,10 +203,11 @@ def test_composed_render_matches_golden(name, make):
 def test_unported_renderers_raise(rtype):
     scene, cam, b = t_ts.cornell_box(8, 8)
     if rtype == RendererType.VOLUME_PT:
-        # the volume path tracer renders homogeneous media; a grid medium
-        # waits for kernel K6
-        gid = b.add_grid(np.ones((2, 2, 2), np.float32), (0, 0, 0), (1, 1, 1))
-        b.add_medium(MediumSpec(mtype=TT.MEDIUM_GRID, grid_id=gid))
+        # the volume path tracer renders homogeneous and grid media; an
+        # emissive grid waits for the composed route
+        gid = b.add_grid(np.ones((2, 2, 2), np.float32), (0, 0, 0), (1, 1, 1),
+                         emission=np.ones((2, 2, 2), np.float32))
+        b.add_medium(MediumSpec(mtype=TT.MEDIUM_GRID, grid_id=gid, emission_scale=1.0))
         b.cam_medium = 0
         scene = b.compile()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -344,14 +344,22 @@ def _grid_scene():
 
 
 def test_grid_media_raise_naming_k6():
+    """A grid medium rides the split sorted-wavefront driver (kernels K6 and
+    K5's shade phase): the whole-path kernel and the fused whole-path loop
+    raise naming K6, and the Renderer takes the driver."""
     scene, cam = _grid_scene()
-    assert not t_mk.megakernel_ok(scene, TMD(), renderer="vpt")
-    with pytest.raises(NotImplementedError, match="K6"):
-        Renderer(_parsed(scene, cam), renderer=RendererType.VOLUME_PT, device="cpu")
+    assert t_mk.megakernel_ok(scene, TMD(), renderer="vpt")
+    pack = t_mk.make_pack(scene, vpt=True)
+    assert pack.has_grid
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]] * 4)
+    rng = torch.zeros((4, 2), dtype=torch.int64)
+    with pytest.raises(ValueError, match="K6"):
+        t_mk.trace_megakernel(pack, TMD(), o, d, rng)
     with pytest.raises(NotImplementedError, match="K6"):
-        t_vpt.trace_paths(scene, TMD(), o, d, torch.zeros((4, 2), dtype=torch.int64))
+        t_vpt.trace_paths(scene, TMD(), o, d, rng, fused=True)
+    r = Renderer(_parsed(scene, cam), renderer=RendererType.VOLUME_PT, device="cpu")
+    assert r.info()["driver"] == "swf_split"
 
 
 def test_vpt_renderer_errors():
