@@ -66,24 +66,52 @@ Phases (any failure exits non-zero):
      K5's SEG+SHADE+ALL+MED+GRID); the launch counts and a finite image;
      the driver held to its plain version on a 65,536-lane block; K6's prim
      ids against the plain walk on the first bounce of the main path's
-     rays; the timings of K5's shade phase and of K6.
+     rays; the timings of K5's shade phase and of K6;
+  9. kernel K1 (csrc/traverse.cu): full-size kitchen_stress forests in f32
+     and in bf16 rows (forest_chunk 65536: two chunks; built in two worker
+     processes while phases 4-8 run) and cornell's single-chunk forest,
+     on the 1,048,576 camera rays of phase 6's camera (shadow limits half
+     to one and a half times their closest t) and 65,536 random rays with
+     finite t_far: per ray, prim ids and occlusion equal to the plain
+     version, t, b1, b2 within the phase-4 tolerances, the bf16 rows' prim
+     ids equal to the f32 rows'; the packet form (count_iters) on 16,384
+     camera rays: tile_iters and prim ids equal to the plain packet walk;
+     K1's time per 1M camera rays, closest and any hit (CUDA events), with
+     its walk work (stats), bound and share;
+  10. the wavefront main path: api.Renderer(renderer=WAVEFRONT_PT,
+     traversal="pallas") on full-size kitchen_stress with its f32 forest,
+     1024x1024, WF_SPP spp (cut: spp only), default depth caps: K1 and no
+     other kernel launched, at most two launches per bounce, a finite
+     image (its mean printed beside phase 6's K5 route's as a note: the
+     two estimators agree in the mean only on textured scenes); K1's
+     summed time, walk work and bound over one spp of the main path; a
+     65,536-lane Z-order block of a pass's rays through the wavefront loop
+     on K1 and on its plain walk, held to the phase-4 contract;
+  4 (routes). the composed routes, SMALL x SMALL x 1 spp: the Renderer with
+     traversal "pallas" against "xla" (the plain skip walk) per lane under
+     the phase-4 contract on cornell (brute force on both: no K1 launch)
+     and kitchen_stress(grid=2) with MEGAKERNEL_PT, and on full-size
+     medium_cbox with VOLUME_PT.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
 at VPT_SPP and GRID_SPP samples per pixel and hold BLOCK lanes.
 ``--profile`` adds a torch.profiler breakdown of a few main-path passes
-of each scene, and of kitchen_stress and medium_cbox through the
-whole-path kernel too.
+of each scene, of kitchen_stress and medium_cbox through the whole-path
+kernel too, and of the wavefront main path.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -108,6 +136,13 @@ BLOCK = 65536
 VPT_SPP = 16
 GRID_SPP = 8
 GRID_N = 256
+# kernel K1 (phases 9-10): prims per chunk of the kitchen forest, samples
+# per pixel of the wavefront main path (cut: spp only), camera rays of the
+# packet-form check, side of the composed-route holds (phase 4's style)
+FOREST_CHUNK = 65536
+WF_SPP = 2
+PACKET_RAYS = 16384
+SMALL = 128
 # the device sleep before a kernel timed alone (swf_loop): 0.5 ms at the
 # H100's highest SM clock (1.98 GHz), longer at lower clocks; it only has to
 # outlast the host's launch latency
@@ -670,7 +705,8 @@ def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingC
     if dmean > MEAN_TOL:
         raise SystemExit("kitchen: K5 and the whole-path kernel disagree in the mean")
     k5.update({"wall_ms_per_spp": wall * 1e3 / spp, "launches": launches["trace_megakernel_seg"],
-               "instantiations": inst, "whole_path_ms": k3["ms"], "mean_vs_whole_path": dmean})
+               "instantiations": inst, "whole_path_ms": k3["ms"], "mean_vs_whole_path": dmean,
+               "image_mean": mean})
     return k5, {
         "name": "trace_megakernel (K3: has_env, textured, has_disp)", "route": "cuda",
         "source": "cuda_pt_torch/csrc/megakernel.cu",
@@ -813,6 +849,340 @@ def phase_grid(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, Pars
     return k5, k6
 
 
+def _forest_job(geom, fmt: str):
+    """Build kernel K1's forest of geom (CPU tensors) in a worker process;
+    returns (forest, seconds)."""
+    from cuda_pt_torch.ops import traverse_kernel as tk
+
+    t0 = time.perf_counter()
+    forest = tk.build_forest(geom, chunk_prims=FOREST_CHUNK, node_fmt=fmt)
+    return forest, time.perf_counter() - t0
+
+
+def k1_ray_bytes(t_far_given: bool, occlusion: bool) -> int:
+    """Bytes one ray moves through K1: o and d read (24 B), t_far read only
+    where the caller passes it (4 B), t/prim/b1/b2 written (16 B) or the
+    occlusion flag (4 B)."""
+    return 24 + (4 if t_far_given else 0) + (4 if occlusion else 16)
+
+
+def k1_bound(forest, ray_bytes: int, nodes: int, prims: int) -> tuple:
+    """(bound ms, what bounds it, bytes) of K1 over one launch or several:
+    ray_bytes the rays' reads and writes in all (k1_ray_bytes), the forest
+    read once; ops nodes x 22 + prim tests x 45."""
+    nbytes = ray_bytes + (forest.nodes.numel() + forest.prims.numel()) * 4
+    t_b, t_o = nbytes / PEAK_BYTES_S, (nodes * OPS_SLAB + prims * OPS_TRI) / PEAK_F32_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations", nbytes
+
+
+def hold_k1(tk, forest, o, d, t_far, label: str) -> dict:
+    """K1 against its plain version on rays (B, 3), closest and any hit:
+    prim ids and occlusion equal, t, b1, b2 within the phase-4 tolerances.
+    Returns the counts, the largest t error and the plain closest hit."""
+    k = tk.traverse_forest(forest, o, d)
+    occ = tk.traverse_forest(forest, o, d, t_far, occlusion=True)["occluded"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = tk.traverse_forest_reference(forest, o, d)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    p_occ = tk.traverse_forest_reference(forest, o, d, t_far, occlusion=True)["occluded"]
+    differ = int((k["prim"] != p["prim"]).sum())
+    occ_differ = int((occ != p_occ).sum())
+    h = p["hit"] & k["hit"]
+    errs = [float((k[key][h] - p[key][h]).abs().max()) if bool(h.any()) else 0.0
+            for key in ("t", "b1", "b2")]
+    close = all(torch.allclose(k[key][h], p[key][h], rtol=RTOL, atol=ATOL)
+                for key in ("t", "b1", "b2"))
+    log(f"[9] K1 {label}, {o.shape[0]} rays: {differ} prim ids differ, {occ_differ} occlusion "
+        f"flags differ; hits {float(p['hit'].float().mean()):.4f}, occluded "
+        f"{float(p_occ.float().mean()):.4f}; max |err| t {errs[0]:.3g} b1 {errs[1]:.3g} "
+        f"b2 {errs[2]:.3g}; plain closest walk {plain_ms:.1f} ms")
+    if differ or occ_differ or not close:
+        raise SystemExit(f"K1 check failed on {label}: {differ} prim ids, {occ_differ} "
+                         f"occlusion flags differ, t/b1/b2 within tolerance: {close}")
+    return {"rays": o.shape[0], "prim_differ": differ, "occluded_differ": occ_differ,
+            "max_abs_err_t": errs[0], "max_abs_err_b": max(errs[1:]), "plain_ms": plain_ms,
+            "hit_frac": float(p["hit"].float().mean()),
+            "occluded_frac": float(p_occ.float().mean()), "prim": k["prim"], "t": p["t"]}
+
+
+def phase_k1(tk, tts, dev, kscene, kcam, forests: dict, T) -> dict:
+    """Kernel K1 on full-size kitchen_stress forests (f32 and bf16 rows,
+    forest_chunk 65536) and on cornell's single-chunk forest, against its
+    plain version; the packet form's tile_iters; K1's time per 1M rays."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+
+    f32, bf16 = forests["f32"], forests["bf16"]
+    W, H = kcam.width, kcam.height
+    lane = torch.arange(W * H, device=dev)
+    o, d, _ = cam_mod.generate_rays(kcam, lane, qmc.make_state("pcg", 0, lane, 0))
+    o, d = o.contiguous(), d.contiguous()
+    rs = np.random.default_rng(13)
+    # camera rays' shadow limits: half to one and a half times the plain
+    # closest t (1e8 on a miss), so about half the hits are occluded
+    t_cam = tk.traverse_forest_reference(f32, o, d)["t"]
+    u = torch.as_tensor(rs.uniform(0.5, 1.5, W * H).astype(np.float32), device=dev)
+    tf_cam = torch.where(torch.isfinite(t_cam), t_cam * u, 1e8).contiguous()
+    lo = kscene.bvh.node_min[0].cpu().numpy()
+    hi = kscene.bvh.node_max[0].cpu().numpy()
+    n_r = BLOCK
+    o_r = torch.as_tensor(rs.uniform(lo, hi, (n_r, 3)).astype(np.float32), device=dev)
+    d_r = torch.nn.functional.normalize(torch.as_tensor(
+        rs.normal(size=(n_r, 3)).astype(np.float32), device=dev), dim=1).contiguous()
+    tf_r = torch.as_tensor(rs.uniform(0.05, 8.0, n_r).astype(np.float32), device=dev)
+    res = {"forest": {fmt: {"nodes": list(f.nodes.shape), "prims": list(f.prims.shape),
+                            "n_nodes": f.n_nodes.tolist()} for fmt, f in forests.items()}}
+    prims = {}
+    for fmt, forest in (("f32", f32), ("bf16", bf16)):
+        for rays, (o_, d_, tf_) in (("camera", (o, d, tf_cam)), ("random", (o_r, d_r, tf_r))):
+            row = hold_k1(tk, forest, o_, d_, tf_, f"kitchen {fmt} forest, {rays} rays")
+            prims[(fmt, rays)] = row.pop("prim")
+            row.pop("t")
+            res[f"{fmt}_{rays}"] = row
+    for rays in ("camera", "random"):
+        bf_differ = int((prims[("bf16", rays)] != prims[("f32", rays)]).sum())
+        log(f"[9] bf16 against f32 rows, {rays} rays: {bf_differ} prim ids differ")
+        if bf_differ:
+            raise SystemExit(f"K1: the bf16 forest's prim ids differ from the f32 forest's "
+                             f"on {bf_differ} {rays} rays")
+    cscene, _, _ = tts.cornell_box(device=dev)
+    cforest = tk.single_chunk_forest(cscene.geom, cscene.bvh)
+    o_c = torch.as_tensor(rs.uniform(0.05, 0.95, (n_r, 3)).astype(np.float32), device=dev)
+    d_c = torch.nn.functional.normalize(torch.as_tensor(
+        rs.normal(size=(n_r, 3)).astype(np.float32), device=dev), dim=1).contiguous()
+    tf_c = torch.as_tensor(rs.uniform(0.05, 1.5, n_r).astype(np.float32), device=dev)
+    row = hold_k1(tk, cforest, o_c, d_c, tf_c, "cornell single-chunk forest, random rays")
+    row.pop("prim"), row.pop("t")
+    res["cornell_random"] = row
+    # the packet form on PACKET_RAYS camera rays around the image centre
+    c0 = (H // 2) * W - PACKET_RAYS // 2
+    sl = slice(c0, c0 + PACKET_RAYS)
+    k = tk.traverse_forest(f32, o[sl], d[sl], count_iters=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = tk.traverse_forest_reference(f32, o[sl], d[sl], count_iters=True)
+    torch.cuda.synchronize()
+    packet_plain_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(k["tile_iters"], p["tile_iters"]) and torch.equal(k["prim"], p["prim"]) \
+        and torch.equal(k["prim"], prims[("f32", "camera")][sl])
+    iters = k["tile_iters"].long()
+    log(f"[9] K1 packet form, {PACKET_RAYS} camera rays in tiles of {tk.TILE}: tile_iters and "
+        f"prim ids equal to the plain packet walk and to the per-ray form: {same}; node "
+        f"fetches per tile {int(iters.min())}-{int(iters.max())} (mean {float(iters.float().mean()):.0f}) "
+        f"against {int(f32.nodes.shape[0] * f32.nodes.shape[1] * tk.SLOTS)} padded slots; "
+        f"plain {packet_plain_ms:.0f} ms")
+    if not same:
+        raise SystemExit("K1 packet form: tile_iters or prim ids differ from the plain version")
+    res["packet"] = {"rays": PACKET_RAYS, "tile": tk.TILE, "tile_iters_mean": float(
+        iters.float().mean()), "plain_ms": packet_plain_ms}
+    # time per 1M camera rays, closest and any hit, f32 and bf16 rows; the
+    # walk work by stats
+    B = o.shape[0]
+    timing = {}
+    for fmt, forest in (("f32", f32), ("bf16", bf16)):
+        for mode, occl in (("closest", False), ("anyhit", True)):
+            tf_ = tf_cam if occl else None
+            ms = events_ms(lambda: tk.traverse_forest(forest, o, d, tf_, occlusion=occl), 10)
+            st = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+            tk.traverse_forest(forest, o, d, tf_, occlusion=occl, stats=st)
+            nodes = int(st[:, 0].sum(dtype=torch.int64))
+            prim_tests = int(st[:, 1].sum(dtype=torch.int64))
+            ray_b = B * k1_ray_bytes(tf_ is not None, occl)
+            bound_ms, bound_by, nbytes = k1_bound(forest, ray_b, nodes, prim_tests)
+            key = mode if fmt == "f32" else f"{mode}_bf16"
+            timing[key] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                           "nodes": nodes, "prim_tests": prim_tests, "bytes": nbytes}
+            log(f"[9] K1 {mode}, {B} camera rays, {fmt} forest: {ms:.4f} ms "
+                f"({B / (ms * 1e-3):.4g} rays/s); bound {bound_ms:.4f} ms ({bound_by}: {nodes} "
+                f"node fetches, {prim_tests} prim tests, {nbytes} bytes of which "
+                f"{nbytes - ray_b} forest); {bound_ms / ms:.4f} of bound")
+    res["timing"] = timing
+    return res
+
+
+@contextlib.contextmanager
+def plain_walk(tk):
+    """K1's wrapper swapped for its plain version while the block runs, so
+    the same path code walks without the kernel."""
+    real = tk.traverse_forest
+    tk.traverse_forest = (lambda forest, o, d, t_far=None, max_leaf=4, occlusion=False, **_:
+                          tk.traverse_forest_reference(forest, o, d, t_far, max_leaf, occlusion))
+    try:
+        yield
+    finally:
+        tk.traverse_forest = real
+
+
+@contextlib.contextmanager
+def k1_calls(tk, timing: bool = False, count: bool = False):
+    """Each K1 call of the block recorded: its lanes, the bytes its rays
+    move (k1_ray_bytes), and
+    with timing its device time (CUDA events, the kernel started after a
+    device sleep that covers the host's launch latency), with count its
+    walk work (a stats plane)."""
+    real = tk.traverse_forest
+    calls = []
+
+    def wrapped(forest, o, d, t_far=None, max_leaf=4, occlusion=False, **kw):
+        row = {"lanes": o.shape[0], "bytes": o.shape[0] * k1_ray_bytes(t_far is not None,
+                                                                       occlusion)}
+        if count:
+            kw["stats"] = torch.zeros((o.shape[0], 2), dtype=torch.int32, device=o.device)
+        if timing:
+            torch.cuda._sleep(SETTLE_CYCLES)
+            row["ev"] = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            row["ev"][0].record()
+        out = real(forest, o, d, t_far, max_leaf, occlusion, **kw)
+        if timing:
+            row["ev"][1].record()
+        if count:
+            row["stats"] = kw["stats"]
+        calls.append(row)
+        return out
+
+    tk.traverse_forest = wrapped
+    try:
+        yield calls
+    finally:
+        tk.traverse_forest = real
+        torch.cuda.synchronize()
+
+
+def phase_wavefront(mk, tk, dev, kscene, kcam, f32, k5_mean: float, MaxDepthParams,
+                    RendererType, RenderingConfig, ParsedScene, Renderer):
+    """The wavefront path tracer's main path: the Renderer with
+    WAVEFRONT_PT and traversal "pallas" on full-size kitchen_stress with
+    its two-chunk f32 forest (K1 for every closest and shadow walk, no
+    other kernel); a 65,536-lane Z-order block of one pass's rays through
+    the wavefront loop on K1 and on its plain version; K1's time and walk
+    work per spp on the main path."""
+    import dataclasses
+
+    from cuda_pt_torch.core import qmc
+    from cuda_pt_torch.models import path_tracer as pt
+    from cuda_pt_torch.models import wavefront
+
+    md = MaxDepthParams()
+    scene = dataclasses.replace(kscene, forest=f32)
+    parsed = ParsedScene(scene, kcam, RenderingConfig(width=kcam.width, height=kcam.height,
+                                                      md=md, seed=0))
+    r = Renderer(parsed, renderer=RendererType.WAVEFRONT_PT, traversal="pallas")
+    info = r.info()
+    if (info["driver"], info["traversal"]) != ("composed", "pallas"):
+        raise SystemExit(f"wavefront: not the composed route on K1: {info}")
+    wall, launches, _, mean = render_main_path(
+        mk, r, WF_SPP, "wavefront", {"launches": ["traverse_forest"], "instantiations": []})
+    n_launch = launches["traverse_forest"]
+    if n_launch > 2 * md.max_depth * WF_SPP:
+        raise SystemExit(f"wavefront: {n_launch} K1 launches, more than two per bounce")
+    log(f"[10] Renderer WAVEFRONT_PT traversal=pallas, kitchen_stress {kcam.width}x{kcam.height}"
+        f"x{WF_SPP}spp (forest {list(f32.nodes.shape)}): {wall:.2f} s wall "
+        f"({wall * 1e3 / WF_SPP:.2f} ms per spp), launches {launches}, image mean {mean:.6f} "
+        f"(phase 6, K5 route: {k5_mean:.6f}; textured: the estimators agree in the mean only)")
+    # K1 over the main path's first spp (wavefront.render_sample, the
+    # Renderer's pass), once timed and once counted
+    with k1_calls(tk, timing=True) as timed:
+        wavefront.render_sample(r.scene, r.camera, md, 0, 0, compact=True)
+    with k1_calls(tk, count=True) as counted:
+        wavefront.render_sample(r.scene, r.camera, md, 0, 0, compact=True)
+    timed = [c for c in timed if c["lanes"]]  # a call on no live lane launches nothing
+    counted = [c for c in counted if c["lanes"]]
+    k1_ms = sum(c["ev"][0].elapsed_time(c["ev"][1]) for c in timed)
+    nodes = sum(int(c["stats"][:, 0].sum(dtype=torch.int64)) for c in counted)
+    prim_tests = sum(int(c["stats"][:, 1].sum(dtype=torch.int64)) for c in counted)
+    lanes = [c["lanes"] for c in counted]
+    bound_ms, bound_by, nbytes = k1_bound(f32, sum(c["bytes"] for c in counted), nodes,
+                                          prim_tests)
+    log(f"[10] K1 on the main path, one spp: {len(timed)} launches (lanes {lanes}), "
+        f"{k1_ms:.3f} ms summed; bound {bound_ms:.4f} ms ({bound_by}: {nodes} node fetches, "
+        f"{prim_tests} prim tests, {nbytes} bytes); {bound_ms / k1_ms:.4f} of bound")
+    # the block: the wavefront loop on K1 and on its plain version
+    o, d, rng, sl = main_rays(mk, r, BLOCK)
+    perm, _ = mk.tile_swizzle(kcam.width, kcam.height, dev)
+    ob, db, rb = (x[sl].contiguous() for x in (o, d, rng))
+    wl = pt.wl_stratum_u(0, 0, perm[sl])
+
+    def run():
+        L, pix = wavefront.trace_paths_wavefront(r.scene, md, ob, db, rb, compact=True, wl_u=wl)
+        return torch.zeros_like(L).index_add_(0, pix, L)
+
+    L_k = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with plain_walk(tk):
+        L_p = run()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    frac, dmean = check_contract("wavefront block, K1 against its plain version", L_k, L_p)
+    log(f"[10] wavefront loop on a {BLOCK}-lane Z-order block: K1 against its plain walk "
+        f"{frac:.7f} lanes differ, {int((L_k != L_p).any(dim=-1).sum())} not bit-equal, means "
+        f"differ by {dmean:.3g}; the loop on the plain walk {plain_ms:.0f} ms")
+    return {"launches": n_launch, "main_path_ms_per_spp": k1_ms, "main_path_bound_ms": bound_ms,
+            "main_path_bound_by": bound_by, "main_path_nodes": nodes,
+            "main_path_prim_tests": prim_tests, "main_path_lanes": lanes,
+            "wall_ms_per_spp": wall * 1e3 / WF_SPP, "image_mean": mean,
+            "k5_route_mean": k5_mean, "block_lanes_differ": frac, "block_mean_differ": dmean,
+            "block_max_abs_err": float((L_k - L_p).abs().max()),
+            "block_plain_loop_ms": plain_ms}, r
+
+
+def _shrunk(cam, size: int):
+    """The camera at size x size: the focal length scales with the width
+    (by a power of two here, so exactly)."""
+    import dataclasses
+
+    return dataclasses.replace(cam, width=size, height=size,
+                               focal=cam.focal * (size / cam.width))
+
+
+def phase_routes(mk, tk, tts, dev, vscene, vcam, MaxDepthParams, RendererType, RenderingConfig,
+                 ParsedScene, Renderer) -> dict:
+    """Phase 4's hold for the composed routes: the Renderer with traversal
+    "pallas" (K1) against the same Renderer with "xla" (the plain skip
+    walk), SMALL x SMALL, one spp, per lane: cornell (32 prims: the brute
+    force on both, no K1 launch) and kitchen_stress(grid=2) under
+    MEGAKERNEL_PT, full-size medium_cbox under VOLUME_PT (its BVH as one
+    chunk)."""
+    md = MaxDepthParams()
+    cases = {
+        "cornell": (lambda: tts.cornell_box(SMALL, SMALL, device=dev)[:2],
+                    RendererType.MEGAKERNEL_PT),
+        "kitchen_small": (lambda: tts.kitchen_stress(SMALL, SMALL, grid=2, ns=6, nt=4,
+                                                     device=dev)[:2], RendererType.MEGAKERNEL_PT),
+        "medium_cbox": (lambda: (vscene, _shrunk(vcam, SMALL)), RendererType.VOLUME_PT),
+    }
+    res = {}
+    for name, (make, rtype) in cases.items():
+        scene, cam = make()
+        parsed = ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height,
+                                                         md=md, seed=0))
+        imgs, ms, launched = {}, {}, {}
+        for trav in ("pallas", "xla"):
+            r = Renderer(parsed, renderer=rtype, traversal=trav)
+            torch.cuda.synchronize()
+            mk.reset_launches()
+            t0 = time.perf_counter()
+            imgs[trav] = r.render_raw().reshape(-1, 3)
+            torch.cuda.synchronize()
+            ms[trav] = (time.perf_counter() - t0) * 1e3
+            launched[trav] = {k: v for k, v in mk.LAUNCHES.items() if v}
+        frac, dmean = check_contract(f"{name} traversal pallas against xla", imgs["pallas"],
+                                     imgs["xla"])
+        want = set() if name == "cornell" else {"traverse_forest"}
+        if set(launched["pallas"]) != want or launched["xla"]:
+            raise SystemExit(f"{name}: launched {launched}, K1 expected only under pallas")
+        log(f"[4] {name} {rtype.value} {SMALL}x{SMALL}x1spp, traversal pallas against xla: "
+            f"{frac:.7f} lanes differ, means differ by {dmean:.3g}; K1 launches "
+            f"{launched['pallas'].get('traverse_forest', 0)}; pass {ms['pallas']:.0f} ms "
+            f"(pallas) / {ms['xla']:.0f} ms (xla)")
+        res[name] = {"lanes_differ": frac, "mean_differ": dmean,
+                     "k1_launches": launched["pallas"].get("traverse_forest", 0),
+                     "pass_ms_pallas": ms["pallas"], "pass_ms_xla": ms["xla"]}
+    return res
+
+
 def whole_path_pass(mk, r, md):
     """A pass of the Renderer's scene through the whole-path kernel
     (auto_trace bypassed): sample 0's pcg streams and camera rays over the
@@ -879,6 +1249,7 @@ def main():
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import cuda_build as cb
     from cuda_pt_torch.ops import megakernel as mk
+    from cuda_pt_torch.ops import traverse_kernel as tk
     from cuda_pt_torch.scene import testscenes as tts
     from cuda_pt_torch.scene import types as T
     from cuda_pt_torch.scene.builder import BSDFSpec
@@ -890,18 +1261,39 @@ def main():
     card = phase_card()
     walk = phase_walk(mk, tts, dev)
     walk_k, kscene, kcam, build_s = phase_walk_kitchen(mk, tts, dev)
-    res4 = phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T)
-    res4_media = phase_kernel_media(mk, tts, dev, MaxDepthParams, T)
-    k2, r = phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene, Renderer,
-                       res4["cornell"]["mean_plain"])
-    k5_kitchen, k3, rk = phase_kitchen(mk, dev, args, kscene, kcam, build_s, MaxDepthParams,
-                                       RenderingConfig, ParsedScene, Renderer)
-    k5_vpt, k4, rv = phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig,
-                               ParsedScene, Renderer)
-    k5_grid, k6 = phase_grid(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig,
-                             ParsedScene, Renderer)
+    # K1's kitchen forests build on the host in two worker processes while
+    # phases 4-8 run on the card
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        geom_cpu = T.to_device(kscene.geom, "cpu")
+        forest_jobs = {fmt: pool.submit(_forest_job, geom_cpu, fmt) for fmt in ("f32", "bf16")}
+        res4 = phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T)
+        res4_media = phase_kernel_media(mk, tts, dev, MaxDepthParams, T)
+        k2, r = phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
+                           Renderer, res4["cornell"]["mean_plain"])
+        k5_kitchen, k3, rk = phase_kitchen(mk, dev, args, kscene, kcam, build_s, MaxDepthParams,
+                                           RenderingConfig, ParsedScene, Renderer)
+        k5_vpt, k4, rv = phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig,
+                                   ParsedScene, Renderer)
+        k5_grid, k6 = phase_grid(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig,
+                                 ParsedScene, Renderer)
+        forests, forest_s = {}, {}
+        for fmt, job in forest_jobs.items():
+            forest, forest_s[fmt] = job.result()
+            forests[fmt] = T.to_device(forest, dev)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    log(f"[9] kitchen forests (chunks of {FOREST_CHUNK} prims) built in worker processes: "
+        f"{forest_s['f32']:.1f} s (f32 rows), {forest_s['bf16']:.1f} s (bf16 rows)")
+    k1 = phase_k1(tk, tts, dev, kscene, kcam, forests, T)
+    k1_wf, rw = phase_wavefront(mk, tk, dev, kscene, kcam, forests["f32"],
+                                k5_kitchen["image_mean"], MaxDepthParams, RendererType,
+                                RenderingConfig, ParsedScene, Renderer)
+    routes = phase_routes(mk, tk, tts, dev, rv.parsed.scene, rv.parsed.camera, MaxDepthParams,
+                          RendererType, RenderingConfig, ParsedScene, Renderer)
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
+    closest = k1["timing"]["closest"]
     kernels = [
         k2, k3, k4,
         {"name": "trace_megakernel_seg (K5, kitchen_stress: SEG+K3+ALL)", **seg, **k5_kitchen},
@@ -911,16 +1303,30 @@ def main():
         {"name": "traverse_closest (K6, grid_smoke)", "route": "cuda",
          "source": "cuda_pt_torch/csrc/megakernel_split.cu",
          "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3390", "library_ms": None, **k6},
+        {"name": "traverse_forest (K1, kitchen_stress forest)", "route": "cuda",
+         "source": "cuda_pt_torch/csrc/traverse.cu",
+         "replaces": "cuda_pt_tpu/ops/pallas/traverse_kernel.py:561",
+         "max_abs_err": max(k1[c]["max_abs_err_t"] for c in ("f32_camera", "f32_random")),
+         "ms": closest["ms"], "plain_ms": k1["f32_camera"]["plain_ms"],
+         "bound_ms": closest["bound_ms"], "bound_by": closest["bound_by"], "library_ms": None,
+         "rays": kcam.width * kcam.height, "anyhit_ms": k1["timing"]["anyhit"]["ms"],
+         "anyhit_bound_ms": k1["timing"]["anyhit"]["bound_ms"],
+         "bf16_ms": k1["timing"]["closest_bf16"]["ms"],
+         "bf16_anyhit_ms": k1["timing"]["anyhit_bf16"]["ms"], "node_fetches": closest["nodes"],
+         "prim_tests": closest["prim_tests"], **k1_wf,
+         "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
+                 "rays of kitchen_stress; main_path_*: summed over one wavefront spp"},
     ]
     for k in kernels:
         k.pop("runs", None)
-    extra = {}
+    extra = {"k1_check": {k: v for k, v in k1.items() if k != "timing"}, "routes_check": routes}
     if args.profile:
         md = MaxDepthParams()
         for key, run in (("profile", r.render_raw), ("profile_kitchen", rk.render_raw),
                          ("profile_kitchen_whole_path", whole_path_pass(mk, rk, md)),
                          ("profile_vpt", rv.render_raw),
-                         ("profile_vpt_whole_path", whole_path_pass(mk, rv, md))):
+                         ("profile_vpt_whole_path", whole_path_pass(mk, rv, md)),
+                         ("profile_wavefront", rw.render_raw)):
             log(f"[profile] {key}")
             extra[key] = phase_profile(run)
     # the two result lines carry no time prefix: each is one JSON object

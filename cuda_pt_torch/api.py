@@ -1,9 +1,28 @@
-"""High-level renderer API (port of cuda_pt_tpu/api.py, MEGAKERNEL_PT and
-VOLUME_PT).
+"""High-level renderer API (port of cuda_pt_tpu/api.py: MEGAKERNEL_PT,
+VOLUME_PT and WAVEFRONT_PT).
 
 One stateful Renderer over a compiled scene: the film and the camera stay
-on the render device between passes, and every pass runs the reference's
-driver pick (ops/megakernel.auto_trace): a scene of fewer than
+on the render device between passes. ``traversal`` picks the route, with
+the reference's names:
+- None (default): the fused kernel routes below for a MEGAKERNEL_PT or
+  VOLUME_PT scene inside the kernel's envelope; outside it (Plastic-
+  forward, say) and for WAVEFRONT_PT the composed path on the default walk
+  (models/path_tracer.TRAVERSAL_IMPL, the skip walk);
+- "fused": the kernel routes, raising outside the envelope;
+- "xla" / "pallas" / "wide": the composed path on that walk:
+  path_tracer.render_band (MEGAKERNEL_PT, banded as the reference bands
+  it), volume_pt.trace_paths (VOLUME_PT), wavefront.render_sample with
+  compact=True (WAVEFRONT_PT, never banded). "pallas" is kernel K1, the
+  CUDA port of the reference's Pallas walk (ops/traverse_kernel.py), over
+  the scene's forest (SceneBuilder.compile(forest_chunk=...)) or its BVH
+  as one chunk; "wide" the 8-wide walk over a wide tree collapsed at
+  construction. "xla" and "wide" (and so the default composed routes)
+  are plain PyTorch walks that launch no kernel, slow on the card at
+  full size; only "pallas" walks on a kernel there;
+- "auto" and "mxu" wait for ROADMAP Queue 1 items 6 and 13.
+
+The kernel routes run the reference's driver pick
+(ops/megakernel.auto_trace): a scene of fewer than
 SWF_AUTO_BOXES (512) boxes takes the whole-path megakernel (K2 / K3, K4
 for media), a scene of 512 boxes or more the sorted-wavefront driver
 (kernel K5, one bounce per launch with the lanes re-sorted between
@@ -17,11 +36,12 @@ compute the same estimator per lane on untextured scenes; on textured ones
 Russian roulette sees the texels of the earlier bounces, and it agrees
 with the whole-path kernel in the mean only, as in the reference.
 
-Every scene inside the fused kernel's envelope renders (all surface BSDF
-families but Plastic-forward, area / area-spot / point emitters, envmaps,
-diffuse textures, dispersion; megakernel_ok). RendererType.VOLUME_PT
-renders participating media (a vpt pack, nee_candidates=1): homogeneous
-media at any size, and grid media without an envmap or emission.
+The kernel's envelope (megakernel_ok): all surface BSDF families but
+Plastic-forward, area / area-spot / point emitters, envmaps, diffuse
+textures, dispersion; under RendererType.VOLUME_PT (a vpt pack,
+nee_candidates=1) homogeneous media at any size and grid media without
+an envmap or emission. The composed routes render every surface scene;
+VOLUME_PT's composed route takes no grid medium.
 
 Still to port (ROADMAP Queue 1): other renderer families, emissive grids
 and the composed volume path tracer's grid route, render_adaptive,
@@ -42,16 +62,22 @@ from .core import camera as cam_mod
 from .core import film as film_mod
 from .core import qmc
 from .core.config import MaxDepthParams, RendererType
+from .models import path_tracer as pt
+from .models import volume_pt, wavefront
 from .ops import megakernel as mk
 from .scene import types as T
 from .scene.xml_parser import ParsedScene, load_xml
 
 # renderer family -> the ROADMAP Queue 1 item that ports it
 _WAITING = {
-    RendererType.WAVEFRONT_PT: "item 7 (models/wavefront.py)",
     RendererType.MEGAKERNEL_LT: "item 9 (models/light_tracer.py)",
     RendererType.DEPTH: "item 10 (models/debug_renderers.py)",
     RendererType.BVH_COST: "item 10 (models/debug_renderers.py)",
+}
+# traversal -> the ROADMAP Queue 1 item that ports it
+_TRAVERSAL_WAITING = {
+    "auto": "item 6 (accel/autotune.py)",
+    "mxu": "item 13 (ops/intersect_mxu.py)",
 }
 
 
@@ -59,8 +85,8 @@ def _envelope_message(scene: T.Scene, vpt: bool) -> str:
     """Why a scene is outside the kernel's envelope, with the renderer or
     the ROADMAP item that would bring it in."""
     if T.BSDF_PLASTIC_FORWARD in scene.present_bsdfs:
-        item = ("Plastic-forward stays outside the fused kernel, as in the reference; the "
-                "Renderer's composed-path route for it waits for ROADMAP Queue 1 item 5")
+        item = ("Plastic-forward stays outside the fused kernel, as in the reference; "
+                "traversal=None renders it through the composed path")
     elif mk.scene_has_media(scene) and not vpt:
         item = "participating media render with renderer=RendererType.VOLUME_PT"
     elif vpt and bool((scene.bsdfs.tex_ids >= 0).any()):
@@ -74,46 +100,69 @@ class Renderer:
     """Stateful renderer over a compiled scene."""
 
     def __init__(self, source, renderer: RendererType | None = None, seed_offset: int = 0,
-                 nee_candidates: int = 1, max_lanes_per_call: int | None = None, device=None):
+                 nee_candidates: int = 1, max_lanes_per_call: int | None = None, device=None,
+                 traversal: str | None = None):
         """source: a ParsedScene (scene, camera, RenderingConfig) or an XML
-        path (raises until the parser is ported).
+        path (raises until the parser is ported). traversal: the route
+        (module docstring).
 
         nee_candidates: M > 1 = RIS light sampling (M candidates, one
         shadow ray); the volume path tracer takes 1. max_lanes_per_call: split a pass into full-width row
-        bands of at most this many lanes, one kernel launch each (0 = one
-        launch per pass; default from CUDA_PT_MAX_LANES_PER_CALL, else 0).
-        Bands are bit-identical to the unbanded pass."""
+        bands of at most this many lanes, one call each (0 = one call
+        per pass; default from CUDA_PT_MAX_LANES_PER_CALL, else 0); the
+        wavefront route is never banded. Bands are bit-identical to the
+        unbanded pass."""
         self.parsed: ParsedScene = load_xml(source) if isinstance(source, str) else source
         self.config = self.parsed.config
         self.rtype = RendererType(renderer or self.config.renderer)
-        if self.rtype not in (RendererType.MEGAKERNEL_PT, RendererType.VOLUME_PT):
+        if self.rtype in _WAITING:
             raise NotImplementedError(
                 f"renderer {self.rtype.value!r} waits for ROADMAP Queue 1 {_WAITING[self.rtype]}")
+        if traversal in _TRAVERSAL_WAITING:
+            raise NotImplementedError(f"traversal {traversal!r} waits for ROADMAP Queue 1 "
+                                      f"{_TRAVERSAL_WAITING[traversal]}")
+        if traversal not in (None, "fused", *pt.TRAVERSALS):
+            raise ValueError(f"unknown traversal {traversal!r}")
         vpt = self.rtype == RendererType.VOLUME_PT
         if vpt and int(nee_candidates) != 1:
             raise ValueError("the fused volume path tracer takes nee_candidates=1, as in the "
                              "reference")
+        if traversal == "fused" and self.rtype == RendererType.WAVEFRONT_PT:
+            raise ValueError("traversal='fused' requires the megakernel PT or volume PT "
+                             "renderer, as in the reference")
         scene = self.parsed.scene
         self.md: MaxDepthParams = self.config.md
-        if not mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"):
-            if vpt and bool((scene.media.mtype == T.MEDIUM_GRID).any()):
-                raise NotImplementedError(
-                    "a grid medium with an envmap or with emission stays outside the fused "
-                    "route, as in the reference; the composed volume path tracer's grid route "
-                    "waits for ROADMAP Queue 1 item 8")
+        fused_ok = (self.rtype != RendererType.WAVEFRONT_PT
+                    and mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"))
+        self.fused = traversal == "fused" or (traversal is None and fused_ok)
+        has_grid = vpt and bool((scene.media.mtype == T.MEDIUM_GRID).any())
+        if has_grid and not (self.fused and fused_ok):
+            raise NotImplementedError(
+                "a grid medium renders on the fused route only, and one with an envmap or "
+                "with emission stays outside it, as in the reference; the composed volume path "
+                "tracer's grid route waits for ROADMAP Queue 1 item 8")
+        if (self.fused and not fused_ok) or (not vpt and mk.scene_has_media(scene)):
             raise ValueError(_envelope_message(scene, vpt))
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device=None) renders on CUDA, which is not available; "
                                "pass device='cpu' to render on the CPU")
-        self.scene: T.Scene = T.to_device(self.parsed.scene, self.device)
+        self.scene: T.Scene = T.to_device(scene, self.device)
+        if traversal in pt.TRAVERSALS:
+            self.scene.traversal = traversal
+        if traversal == "wide" and self.scene.wide is None:
+            from .accel import wide_build
+
+            self.scene.wide = wide_build.from_bvharrays(self.scene.bvh)
+        if (self.scene.traversal or pt.TRAVERSAL_IMPL) == "pallas" and not self.fused:
+            self.scene.forest = pt.pallas_forest(self.scene)  # packed once, on our copy
         self.camera: cam_mod.Camera = self.parsed.camera.to(self.device)
         self.seed = int(self.config.seed) + int(seed_offset)
         self.nee_candidates = int(nee_candidates)
         if max_lanes_per_call is None:
             max_lanes_per_call = int(os.environ.get("CUDA_PT_MAX_LANES_PER_CALL", "0"))
         self.max_lanes_per_call = int(max_lanes_per_call)
-        self._pack = mk.make_pack(self.scene, node_fmt="w8", vpt=vpt)
+        self._pack = mk.make_pack(self.scene, node_fmt="w8", vpt=vpt) if self.fused else None
         self.film = film_mod.make_film(self.camera.height, self.camera.width, self.device)
         self._frame_times = deque(maxlen=32)
         self._swizzles = {}  # (width, rows) -> Z-order (perm, inv) on the device
@@ -130,25 +179,46 @@ class Renderer:
         o, d, rng = cam_mod.generate_rays(self.camera, perm, rng)
         return mk.auto_trace(self._pack, self.md, o, d, rng, self.nee_candidates)
 
+    def _composed_band(self, start: int, count: int, idx: int) -> torch.Tensor:
+        """The composed path over lanes [start, start + count) in raster
+        order (the reference's streams: lane = pixel index)."""
+        if self.rtype == RendererType.VOLUME_PT:
+            lane = start + torch.arange(count, device=self.device)
+            rng = qmc.make_state("pcg", self.seed, lane, idx)
+            o, d, rng = cam_mod.generate_rays(self.camera, lane, rng)
+            return volume_pt.trace_paths(self.scene, self.md, o, d, rng,
+                                         wl_u=pt.wl_stratum_u(self.seed, idx, lane))
+        return pt.render_band(self.scene, self.camera, self.md, self.seed, idx, start, count,
+                              self.nee_candidates)
+
     def render_raw(self) -> torch.Tensor:
         """One 1-spp pass folded into the film; returns the pass (H, W, 3).
-        Lanes run in Z-order screen blocks (mk.tile_swizzle); when H*W
-        exceeds max_lanes_per_call the pass is split into row bands."""
+        The kernel routes run lanes in Z-order screen blocks
+        (mk.tile_swizzle); when H*W exceeds max_lanes_per_call the pass is
+        split into row bands (not the wavefront route)."""
         t0 = time.perf_counter()
         H, W = self.camera.height, self.camera.width
         idx = self.film.count
         budget = self.max_lanes_per_call
-        if budget and H * W > budget:
+        if self.rtype == RendererType.WAVEFRONT_PT:
+            img = wavefront.render_sample(self.scene, self.camera, self.md, self.seed, idx,
+                                          compact=True, nee_candidates=self.nee_candidates)
+        elif budget and H * W > budget:
             rows_per = max(budget // W, 1)
             parts = []
             for r0 in range(0, H, rows_per):
                 rows = min(rows_per, H - r0)
-                perm, inv = self._swizzle(W, rows)
-                parts.append(self._trace_lanes(r0 * W + perm, idx)[inv])
+                if self.fused:
+                    perm, inv = self._swizzle(W, rows)
+                    parts.append(self._trace_lanes(r0 * W + perm, idx)[inv])
+                else:
+                    parts.append(self._composed_band(r0 * W, rows * W, idx))
             img = torch.cat(parts, dim=0).reshape(H, W, 3)
-        else:
+        elif self.fused:
             perm, inv = self._swizzle(W, H)
             img = self._trace_lanes(perm, idx)[inv].reshape(H, W, 3)
+        else:
+            img = self._composed_band(0, H * W, idx).reshape(H, W, 3)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._frame_times.append((time.perf_counter() - t0) * 1e3)
@@ -180,15 +250,25 @@ class Renderer:
             "num_prims": self.scene.geom.num_prims,
             "num_nodes": self.scene.bvh.num_nodes,
             "spp_accumulated": self.counter(),
-            "traversal": "fused",
-            "driver": mk.driver_of(self._pack),
+            "traversal": "fused" if self.fused else self.scene.traversal or pt.TRAVERSAL_IMPL,
+            "driver": mk.driver_of(self._pack) if self.fused else "composed",
             "device": str(self.device),
             "sampler": "pcg",
             "nee_candidates": self.nee_candidates,
-            **self._pack.flags,
-            "has_media": self._pack.has_media,
-            "has_grid": self._pack.has_grid,
+            **self._flags(),
         }
+
+    def _flags(self) -> dict:
+        """The kernel's format flags (K3's, media, grid), from the pack on
+        the kernel routes, from the scene on the composed ones."""
+        if self.fused:
+            return {**self._pack.flags, "has_media": self._pack.has_media,
+                    "has_grid": self._pack.has_grid}
+        s = self.scene
+        media = mk.scene_has_media(s)
+        return {"has_env": s.env_emitter > 0, "textured": pt.scene_textured(s),
+                "has_disp": T.BSDF_DISPERSION in set(s.present_bsdfs), "has_media": media,
+                "has_grid": media and bool((s.media.mtype == T.MEDIUM_GRID).any())}
 
     def update_camera(self, camera: cam_mod.Camera):
         self.camera = camera.to(self.device)

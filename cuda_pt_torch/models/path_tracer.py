@@ -11,8 +11,14 @@ importance tables, +1 reservoir draw per candidate when RIS is on), 3
 BSDF advances, 1 RR advance. The renderers pass the dispersion wavelength
 stratum ``wl_stratum_u``.
 
-Intersection is brute force up to ``BRUTE_FORCE_MAX_PRIMS`` prims and the
-skip walk of accel/traverse.py above, as in the reference.
+Intersection is brute force up to ``BRUTE_FORCE_MAX_PRIMS`` prims; above,
+the walk of ``scene.traversal`` (or ``TRAVERSAL_IMPL``), as in the
+reference: "xla" the skip walk of accel/traverse.py, "pallas" kernel K1
+(ops/traverse_kernel.py; the CUDA kernel on CUDA tensors, its plain
+version on CPU ones) over the scene's forest, or over the scene's BVH as
+one chunk (on the CPU only where scene_fits_vmem holds, else the skip
+walk, as the reference routes it), "wide" the
+8-wide walk of accel/wide_traverse.py over ``scene.wide``.
 
 ``fused=True`` computes the estimator of the fused TPU kernel instead,
 which has the same expectation and differs per lane in two places (the
@@ -57,12 +63,16 @@ from ..core import sampling
 from ..core.config import MaxDepthParams
 from ..emitters import emitters
 from ..ops import intersect as isect
+from ..ops import traverse_kernel as tk
 from ..scene import textures as tex
 from ..scene import types as T
 
 # At or below this prim count intersection is brute force (the reference's
 # rule; the result does not depend on the choice beyond exact-t ties).
 BRUTE_FORCE_MAX_PRIMS = 64
+# The walk backend where scene.traversal is "" (module docstring).
+TRAVERSAL_IMPL = "xla"
+TRAVERSALS = ("xla", "pallas", "wide")
 # Golden-ratio conjugate in u32 fixed point: round((sqrt(5) - 1) / 2 * 2^32).
 _WL_PHI_U32 = 0x9E3779B9
 
@@ -131,21 +141,58 @@ def _use_bvh(scene: T.Scene) -> bool:
     return scene.geom.num_prims > BRUTE_FORCE_MAX_PRIMS
 
 
+def pallas_forest(scene: T.Scene):
+    """K1's forest for traversal "pallas": the scene's own (the Renderer
+    packs the BVH into it as one chunk when none was compiled), else the
+    BVH packed as one chunk here, per call as in the reference. On CPU
+    tensors the reference's routing holds: None (the skip walk) where
+    scene_fits_vmem fails. On CUDA tensors K1 always runs: it reads its
+    rows from global memory, and the VMEM limit is the TPU's."""
+    if scene.forest is not None:
+        return scene.forest
+    if scene.device.type == "cpu" and not tk.scene_fits_vmem(scene.geom, scene.bvh):
+        return None
+    return tk.single_chunk_forest(scene.geom, scene.bvh)
+
+
+def _walks(scene: T.Scene):
+    """(closest, any hit) of the scene's walk backend as functions of
+    (o, d) and (o, d, t_far); None at or below the brute-force bound."""
+    impl = scene.traversal or TRAVERSAL_IMPL
+    if impl == "mxu":  # the reference takes it at any prim count
+        raise NotImplementedError("the matmul brute force (traversal 'mxu') waits for ROADMAP "
+                                  "Queue 1 item 13")
+    if not _use_bvh(scene):
+        return None
+    ml = scene.bvh.max_leaf  # the tree's leaf capacity, as the reference passes it
+    forest = pallas_forest(scene) if impl == "pallas" else None
+    if forest is not None:
+        return (lambda o, d: tk.traverse_forest(forest, o, d, max_leaf=ml),
+                lambda o, d, t: tk.traverse_forest(forest, o, d, t, max_leaf=ml,
+                                                   occlusion=True)["occluded"])
+    if impl == "wide" and scene.wide is not None:
+        from ..accel import wide_traverse
+
+        return (lambda o, d: wide_traverse.closest_hit_wide(scene.geom, scene.wide, o, d),
+                lambda o, d, t: wide_traverse.occlusion_wide(scene.geom, scene.wide, o, d, t))
+    return (lambda o, d: traverse.closest_hit_bvh(scene.geom, scene.bvh, o, d),
+            lambda o, d, t: traverse.occlusion_bvh(scene.geom, scene.bvh, o, d, t))
+
+
 def closest_hit(scene: T.Scene, o, d, live: torch.Tensor):
     """Closest hit for the lanes where ``live`` (misses elsewhere)."""
-    if not _use_bvh(scene):
+    walks = _walks(scene)
+    if walks is None:
         return isect.closest_hit_brute(scene.geom, o, d)
-    return _on_lanes(lambda o_, d_: traverse.closest_hit_bvh(scene.geom, scene.bvh, o_, d_),
-                     live, _MISS, o, d)
+    return _on_lanes(walks[0], live, _MISS, o, d)
 
 
 def occluded(scene: T.Scene, o, d, t_far, need: torch.Tensor):
     """Any-hit shadow test for the lanes where ``need`` (False elsewhere)."""
-    if not _use_bvh(scene):
+    walks = _walks(scene)
+    if walks is None:
         return isect.occlusion_brute(scene.geom, o, d, t_far)
-    return _on_lanes(
-        lambda o_, d_, t_: traverse.occlusion_bvh(scene.geom, scene.bvh, o_, d_, t_),
-        need, False, o, d, t_far)
+    return _on_lanes(walks[1], need, False, o, d, t_far)
 
 
 def scene_textured(scene: T.Scene) -> bool:
@@ -329,12 +376,16 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     )
 
 
+def intersect_stage(scene: T.Scene, s: PTState) -> dict:
+    """Wavefront stage 1: the closest hit of every live lane."""
+    return closest_hit(scene, s.o, s.d, s.active)
+
+
 def pt_bounce(scene: T.Scene, md: MaxDepthParams, s: PTState, nee_candidates: int = 1,
               fused: bool = False, seg: bool = False) -> PTState:
     """One full bounce: closest hit, then shading. seg (with fused): the
     segment kernel's bounce (module docstring)."""
-    hit = closest_hit(scene, s.o, s.d, s.active)
-    return shade_stage(scene, md, s, hit, nee_candidates, fused, seg)
+    return shade_stage(scene, md, s, intersect_stage(scene, s), nee_candidates, fused, seg)
 
 
 def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None,

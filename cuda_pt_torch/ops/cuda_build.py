@@ -33,13 +33,14 @@ MK_MIN_BLOCKS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# entry point -> argtypes (csrc/megakernel.cu); the first pointer is a
-# host array of the pack's table pointers
+# entry point -> argtypes (csrc/megakernel*.cu: the first pointer is a host
+# array of the pack's table pointers; csrc/traverse.cu: kernel K1)
 _SIGNATURES = {
     "mk_trace": [_P] * 6 + [_I] * 15 + [_P, _P],
     "mk_closest_hit": [_P] * 7 + [_I] * 3 + [_P],
     "mk_trace_seg": [_P, _P, _I, _I, _I, _P, _P, _P] + [_I] * 15 + [_P, _P],
     "mk_traverse": [_P, _P, _I, _I, _P, _P, _I, _I, _P],
+    "k1_traverse": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_P] * 7,
 }
 
 _lib = None  # the CDLL, built from the sources as they were at first load

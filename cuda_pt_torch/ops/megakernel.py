@@ -71,6 +71,7 @@ from ..scene import textures as tex
 from ..scene import types as T
 from . import cuda_build
 from . import intersect as isect
+from . import traverse_kernel as tk
 
 SLOTS = 8  # slots per 128-float row
 SLOT_F = 16  # f32 fields per slot
@@ -99,8 +100,11 @@ KERNEL_PHASES = (T.PHASE_ISOTROPIC, T.PHASE_HG, T.PHASE_DUAL_HG, T.PHASE_RAYLEIG
 # or more take the sorted-wavefront driver, as in the reference.
 SWF_AUTO_BOXES = 512
 
-LAUNCHES = {"trace_megakernel": 0, "closest_hit_w8": 0, "trace_megakernel_seg": 0,
-            "traverse_closest": 0}
+# launches per wrapper: one dict with K1's (ops/traverse_kernel.py owns it;
+# this module imports that one, not the other way round)
+LAUNCHES = tk.LAUNCHES
+LAUNCHES.update({"trace_megakernel": 0, "closest_hit_w8": 0, "trace_megakernel_seg": 0,
+                 "traverse_closest": 0})
 INSTANTIATION_LAUNCHES = {}
 
 
@@ -244,30 +248,10 @@ def kernel_scene(scene: T.Scene) -> T.Scene:
 # ---------------------------------------------------------------------------
 
 
-def _np(x) -> np.ndarray:
-    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
-def _pack_rows(cols, pad_vals) -> np.ndarray:
-    """Per-item field columns -> (rows, 128) f32: 8 slots of 16 fields per
-    row, at least one full padding group of inert sentinel slots."""
-    M = cols[0].shape[0]
-    Mp = -(-max(M, 1) // SLOTS) * SLOTS + SLOTS
-    out = [np.concatenate([np.asarray(c, np.float32), np.full(Mp - M, pv, np.float32)])
-           for c, pv in zip(cols, pad_vals)]
-    while len(out) < SLOT_F:
-        out.append(np.zeros(Mp, np.float32))
-    return np.stack(out, axis=1).reshape(Mp // SLOTS, SLOTS * SLOT_F)
-
-
-def pack_prims(geom: T.Geometry) -> np.ndarray:
-    """p0(3) e1(3) e2(3) is_sphere gid per slot; padding prims are degenerate."""
-    p0, e1, e2 = _np(geom.p0), _np(geom.e1), _np(geom.e2)
-    return _pack_rows(
-        [p0[:, 0], p0[:, 1], p0[:, 2], e1[:, 0], e1[:, 1], e1[:, 2],
-         e2[:, 0], e2[:, 1], e2[:, 2], _np(geom.is_sphere).astype(np.float32),
-         np.arange(p0.shape[0], dtype=np.float32)],
-        [0.0] * 9 + [0.0, -1.0])
+# the TPU pack's prim table is K1's (the rows, field 10 the global prim id)
+_np = tk._np
+_pack_rows = tk._pack_rows
+pack_prims = tk.pack_prims
 
 
 def _prim_medium_null(scene: T.Scene):

@@ -4,8 +4,10 @@
 Owns the host bookkeeping (object/emitter binding, areas, BVH build +
 primitive reordering, emitter-prim remap after reordering) and emits flat
 tensors on the requested device. All arithmetic is NumPy, so the arrays
-equal the JAX builder's for the same BVH. The SBVH and Pallas-forest
-branches of the reference builder wait for their ROADMAP items and raise.
+equal the JAX builder's for the same BVH. ``compile(forest_chunk=...)``
+also builds kernel K1's chunked forest (ops/traverse_kernel.build_forest).
+The SBVH branch of the reference builder waits for its ROADMAP item and
+raises.
 """
 
 from __future__ import annotations
@@ -176,13 +178,14 @@ class SceneBuilder:
     # -- compile -----------------------------------------------------------
     def compile(self, bvh_cfg=None, forest_chunk: int | None = None,
                 node_fmt: str = "f32", device="cpu") -> T.Scene:
-        """Compile to a Scene on ``device``. forest_chunk / node_fmt belong
-        to the Pallas streaming traversal, which the port does not have."""
+        """Compile to a Scene on ``device``. forest_chunk: prims per chunk of
+        kernel K1's forest (ops/traverse_kernel.build_forest), None = no
+        forest; node_fmt: its node rows, "f32" or "bf16"."""
         from ..core.config import BVHConfig
+        from ..ops import traverse_kernel as tk
 
-        if forest_chunk:
-            raise NotImplementedError(
-                "chunked traversal forests wait for kernel K1 (ROADMAP Queue 2)")
+        if forest_chunk and node_fmt not in tk.NODE_FMTS:
+            raise ValueError(f"node_fmt must be one of {tk.NODE_FMTS}, got {node_fmt!r}")
 
         def t(x, dtype=None):
             a = np.asarray(x, dtype)
@@ -519,4 +522,6 @@ class SceneBuilder:
             cam_medium=int(self.cam_medium),
             num_emitters=int(num_emitters),
         )
+        if forest_chunk:
+            scene.forest = tk.build_forest(geom, chunk_prims=forest_chunk, node_fmt=node_fmt)
         return scene

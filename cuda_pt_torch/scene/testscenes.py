@@ -191,13 +191,8 @@ def kitchen_stress(width=128, height=128, grid=7, ns=36, nt=28, forest_chunk=Non
     Lambertian, GGX conductor, Plastic, smooth dielectric, Dispersion), a
     checker-textured floor, a noise-textured back wall, an HDR sky envmap
     with a hot sun disc (importance tables built) and one area panel.
-    forest_chunk / node_fmt select the reference's Pallas traversal
-    formats, which the port does not have: anything but the defaults
-    raises. Returns (scene, camera, builder)."""
-    if forest_chunk is not None or node_fmt != "f32":
-        raise NotImplementedError(
-            "forest_chunk / node_fmt belong to the Pallas traversal kernel K1 "
-            "(ROADMAP Queue 2); the port builds the default tree only")
+    forest_chunk / node_fmt: kernel K1's forest (SceneBuilder.compile).
+    Returns (scene, camera, builder)."""
     b = SceneBuilder()
     checker = b.add_texture(_checker_texture())
     marble = b.add_texture(_noise_texture())
@@ -239,7 +234,7 @@ def kitchen_stress(width=128, height=128, grid=7, ns=36, nt=28, forest_chunk=Non
             p, n, uv = _torus_mesh((cx, 0.45, cz), R=0.55, r=0.22, ns=ns, nt=nt, scale_y=ry)
             b.add_mesh(p, mats[(gi * grid + gj) % len(mats)], n=n, uv=uv)
 
-    scene = b.compile(bvh_cfg, device=device)
+    scene = b.compile(bvh_cfg, forest_chunk=forest_chunk, node_fmt=node_fmt, device=device)
     cam = cam_mod.make_camera(origin=(0.0, grid * 0.85, -grid * 1.45), target=(0.0, 0.3, 0.0),
                               fov=55.0, width=width, height=height, device=device)
     return scene, cam, b

@@ -196,6 +196,25 @@ class WideBVHArrays:
 
 
 @dataclasses.dataclass
+class TraversalForest:
+    """Chunked, row-packed BVH forest of kernel K1 (ops/traverse_kernel.py):
+    C spatially coherent chunks, each with its own skip-encoded tree. Node
+    i of chunk c: nodes[c, i // 8, (i % 8) * 16:] in "f32" rows (8 slots x
+    16 fields, 64 B per node) or nodes[c, i // 16, (i % 16) * 8:] in "bf16"
+    rows (16 slots x 8 fields, 32 B per node, the boxes as outward-rounded
+    bf16 pairs). Integer fields are exact floats (ids below 2^24)."""
+
+    nodes: torch.Tensor  # (C, Rn, 128) f32
+    prims: torch.Tensor  # (C, Rp, 128) f32
+    n_nodes: torch.Tensor  # (C,) int32 real nodes per chunk
+    node_fmt: str = "f32"
+
+    @property
+    def num_chunks(self) -> int:
+        return self.nodes.shape[0]
+
+
+@dataclasses.dataclass
 class EnvImportance:
     row_cdf: torch.Tensor
     col_cdf: torch.Tensor
@@ -223,6 +242,13 @@ class Scene:
     wide: WideBVHArrays | None = None
     # static set of BSDF families present (dispatch pruning)
     present_bsdfs: tuple = tuple(range(NUM_BSDF_TYPES))
+    # kernel K1's forest (SceneBuilder.compile(forest_chunk=...), or the
+    # BVH as one chunk, packed by the Renderer); None: traversal "pallas"
+    # packs it per call (models/path_tracer.pallas_forest)
+    forest: TraversalForest | None = None
+    # the walk backend: "" = models/path_tracer.TRAVERSAL_IMPL, "xla" = the
+    # skip walk, "pallas" = kernel K1, "wide" = the 8-wide walk (scene.wide)
+    traversal: str = ""
 
     @property
     def device(self) -> torch.device:

@@ -10,6 +10,12 @@ import torch
 from cuda_pt_torch.scene import bridge
 from cuda_pt_tpu.scene import testscenes as j_ts
 
+# The port's CPU tests run small tensors in several test processes at once
+# (pytest-xdist); one intra-op thread per process keeps them from
+# oversubscribing the cores. Every worker imports this module when it
+# collects the port's tests, so the setting holds for all of them.
+torch.set_num_threads(1)
+
 TABLES = ("geom", "objects", "emitters", "bsdfs", "textures", "media", "grids", "bvh",
           "env_importance")
 

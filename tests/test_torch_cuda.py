@@ -10,7 +10,9 @@ Per-lane contract: allclose(rtol=1e-4, atol=1e-5) on all three channels,
 with at most 2 % of lanes differing. The media tests hold kernel K4 (the
 volume path tracer's MED instantiations) to the same contract, and the
 sorted-wavefront tests kernel K5 (the segment kernel, under
-trace_megakernel_swf) and K6 (the traverse kernel of its split form)."""
+trace_megakernel_swf) and K6 (the traverse kernel of its split form); the
+forest tests kernel K1 (ops/traverse_kernel.traverse_forest), prim ids
+and occlusion equal to its plain version and t bit-equal."""
 
 import numpy as np
 import pytest
@@ -20,8 +22,10 @@ from cuda_pt_torch.api import Renderer
 from cuda_pt_torch.core import camera as t_cam
 from cuda_pt_torch.core import qmc as t_qmc
 from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
+from cuda_pt_torch.models import path_tracer as t_pt
 from cuda_pt_torch.ops import intersect as t_isect
 from cuda_pt_torch.ops import megakernel as t_mk
+from cuda_pt_torch.ops import traverse_kernel as t_tk
 from cuda_pt_torch.scene import testscenes as t_ts
 from cuda_pt_torch.scene import types as TT
 from cuda_pt_torch.scene.builder import BSDFSpec
@@ -313,3 +317,119 @@ def test_renderer_routes_as_the_reference(cuda):
     img_p = Renderer(parsed, renderer=RendererType.VOLUME_PT, device="cpu").render(2)
     assert np.isfinite(img_k).all() and img_k.mean() > 0.01
     assert np.isclose(img_k, img_p, rtol=1e-4, atol=1e-5).mean() > 0.98
+
+
+def _forest_rays(scene, n: int, seed: int, dev):
+    rs = np.random.default_rng(seed)
+    lo, hi = scene.bvh.node_min[0].cpu().numpy(), scene.bvh.node_max[0].cpu().numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (n, 3)).astype(np.float32), device=dev)
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32),
+                                                      device=dev), dim=1)
+    return o, d, torch.as_tensor(rs.uniform(0.05, 6.0, n).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("node_fmt", ["f32", "bf16"])
+def test_k1_matches_plain(cuda, node_fmt):
+    """K1 per ray on a four-chunk forest of small kitchen: closest hit (prim
+    ids equal, t, b1, b2 bit-equal), any hit (occlusion equal), the stats
+    plane counting the walk; one launch each."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, forest_chunk=64,
+                                      node_fmt=node_fmt, device=cuda)
+    o, d, t_far = _forest_rays(scene, 8192, 3, cuda)
+    t_mk.reset_launches()
+    stats = torch.zeros((8192, 2), dtype=torch.int32, device=cuda)
+    k = t_tk.traverse_forest(scene.forest, o, d, stats=stats)
+    occ = t_tk.traverse_forest(scene.forest, o, d, t_far, occlusion=True)["occluded"]
+    torch.cuda.synchronize()
+    assert t_mk.LAUNCHES["traverse_forest"] == 2
+    p = t_tk.traverse_forest_reference(scene.forest, o, d)
+    for key in ("prim", "t", "b1", "b2"):
+        assert torch.equal(k[key], p[key]), key
+    assert torch.equal(occ, t_tk.traverse_forest_reference(scene.forest, o, d, t_far,
+                                                           occlusion=True)["occluded"])
+    assert 0.2 < float(p["hit"].float().mean()) < 1.0 and bool((stats[:, 0] > 0).all())
+
+
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_k1_packet_form_counts_as_the_plain_version(cuda, occlusion):
+    """The packet form (count_iters, tiles of 512 and of 256 rays, a ragged
+    last tile): tile_iters and the per-ray results equal the plain
+    version's packet walk, and the per-ray form's results."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, forest_chunk=64, device=cuda)
+    o, d, t_far = _forest_rays(scene, 3000, 4, cuda)
+    tf = t_far if occlusion else None
+    key = "occluded" if occlusion else "prim"
+    per_ray = t_tk.traverse_forest(scene.forest, o, d, tf, occlusion=occlusion)[key]
+    for tile in (512, 256):
+        k = t_tk.traverse_forest(scene.forest, o, d, tf, occlusion=occlusion, count_iters=True,
+                                 tile=tile)
+        p = t_tk.traverse_forest_reference(scene.forest, o, d, tf, occlusion=occlusion,
+                                           count_iters=True, tile=tile)
+        assert k["tile_iters"].shape == (-(-3000 // tile),)
+        assert torch.equal(k["tile_iters"], p["tile_iters"]) and torch.equal(k[key], p[key])
+        assert torch.equal(k[key], per_ray)
+
+
+def test_k1_launch_error_raises(cuda, monkeypatch):
+    """A launch the card refuses surfaces as an exception and counts no
+    launch: the packet form's C entry handed a tile of 2048 threads per
+    block (cudaErrorInvalidConfiguration), through the wrapper."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, forest_chunk=64, device=cuda)
+    o, d, _ = _forest_rays(scene, 2048, 5, cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        t_tk.traverse_forest(scene.forest, o, d, count_iters=True, tile=2048)
+    real = t_tk.cuda_build.load()
+
+    class OversizedTile:
+        def k1_traverse(self, *args):
+            return real.k1_traverse(*args[:13], 2048, *args[14:])  # args[13] is the tile
+
+    monkeypatch.setattr(t_tk.cuda_build, "load", OversizedTile)
+    t_mk.reset_launches()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        t_tk.traverse_forest(scene.forest, o, d, count_iters=True, tile=1024)
+    assert t_mk.LAUNCHES["traverse_forest"] == 0
+    monkeypatch.undo()
+    torch.cuda.synchronize()  # the refused launch left no fault behind
+    assert t_tk.traverse_forest(scene.forest, o, d)["hit"].any()
+
+
+def test_pallas_launches_k1_past_the_vmem_rule(cuda, monkeypatch):
+    """On CUDA tensors traversal "pallas" walks a scene without a compiled
+    forest on K1 even where the reference's scene_fits_vmem fails (a TPU
+    limit): the BVH as one chunk, prim ids equal to the skip walk's; the
+    Renderer packs that forest once, on its own copy of the scene."""
+    monkeypatch.setattr(t_tk, "VMEM_BUDGET_BYTES", 0)
+    scene, cam, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, device=cuda)
+    o, d, t_far = _forest_rays(scene, 4096, 6, cuda)
+    live = torch.ones(4096, dtype=torch.bool, device=cuda)
+    want = t_pt.closest_hit(scene, o, d, live)
+    scene.traversal = "pallas"
+    t_mk.reset_launches()
+    got = t_pt.closest_hit(scene, o, d, live)
+    occ = t_pt.occluded(scene, o, d, t_far, live)
+    assert t_mk.LAUNCHES["traverse_forest"] == 2 and torch.equal(got["prim"], want["prim"])
+    scene.traversal = "xla"
+    assert torch.equal(occ, t_pt.occluded(scene, o, d, t_far, live))
+    scene.traversal = ""
+    r = Renderer(ParsedScene(scene, cam, RenderingConfig(width=8, height=8)),
+                 traversal="pallas")
+    assert scene.forest is None and r.scene.forest.nodes.shape[0] == 1
+
+
+def test_wavefront_renderer_cuda_matches_cpu(cuda):
+    """Renderer(WAVEFRONT_PT, traversal="pallas") on the card (K1 for every
+    closest and shadow walk, no other kernel) against the same Renderer on
+    the CPU, 32x32, per lane."""
+    scene, cam, _ = t_ts.kitchen_stress(32, 32, grid=2, ns=16, nt=12, forest_chunk=512)
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=32, height=32,
+                                                     md=MaxDepthParams(max_depth=6)))
+    r = Renderer(parsed, renderer=RendererType.WAVEFRONT_PT, traversal="pallas")
+    t_mk.reset_launches()
+    img_k = r.render(2)
+    launched = {k: v for k, v in t_mk.LAUNCHES.items() if v}
+    assert set(launched) == {"traverse_forest"} and launched["traverse_forest"] <= 2 * 2 * 6
+    img_p = Renderer(parsed, renderer=RendererType.WAVEFRONT_PT, traversal="pallas",
+                     device="cpu").render(2)
+    assert np.isfinite(img_k).all() and img_k.mean() > 0.01
+    assert np.isclose(img_k, img_p, rtol=1e-4, atol=1e-5).all(axis=-1).mean() > 0.98

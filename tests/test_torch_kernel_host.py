@@ -12,7 +12,10 @@ tests hold that library to trace_megakernel_reference lane by lane on
 small scenes of every template instantiation, so a fault in the kernel's
 logic shows here before a card sees it. The card itself is exercised by
 tests/test_torch_cuda.py and chip_smoke.py. The media scenes run the MED
-instantiations (kernel K4) against the fused volume path tracer.
+instantiations (kernel K4) against the fused volume path tracer, and
+kernel K1 (csrc/traverse.cu) runs its per-ray form, closest and any hit,
+in f32 and bf16 rows (its packet form votes across a block's threads and
+runs on a card only).
 
 Skips where no g++ is installed. Contract: allclose(rtol 1e-4, atol 1e-5)
 on >= 98 % of lanes, image means within 5e-3."""
@@ -57,6 +60,9 @@ inline float __int_as_float(int x) { float f; std::memcpy(&f, &x, 4); return f; 
 inline int __float_as_int(float f) { int x; std::memcpy(&x, &f, 4); return x; }
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
+// the tile vote of K1's packet form, which runs on a card only: the host
+// loop runs a block's threads one after another
+inline int __syncthreads_or(int p) { return p; }
 struct HostDim { int x; };
 static HostDim blockIdx, blockDim, threadIdx;
 using std::isfinite; using std::min; using std::max;
@@ -101,7 +107,7 @@ def host_lib(tmp_path_factory):
                        f"{m.group(1)}({m.group(2)}); }}"), src, flags=re.S)
         launches += n
         (d / (name[:-3] + "_host.cpp" if name.endswith(".cu") else name)).write_text(src)
-    assert launches == 4  # the trace, closest-hit, segment and traverse launches
+    assert launches == 5  # the trace, closest-hit, segment, traverse and K1 launches
     defines = [f for f in cb._flags() if f.startswith("-D")]
     out = d / "libmegakernel_host.so"
     host_units = [str(d / (os.path.basename(u)[:-3] + "_host.cpp")) for u in cb.units()]
@@ -309,3 +315,59 @@ def test_host_traverse_matches_plain(host_lib):
     assert (out[1, ::5] == -1).all() and (out[1] >= 0).float().mean() > 0.2
     hit = ref[1] >= 0
     np.testing.assert_allclose(out[0][hit].numpy(), ref[0][hit].numpy(), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernel K1 (csrc/traverse.cu), its per-ray form
+# ---------------------------------------------------------------------------
+
+
+def _host_k1(lib, forest, o, d, t_far, occlusion: bool, max_leaf: int = 4):
+    n = o.shape[0]
+    prim = torch.empty(n, dtype=torch.int32)
+    t, b1, b2 = torch.empty(n), torch.empty(n), torch.empty(n)
+    stats = torch.zeros((n, 2), dtype=torch.int32)
+    rc = lib.k1_traverse(
+        forest.nodes.data_ptr(), forest.prims.data_ptr(), forest.n_nodes.data_ptr(),
+        forest.nodes.shape[0], forest.nodes.shape[1], forest.prims.shape[1], o.data_ptr(),
+        d.data_ptr(), t_far.data_ptr() if t_far is not None else None, n, max_leaf,
+        int(occlusion), int(forest.node_fmt == "bf16"), 0,
+        None if occlusion else t.data_ptr(), prim.data_ptr(),
+        None if occlusion else b1.data_ptr(), None if occlusion else b2.data_ptr(), None,
+        stats.data_ptr(), None)
+    assert rc == 0
+    return t, prim.long(), b1, b2, stats
+
+
+@pytest.mark.parametrize("node_fmt", ["f32", "bf16"])
+def test_host_k1_matches_plain(host_lib, node_fmt):
+    """k1_traverse's per-ray form on a four-chunk forest of small kitchen
+    against traverse_forest_reference: closest hit (prim ids equal, t, b1,
+    b2 within 1 ulp) and any hit (occlusion equal), in f32 and bf16 rows;
+    the stats plane counts a fetch per node and a test per prim."""
+    from cuda_pt_torch.ops import traverse_kernel as tk
+
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, forest_chunk=64,
+                                      node_fmt=node_fmt)
+    forest = scene.forest
+    assert forest.num_chunks == 4
+    rs = np.random.default_rng(9)
+    n = 1024
+    lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (n, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32)),
+                                      dim=1)
+    t_far = torch.as_tensor(rs.uniform(0.05, 6.0, n).astype(np.float32))
+    t, prim, b1, b2, stats = _host_k1(host_lib, forest, o, d, None, False)
+    ref = tk.traverse_forest_reference(forest, o, d)
+    np.testing.assert_array_equal(prim.numpy(), ref["prim"].numpy())
+    hit = ref["hit"].numpy()
+    assert 0.2 < hit.mean() < 1.0 and (stats[:, 0] > 0).all()
+    for got, want in ((t, ref["t"]), (b1, ref["b1"]), (b2, ref["b2"])):
+        ulps = np.abs(got.numpy()[hit].view(np.int32).astype(np.int64)
+                      - want.numpy()[hit].view(np.int32).astype(np.int64))
+        assert ulps.max() <= 1, ulps.max()
+    _, occ, _, _, _ = _host_k1(host_lib, forest, o, d, t_far, True)
+    ref_occ = tk.traverse_forest_reference(forest, o, d, t_far, occlusion=True)["occluded"]
+    np.testing.assert_array_equal((occ >= 0).numpy(), ref_occ.numpy())
+    assert 0.05 < ref_occ.float().mean() < 0.95

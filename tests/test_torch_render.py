@@ -110,12 +110,16 @@ def test_renderer_default_device_needs_cuda():
 
 def test_renderer_rejects_scene_outside_envelope_on_cuda():
     """Plastic-forward is outside the fused kernel, as in the reference:
-    the Renderer raises and names the ROADMAP item, on any device."""
+    traversal="fused" raises and names the composed route, on any device;
+    the default route takes the composed path instead."""
     pfw = BSDFSpec(btype=TT.BSDF_PLASTIC_FORWARD, k_d=(0.5, 0.5, 0.5))
     scene, cam, _ = t_ts.cornell_box(8, 8, tall_box_bsdf=pfw)
     for device in ("cuda", "cpu"):
-        with pytest.raises(ValueError, match="envelope.*ROADMAP Queue 1 item 5"):
-            Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), device=device)
+        with pytest.raises(ValueError, match="envelope.*composed path"):
+            Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), device=device,
+                     traversal="fused")
+    r = Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), device="cpu")
+    assert r.info()["driver"] == "composed" and r.info()["traversal"] == "xla"
 
 
 def test_renderer_kitchen_flags_cpu():
@@ -198,7 +202,7 @@ def test_composed_render_matches_golden(name, make):
     assert abs(float(img.mean()) - float(ref.mean())) < 5e-4
 
 
-@pytest.mark.parametrize("rtype", [RendererType.WAVEFRONT_PT, RendererType.VOLUME_PT,
+@pytest.mark.parametrize("rtype", [RendererType.BVH_COST, RendererType.VOLUME_PT,
                                    RendererType.MEGAKERNEL_LT, RendererType.DEPTH])
 def test_unported_renderers_raise(rtype):
     scene, cam, b = t_ts.cornell_box(8, 8)

@@ -173,7 +173,7 @@ def test_unported_builder_branches_raise():
 
     b = t_builder.SceneBuilder()
     b.add_mesh(t_ts.quad([0, 0, 0], [1, 0, 0], [1, 0, 1], [0, 0, 1]), b.add_bsdf(t_builder.BSDFSpec()))
-    with pytest.raises(NotImplementedError):
-        b.compile(forest_chunk=64)
+    with pytest.raises(ValueError, match="node_fmt"):  # K1's forest takes f32 or bf16 rows
+        b.compile(forest_chunk=64, node_fmt="f16")
     with pytest.raises(NotImplementedError):
         b.compile(bvh_cfg=BVHConfig(use_sbvh=True))

@@ -107,17 +107,35 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_swf_plain_matches_jax_interpret(case):
-    """The port's driver on the CPU (plain K5) against JAX's driver in
-    interpret mode on the same rays and streams, every lane at rtol 1e-5,
-    atol 1e-7."""
-    make, depth, key_mode, vpt = CASES[case]
+@pytest.fixture(scope="module")
+def jax_cornell_unsorted():
+    """JAX's interpret driver on cornell, unsorted (key "none"): the
+    reference for both cornell cases. Sorting only moves lanes, so the
+    port's driver under any key is held to it lane for lane
+    (test_sorting_changes_nothing_per_lane holds the port's keys to one
+    another)."""
+    return _jax_driver(*CASES["cornell_none"])
+
+
+def _jax_driver(make, depth, key_mode, vpt):
     sj, cj = make()
     o, d, rng = _jax_rays(cj)
     pack_j = j_mk.make_pack(sj, node_fmt="w8", vpt=vpt)
     Lj = np.asarray(j_mk.trace_megakernel_swf(pack_j, JMD(max_depth=depth), o, d, rng,
                                               interpret=True, key_mode=key_mode))
+    return sj, o, d, rng, Lj
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_swf_plain_matches_jax_interpret(case, request):
+    """The port's driver on the CPU (plain K5) against JAX's driver in
+    interpret mode on the same rays and streams, every lane at rtol 1e-5,
+    atol 1e-7 (both cornell cases against one unsorted JAX run)."""
+    make, depth, key_mode, vpt = CASES[case]
+    if case.startswith("cornell"):
+        sj, o, d, rng, Lj = request.getfixturevalue("jax_cornell_unsorted")
+    else:
+        sj, o, d, rng, Lj = _jax_driver(*CASES[case])
     pack_t = t_mk.make_pack(bridge.scene_from_numpy(flatten_jax_scene(sj)), vpt=vpt)
     before = dict(t_mk.LAUNCHES)
     Lt = t_mk.trace_megakernel_swf(pack_t, TMD(max_depth=depth), *_torch(o, d, rng),

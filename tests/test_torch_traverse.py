@@ -10,8 +10,12 @@ import pytest
 import torch
 
 from cuda_pt_torch.accel import traverse as t_trav
+from cuda_pt_torch.accel import wide_build as t_wide
+from cuda_pt_torch.accel import wide_traverse as t_wtrav
 from cuda_pt_torch.scene import bridge
 from cuda_pt_tpu.accel import traverse as j_trav
+from cuda_pt_tpu.accel import wide_build as j_wide
+from cuda_pt_tpu.accel import wide_traverse as j_wtrav
 from cuda_pt_tpu.scene import testscenes as j_ts
 from test_torch_bridge import flatten_jax_scene
 
@@ -56,5 +60,24 @@ def test_occlusion_bvh_matches(kitchen):
     oj = j_trav.occlusion_bvh(sj.geom, sj.bvh, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_far))
     ot = t_trav.occlusion_bvh(st.geom, st.bvh, torch.as_tensor(o), torch.as_tensor(d),
                               torch.as_tensor(t_far))
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    assert 0.05 < np.asarray(oj).mean() < 0.95
+
+
+def test_wide_walk_matches(kitchen):
+    """The 8-wide ordered-stack walks (accel/wide_traverse.py, traversal
+    "wide") against the reference's on the same wide tree: equal prim ids
+    and occlusion, and the skip walk's t on every hit (one arithmetic)."""
+    sj, st, o, d, rs = kitchen
+    t_far = rs.uniform(0.05, 6.0, B).astype(np.float32)
+    wj, wt = j_wide.from_bvharrays(sj.bvh), t_wide.from_bvharrays(st.bvh)
+    hj = j_wtrav.closest_hit_wide(sj.geom, wj, jnp.asarray(o), jnp.asarray(d))
+    ht = t_wtrav.closest_hit_wide(st.geom, wt, torch.as_tensor(o), torch.as_tensor(d))
+    np.testing.assert_array_equal(ht["prim"].numpy(), np.asarray(hj["prim"]))
+    hs = t_trav.closest_hit_bvh(st.geom, st.bvh, torch.as_tensor(o), torch.as_tensor(d))
+    assert torch.equal(ht["prim"], hs["prim"]) and torch.equal(ht["t"], hs["t"])
+    oj = j_wtrav.occlusion_wide(sj.geom, wj, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_far))
+    ot = t_wtrav.occlusion_wide(st.geom, wt, torch.as_tensor(o), torch.as_tensor(d),
+                                torch.as_tensor(t_far))
     np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
     assert 0.05 < np.asarray(oj).mean() < 0.95
