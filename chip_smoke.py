@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from cuda_pt_torch/csrc (one nvcc per
      translation unit, all started together, sm_90a) and print the seconds
-     and ptxas' register counts;
+     and ptxas' registers and spills per kernel instantiation;
   2. print the card's name and power limit (nvidia-smi);
   3. closest_hit_w8 against closest_hit_brute on 65536 random rays in the
      cornell box, and against the skip walk (accel/traverse.py) on 16384
@@ -40,7 +40,9 @@ Phases (any failure exits non-zero):
   6. the main path on full-size kitchen_stress (envmap, textures,
      dispersion; 76,784 boxes: the sorted-wavefront driver, K5's
      SEG+K3+ALL instantiation): api.Renderer at 1024x1024, 16 spp, the
-     same settings; launch counts (K5 only) and a finite image; one spp of
+     same settings, its pack in the reference's formats (w8 nodes, t9
+     prims, bf16 attrs: the f32 pack is above the 2 MiB threshold of the
+     format rule); launch counts (K5 only) and a finite image; one spp of
      its rays through the driver, a 65,536-lane Z-order block of that
      output held to the phase-4 contract against the driver on the plain
      versions; the driver's loop run piece by piece here (swf_loop, held
@@ -49,7 +51,9 @@ Phases (any failure exits non-zero):
      bound (the pack once plus the state planes K5 reads and writes,
      k5_bytes) and its share; and the whole-path kernel
      (K3, called directly) on the same rays: its time and a block held to
-     its plain version, as before;
+     its plain version, as before; then the same scene packed with f32
+     attrs and prims: K5's and the whole-path kernel's time per spp and the
+     image-mean gap between the two attr formats (f32_pass);
   7. the volume path tracer on full-size medium_cbox (36,888 triangles,
      media nested two deep; K5's SEG+ALL+MED): prints the BVH build
      seconds; api.Renderer(renderer=VOLUME_PT) at 1024x1024, 16 spp,
@@ -57,7 +61,8 @@ Phases (any failure exits non-zero):
      its plain version on a 65,536-lane block and to the whole-path kernel
      K4 on every lane (untextured: the same estimator), with its timings
      as in phase 6; and K4 called directly: its time and a block held to
-     its plain version;
+     its plain version; the pack in w8 nodes, t9 prims, bf16 attrs, and
+     its f32 pass as in phase 6;
   8. grid media on grid_smoke with a density grid of 256^3 voxels (64 MiB,
      the size of a production smoke asset; the reference's grid-cbox .nvdb
      is absent): api.Renderer(renderer=VOLUME_PT) at 1024x1024, GRID_SPP
@@ -92,6 +97,22 @@ Phases (any failure exits non-zero):
      the phase-4 contract on cornell (brute force on both: no K1 launch)
      and kitchen_stress(grid=2) with MEGAKERNEL_PT, and on full-size
      medium_cbox with VOLUME_PT.
+  11. the reference's render_megakernel (make_pack(scene) in its rule's
+     formats, then render_pack) at full size, launch counts set to 0 just
+     before each and read just after: cornell 1024x1024 x RM_CORNELL_SPP on
+     binary f32 nodes (the whole-path kernel, K2+BIN) and kitchen_stress
+     1024x1024 x RM_KITCHEN_SPP on bf16 binary nodes, t9 prims and bf16
+     attrs (K5, SEG+K3+ALL+BIN); per scene the kernel's time per spp on
+     sample 0's rays, the walk work (node fetches, prim tests), bound and
+     share, a 65,536-lane block held to the plain version, and the binary
+     walk (closest_hit_w8 on f32 and bf16 rows) against K1 over the BVH as
+     one chunk on the camera rays: prim ids equal;
+  12. kernel S1 (csrc/node_bench.cu) on cornell's and kitchen_stress's
+     binary f32 rows: S1_ITERS steps on S1_RAYS equal rays (the
+     reference's) and on a block of random rays bit-equal to the plain
+     version; c_node from its time at S1_ITERS and S1_ITERS / 2 steps, and
+     S1's model share (node fetches x c_node over the measured time) of
+     phase 11's two kernels.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
@@ -143,6 +164,13 @@ FOREST_CHUNK = 65536
 WF_SPP = 2
 PACKET_RAYS = 16384
 SMALL = 128
+# render_megakernel at full size (phase 11; cut: spp only): samples per
+# pixel on cornell and on kitchen_stress
+RM_CORNELL_SPP = 16
+RM_KITCHEN_SPP = 2
+# kernel S1 (phase 12): rays and node steps per timed launch
+S1_RAYS = 1 << 20
+S1_ITERS = 1024
 # the device sleep before a kernel timed alone (swf_loop): 0.5 ms at the
 # H100's highest SM clock (1.98 GHz), longer at lower clocks; it only has to
 # outlast the host's launch latency
@@ -190,12 +218,17 @@ def check_contract(name: str, L_k: torch.Tensor, L_p: torch.Tensor) -> tuple:
     return frac, dmean
 
 
-def phase_build(cb):
+def phase_build(cb) -> dict:
+    """Build the library; print the seconds and, per kernel instantiation,
+    ptxas' registers and spill bytes (the template flags in the order of
+    each kernel's template: trace_kernel<K3,ALL,MED,BIN>,
+    seg_kernel<K3,ALL,MED,SHADE,GRID,BIN>, ...)."""
     secs = cb.build()
     log(f"[1] built megakernel in {secs:.1f} s")
-    for line in cb.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    {line.strip()}")
+    rows = cb.ptxas_report(cb.build_log())
+    for name, regs, st, ld in rows:
+        log(f"    {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    return {"build_s": secs, "ptxas": rows}
 
 
 def phase_card() -> str:
@@ -207,7 +240,7 @@ def phase_card() -> str:
 
 def phase_walk(mk, tts, dev):
     scene, _, _ = tts.cornell_box(device=dev)
-    pack = mk.make_pack(scene)
+    pack = mk.make_pack(scene, node_fmt="w8")
     rs = np.random.default_rng(7)
     B = 65536
     o = rs.uniform(0.05, 0.95, (B, 3)).astype(np.float32)
@@ -243,7 +276,7 @@ def phase_walk_kitchen(mk, tts, dev):
     t0 = time.perf_counter()
     scene, cam, _ = tts.kitchen_stress(1024, 1024, device=dev)
     build_s = time.perf_counter() - t0
-    pack = mk.make_pack(scene)
+    pack = mk.make_pack(scene, node_fmt="w8")
     rs = np.random.default_rng(11)
     B = 16384
     lo = scene.bvh.node_min[0].cpu().numpy()
@@ -325,7 +358,7 @@ def phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T):
     res = {}
     for name, make in variants.items():
         scene, cam, _ = make()
-        pack = mk.make_pack(scene)
+        pack = mk.make_pack(scene, node_fmt="w8")
         perm, _ = mk.tile_swizzle(cam.width, cam.height, dev)
         worst, means_k, means_p = 0.0, [], []
         for i in range(4):
@@ -374,7 +407,7 @@ def phase_kernel_media(mk, tts, dev, MaxDepthParams, T):
     res = {}
     for name, make in variants.items():
         scene, cam, _ = make()
-        pack = mk.make_pack(scene, vpt=True)
+        pack = mk.make_pack(scene, node_fmt="w8", vpt=True)
         want = "K3+ALL+MED" if pack.has_env else "ALL+MED"
         perm, _ = mk.tile_swizzle(cam.width, cam.height, dev)
         worst, means_k, means_p = 0.0, [], []
@@ -467,42 +500,60 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
     }, r
 
 
-def bound_of(stats, B: int, pack_bytes: int) -> tuple:
-    """(bound ms, what bounds it, wide nodes, prim tests, bytes): rays, pcg
-    states and L once plus the pack, against this run's walk work."""
+def slabs_per_node(pack) -> int:
+    """Slab tests per counted node: a w8 node's 8 children, a binary node's
+    one box."""
+    return 8 if pack.node_fmt == "w8" else 1
+
+
+def node_word(pack) -> str:
+    return "wide nodes" if pack.node_fmt == "w8" else "node fetches"
+
+
+def bound_of(stats, B: int, pack_bytes: int, per_node: int = 8) -> tuple:
+    """(bound ms, what bounds it, nodes, prim tests, bytes): rays, pcg
+    states and L once plus the pack, against this run's walk work (nodes
+    of per_node slab tests each)."""
     nodes = int(stats[:, 0].sum(dtype=torch.int64))
     prims = int(stats[:, 1].sum(dtype=torch.int64))
     nbytes = B * (6 * 4 + 2 * 4 + 3 * 4) + pack_bytes
-    return (*bound(nbytes, nodes, prims), nodes, prims, nbytes)
+    return (*bound(nbytes, nodes, prims, per_node), nodes, prims, nbytes)
 
 
-def bound(nbytes: int, nodes: int, prims: int) -> tuple:
-    """(bound ms, what bounds it) of nbytes moved and a walk of nodes wide
-    nodes and prims prim tests."""
-    ops = nodes * 8 * OPS_SLAB + prims * OPS_TRI
+def bound(nbytes: int, nodes: int, prims: int, per_node: int = 8) -> tuple:
+    """(bound ms, what bounds it) of nbytes moved and a walk of nodes
+    nodes of per_node slab tests each (8: w8 wide nodes) and prims prim
+    tests."""
+    ops = nodes * per_node * OPS_SLAB + prims * OPS_TRI
     t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
     return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations"
 
 
-def render_main_path(mk, r, spp: int, label: str, want: dict) -> tuple:
-    """The Renderer's spp passes with every launch count set to 0 just
-    before and read just after; fails unless the path launched exactly the
-    kernels (LAUNCHES keys, each > 0) and instantiations of want
-    ({"launches": [...], "instantiations": [...]}), and the image is
-    finite. Returns (wall s, launches, instantiation launches)."""
+def counted_path(mk, run, cam, label: str, want: dict) -> tuple:
+    """run() (a main path: it returns the image) with every launch count set
+    to 0 just before and read just after; fails unless the path launched
+    exactly the kernels (LAUNCHES keys, each > 0) and instantiations of
+    want ({"launches": [...], "instantiations": [...]}), and the image is
+    finite, cam.height x cam.width x 3. Returns (wall s, launches,
+    instantiation launches, image mean)."""
     torch.cuda.synchronize()
     mk.reset_launches()
     t0 = time.perf_counter()
-    img = r.render(spp)
+    img = torch.as_tensor(run())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in mk.LAUNCHES.items() if v}
     inst = dict(mk.INSTANTIATION_LAUNCHES)
     if sorted(launches) != sorted(want["launches"]) or sorted(inst) != sorted(want["instantiations"]):
         raise SystemExit(f"{label} main path launched {launches} {inst}, not {want}")
-    if img.shape != (r.camera.height, r.camera.width, 3) or not np.isfinite(img).all():
+    if tuple(img.shape) != (cam.height, cam.width, 3) or not bool(torch.isfinite(img).all()):
         raise SystemExit(f"{label} main path image is not finite / has the wrong shape")
     return wall, launches, inst, float(img.mean())
+
+
+def render_main_path(mk, r, spp: int, label: str, want: dict) -> tuple:
+    """The Renderer's spp passes, counted (counted_path)."""
+    return counted_path(mk, lambda: r.render(spp), r.camera, label, want)
 
 
 def main_rays(mk, r, blk: int):
@@ -642,7 +693,7 @@ def hold_swf(mk, r, md, blk: int, phase: str, label: str) -> dict:
     nbytes = mk.pack_bytes(pack) + state_bytes
     nodes = int(cnt["stats"][:, 0].sum(dtype=torch.int64))
     prims = int(cnt["stats"][:, 1].sum(dtype=torch.int64))
-    bound_ms, bound_by = bound(nbytes, nodes, prims)
+    bound_ms, bound_by = bound(nbytes, nodes, prims, slabs_per_node(pack))
     mean = {k: float(np.mean([run[k] for run in runs])) for k in runs[0]}
     seg_ms = mean["seg"]
     split = pack.has_grid
@@ -653,15 +704,16 @@ def hold_swf(mk, r, md, blk: int, phase: str, label: str) -> dict:
         + (f", K6 {mean['traverse']:.3f} ms" if split else "")
         + f", wall {mean['wall_ms']:.3f} ms; per live lane per launch {reads} B read, {writes} B "
         f"written (+24 B on a miss: {sum(misses)} misses); bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nodes} wide nodes, {prims} prim tests, {nbytes} bytes of which {state_bytes} state); "
-        f"{bound_ms / seg_ms:.4f} of bound")
+        f"{nodes} {node_word(pack)}, {prims} prim tests, {nbytes} bytes of which {state_bytes} "
+        f"state); {bound_ms / seg_ms:.4f} of bound; pack formats {pack_formats(pack)}")
     out = {"max_abs_err": float((L_kb - L_p).abs().max()), "ms": seg_ms, "plain_ms": plain_ms,
            "plain_lanes": blk, "bound_ms": bound_ms, "bound_by": bound_by,
            "lanes_differ": frac, "mean_differ": dmean, "wide_nodes": nodes, "prim_tests": prims,
            "state_read_bytes_per_lane_launch": reads, "state_write_bytes_per_lane_launch": writes,
            "env_misses": sum(misses), "state_bytes": state_bytes,
            "launches_per_spp": len(lanes), "live_lanes": lanes, "sort_gather_ms": mean["sort"],
-           "glue_ms": mean["glue"], "swf_wall_ms": mean["wall_ms"], "runs": runs, "L": L_k}
+           "glue_ms": mean["glue"], "swf_wall_ms": mean["wall_ms"], "runs": runs, "L": L_k,
+           **pack_formats(pack)}
     if split:
         t_nodes = int(cnt["stats_t"][:, 0].sum(dtype=torch.int64))
         t_prims = int(cnt["stats_t"][:, 1].sum(dtype=torch.int64))
@@ -690,10 +742,15 @@ def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingC
         raise SystemExit(f"kitchen_stress: not the K3 flags or not the swf driver: {info}")
     wall, launches, inst, mean = render_main_path(
         mk, r, spp, "kitchen", {"launches": ["trace_megakernel_seg"],
-                                "instantiations": ["SEG+K3+ALL"]})
+                                "instantiations": ["SEG+K3+ALL+CPT"]})
     log(f"[6] Renderer kitchen_stress {cam.width}x{cam.height}x{spp}spp ({mk.pack_boxes(r._pack)} "
         f"boxes: driver {info['driver']}): {wall:.2f} s wall ({wall * 1e3 / spp:.2f} ms per spp), "
-        f"launches {launches} {inst}, image mean {mean:.6f}, flags {r._pack.flags}")
+        f"launches {launches} {inst}, image mean {mean:.6f}, flags {r._pack.flags}, pack "
+        f"{pack_formats(r._pack)} (f32 size {mk.fused_pack_bytes(r.scene)} B, the format rule's "
+        f"threshold {mk.AUTO_COMPACT_BYTES} B)")
+    want = ("w8", "t9", "bf16")
+    if (r._pack.node_fmt, r._pack.prim_fmt, r._pack.attr_fmt) != want:
+        raise SystemExit(f"kitchen: the Renderer's pack is not in the reference's formats {want}")
     k5 = hold_swf(mk, r, md, BLOCK, "6", "kitchen")
     k3 = hold_main_path(mk, r, md, BLOCK, "6", "kitchen",
                         f"incl. {mk.pack_bytes(r._pack, mk.K3_KEYS)} of uvs, texels and K3 tables")
@@ -704,12 +761,15 @@ def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingC
         f"mean only)")
     if dmean > MEAN_TOL:
         raise SystemExit("kitchen: K5 and the whole-path kernel disagree in the mean")
+    k5["f32"] = f32_pass(mk, r, md, "6", "kitchen")
+    k3["f32_ms"] = k5["f32"]["whole_path_ms"]
     k5.update({"wall_ms_per_spp": wall * 1e3 / spp, "launches": launches["trace_megakernel_seg"],
                "instantiations": inst, "whole_path_ms": k3["ms"], "mean_vs_whole_path": dmean,
                "image_mean": mean})
     return k5, {
-        "name": "trace_megakernel (K3: has_env, textured, has_disp)", "route": "cuda",
-        "source": "cuda_pt_torch/csrc/megakernel.cu",
+        "name": "trace_megakernel (K3: has_env, textured, has_disp; the CPT build: t9 prims, "
+                "bf16 attrs; f32_ms: the f32 build of megakernel.cu)", "route": "cuda",
+        "source": "cuda_pt_torch/csrc/megakernel_cpt.cu",
         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:1445",
         "launches": 0, **k3, "library_ms": None, "bvh_build_s": build_s,
         "num_prims": scene.geom.num_prims,
@@ -744,17 +804,57 @@ def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str 
     k_ms = events_ms(lambda: mk.trace_megakernel(pack, md, o, d, rng_bits), 5)
     _, stats = mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
     torch.cuda.synchronize()
-    bound_ms, bound_by, nodes, prims, nbytes = bound_of(stats, B, mk.pack_bytes(pack))
+    bound_ms, bound_by, nodes, prims, nbytes = bound_of(stats, B, mk.pack_bytes(pack),
+                                                        slabs_per_node(pack))
     log(f"[{phase}] kernel {k_ms:.3f} ms/spp, {B / (k_ms * 1e-3):.4g} paths/s; block of {blk} "
         f"lanes of the {B}-ray launch vs the plain version ({plain_ms:.1f} ms on the block): "
         f"{frac:.7f} lanes differ, means differ by {dmean:.3g}; the kernel launched on the "
-        f"block alone {block_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nodes} wide nodes, "
-        f"{prims} prim tests, {nbytes} bytes {bytes_note}); {bound_ms / k_ms:.4f} of bound")
+        f"block alone {block_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nodes} "
+        f"{node_word(pack)}, {prims} prim tests, {nbytes} bytes {bytes_note}); "
+        f"{bound_ms / k_ms:.4f} of bound; pack formats {pack_formats(pack)}")
     return {"L": L_k, "max_abs_err": float((L_kb - L_p).abs().max()), "ms": k_ms,
             "plain_ms": plain_ms,
             "plain_lanes": blk, "block_kernel_ms": block_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
-            "mean_differ": dmean, "wide_nodes": nodes, "prim_tests": prims}
+            "mean_differ": dmean, "wide_nodes": nodes, "prim_tests": prims,
+            **pack_formats(pack)}
+
+
+def pack_formats(pack) -> dict:
+    """The pack's table formats and its bytes (the tables the kernels read)."""
+    from cuda_pt_torch.ops import megakernel as mk
+
+    return {"node_fmt": pack.node_fmt, "prim_fmt": pack.prim_fmt, "attr_fmt": pack.attr_fmt,
+            "pack_bytes": mk.pack_bytes(pack)}
+
+
+def f32_pass(mk, r, md, phase: str, label: str) -> dict:
+    """The Renderer's scene packed with f32 attrs and prims (w8 nodes, as the
+    Renderer packs below the format rule's threshold), on the main path's
+    rays of sample 0: K5's time per spp (swf_loop, mean of 3 runs), the
+    whole-path kernel's (CUDA events), and the gap of K5's image mean to
+    that of the Renderer's pack (bf16 attrs, t9 prims) on the same rays."""
+    pack = r._pack
+    pf = mk.make_pack(r.scene, node_fmt="w8", attr_fmt="f32", prim_fmt="f32",
+                      vpt=pack.has_media)
+    o, d, rng, _ = main_rays(mk, r, BLOCK)
+    runs = [swf_loop(mk, pf, md, o, d, rng, timing=True) for _ in range(3)]
+    seg_ms = float(np.mean([run["ms"]["seg"] for run in runs]))
+    L_b = mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+    gap = abs(float(runs[0]["L"].mean()) - float(L_b.mean()))
+    rng_bits = mk.rng_bits(rng)
+    wp_ms = events_ms(lambda: mk.trace_megakernel(pf, md, o, d, rng_bits), 5)
+    bin_bytes = mk.pack_bytes(mk.make_pack(r.scene, vpt=pack.has_media))
+    log(f"[{phase}] {label}, f32 attrs and prims ({mk.pack_bytes(pf)} bytes against "
+        f"{mk.pack_bytes(pack)} in {pack.attr_fmt} attrs, {pack.prim_fmt} prims; "
+        f"make_pack(scene), binary nodes: {bin_bytes}): K5 "
+        f"{seg_ms:.3f} ms per spp, the whole-path kernel {wp_ms:.3f} ms; image means (K5, one "
+        f"spp) f32 {float(runs[0]['L'].mean()):.6f}, {pack.attr_fmt} attrs "
+        f"{float(L_b.mean()):.6f}: gap {gap:.3g}")
+    if gap > MEAN_TOL:
+        raise SystemExit(f"{label}: f32 and {pack.attr_fmt} attrs disagree in the mean by {gap}")
+    return {"k5_ms": seg_ms, "whole_path_ms": wp_ms, "mean_gap_vs_compact": gap,
+            "pack_bytes": mk.pack_bytes(pf), "binary_pack_bytes": bin_bytes}
 
 
 def phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, ParsedScene,
@@ -774,14 +874,19 @@ def phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, Parse
     info = r.info()
     if not info["has_media"] or info["driver"] != "swf":
         raise SystemExit(f"medium_cbox: no media in the pack or not the swf driver: {info}")
+    want = ("w8", "t9", "bf16")
+    if (r._pack.node_fmt, r._pack.prim_fmt, r._pack.attr_fmt) != want:
+        raise SystemExit(f"medium_cbox: the Renderer's pack is not in the reference's formats "
+                         f"{want}")
     wall, launches, inst, mean = render_main_path(
         mk, r, spp, "VPT", {"launches": ["trace_megakernel_seg"],
-                            "instantiations": ["SEG+ALL+MED"]})
+                            "instantiations": ["SEG+ALL+MED+CPT"]})
     log(f"[7] medium_cbox ({scene.geom.num_prims} triangles, BVH built in {build_s:.1f} s; "
         f"{r._pack['nodes'].shape[0]} wide nodes, walk stack {r._pack.max_stack}, max leaf "
         f"{r._pack.max_leaf}): Renderer VOLUME_PT {cam.width}x{cam.height}x{spp}spp: "
         f"{wall:.2f} s wall ({wall * 1e3 / spp:.2f} ms per spp), launches {launches} {inst} "
-        f"({launches['trace_megakernel_seg'] / spp:g} per spp), image mean {mean:.6f}")
+        f"({launches['trace_megakernel_seg'] / spp:g} per spp), image mean {mean:.6f}, pack "
+        f"{pack_formats(r._pack)} (f32 size {mk.fused_pack_bytes(r.scene)} B)")
     k5 = hold_swf(mk, r, md, BLOCK, "7", "medium_cbox")
     k4 = hold_main_path(mk, r, md, BLOCK, "7", "VPT",
                         f"incl. {mk.pack_bytes(r._pack, mk.MED_KEYS)} of the media row; the "
@@ -793,10 +898,12 @@ def phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, Parse
         f"{int((L_s != L_w).any(dim=-1).sum())} not bit-equal, means differ by {dmean_w:.3g}")
     k5.update({"wall_ms_per_spp": wall * 1e3 / spp, "launches": launches["trace_megakernel_seg"],
                "instantiations": inst, "whole_path_ms": k4["ms"],
-               "lanes_differ_vs_whole_path": frac_w})
+               "lanes_differ_vs_whole_path": frac_w, "f32": f32_pass(mk, r, md, "7", "medium_cbox")})
+    k4["f32_ms"] = k5["f32"]["whole_path_ms"]
     return k5, {
-        "name": "trace_megakernel (K4: has_media)", "route": "cuda",
-        "source": "cuda_pt_torch/csrc/megakernel_med.cu",
+        "name": "trace_megakernel (K4: has_media; the CPT build: t9 prims, bf16 attrs; f32_ms: "
+                "the f32 build of megakernel_med.cu)", "route": "cuda",
+        "source": "cuda_pt_torch/csrc/megakernel_cpt.cu",
         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:1386",
         "launches": 0, **k4, "library_ms": None, "bvh_build_s": build_s,
         "num_prims": scene.geom.num_prims,
@@ -1183,6 +1290,140 @@ def phase_routes(mk, tk, tts, dev, vscene, vcam, MaxDepthParams, RendererType, R
     return res
 
 
+def hold_walk_k1(mk, tk, scene, o, d, label: str) -> dict:
+    """The binary walk (closest_hit_w8 on binary packs of scene, f32 and
+    bf16 rows) against kernel K1's per-ray form over the scene's BVH as one
+    chunk, on the same rays: prim ids equal on every ray."""
+    forest = tk.single_chunk_forest(scene.geom, scene.bvh)
+    k1 = tk.traverse_forest(forest, o, d)
+    out = {"rays": o.shape[0], "hits": int((k1["prim"] >= 0).sum())}
+    for node_fmt in ("f32", "bf16"):
+        _, prim, _, _ = mk.closest_hit_w8(mk.make_pack(scene, node_fmt=node_fmt), o, d)
+        torch.cuda.synchronize()
+        out[f"{node_fmt}_differ"] = int((prim != k1["prim"]).sum())
+    log(f"[11] binary walk against K1 over the one-chunk forest, {label}, {o.shape[0]} camera "
+        f"rays: prim ids differing {out['f32_differ']} (f32 rows), {out['bf16_differ']} (bf16 "
+        f"rows); hits {out['hits']}")
+    if out["f32_differ"] or out["bf16_differ"]:
+        raise SystemExit(f"binary walk check failed on {label}: {out}")
+    return out
+
+
+def phase_render_megakernel(mk, tk, tts, dev, kscene, kcam, ref_mean: float,
+                            MaxDepthParams) -> tuple:
+    """The reference's render_megakernel at full size, in the formats of its
+    rule: cornell 1024x1024 x RM_CORNELL_SPP on binary f32 nodes (the
+    whole-path kernel's K2+BIN) and full-size kitchen_stress 1024x1024 x
+    RM_KITCHEN_SPP on bf16 binary nodes, t9 prims and bf16 attrs (K5's
+    SEG+K3+ALL+BIN); per scene the kernel's time per spp on the rays of
+    sample 0, its walk work, bound and share, a 65,536-lane block held to
+    the plain version, and the binary walk against K1 on the camera rays."""
+    import types
+
+    md = MaxDepthParams()
+    cscene, ccam, _ = tts.cornell_box(1024, 1024, device=dev)
+    out = {}
+    for label, scene, cam, spp, want, fmts in (
+            ("cornell", cscene, ccam, RM_CORNELL_SPP,
+             {"launches": ["trace_megakernel"], "instantiations": ["K2+BIN"]},
+             ("f32", "f32", "f32")),
+            ("kitchen", kscene, kcam, RM_KITCHEN_SPP,
+             {"launches": ["trace_megakernel_seg"], "instantiations": ["SEG+K3+ALL+BIN"]},
+             ("bf16", "t9", "bf16"))):
+        t0 = time.perf_counter()
+        pack = mk.make_pack(scene)
+        pack_s = time.perf_counter() - t0
+        if (pack.node_fmt, pack.prim_fmt, pack.attr_fmt) != fmts:
+            raise SystemExit(f"{label}: make_pack(scene) gave {pack_formats(pack)}, not {fmts}")
+        wall, launches, inst, mean = counted_path(
+            mk, lambda: mk.render_megakernel(scene, cam, md, spp, seed=0), cam,
+            f"render_megakernel {label}", want)
+        n_launch = sum(launches.values())
+        log(f"[11] render_megakernel {label} {cam.width}x{cam.height}x{spp}spp: {wall:.2f} s wall "
+            f"({wall * 1e3 / spp:.2f} ms per spp, incl. make_pack {pack_s:.2f} s), launches "
+            f"{launches} {inst}, image mean {mean:.6f}, pack {pack_formats(pack)} "
+            f"({mk.pack_boxes(pack)} boxes: driver {mk.driver_of(pack)})")
+        if label == "cornell" and abs(mean - ref_mean) > 0.02 * ref_mean:
+            raise SystemExit("render_megakernel cornell: image mean disagrees with the plain "
+                             "version's")
+        view = types.SimpleNamespace(_pack=pack, camera=cam, device=dev)
+        if label == "cornell":
+            row = hold_main_path(mk, view, md, BLOCK, "11", "render_megakernel cornell")
+        else:
+            row = hold_swf(mk, view, md, BLOCK, "11", "render_megakernel kitchen")
+            row.pop("runs", None)
+        row.pop("L")
+        o, d, _, _ = main_rays(mk, view, BLOCK)
+        row["walk_check"] = hold_walk_k1(mk, tk, scene, o.contiguous(), d.contiguous(), label)
+        row["node_fetches"] = row["wide_nodes"]  # binary nodes: the count is of node fetches
+        row.update({"launches": n_launch, "instantiations": inst,
+                    "wall_ms_per_spp": wall * 1e3 / spp, "make_pack_s": pack_s,
+                    "image_mean": mean, "spp": spp})
+        out[label] = row
+    return out["cornell"], out["kitchen"]
+
+
+def phase_s1(mk, nb, tk, dev, scenes: dict) -> dict:
+    """Kernel S1 (csrc/node_bench.cu) on the binary f32 rows of each scene:
+    S1_ITERS steps on S1_RAYS rays (the reference's, every ray equal) and on
+    a block of random rays, bit-equal to the plain version; its time at
+    S1_ITERS and S1_ITERS / 2 steps (CUDA events) gives c_node, one step of
+    the launch, and per node fetch (over the rays)."""
+    torch.cuda.synchronize()
+    mk.reset_launches()  # every count, S1's included (one dict)
+    o, d = nb.reference_rays(S1_RAYS, dev)
+    res = {}
+    for label, scene in scenes.items():
+        nodes = torch.as_tensor(tk.pack_nodes(scene.bvh), device=dev)
+        out = nb.node_bench(nodes, o, d, S1_ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = nb.node_bench_reference(nodes, o, d, S1_ITERS)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rs = np.random.default_rng(29)
+        lo = scene.bvh.node_min[0].cpu().numpy()
+        hi = scene.bvh.node_max[0].cpu().numpy()
+        o_r = torch.as_tensor(rs.uniform(lo, hi, (BLOCK, 3)).astype(np.float32), device=dev)
+        d_r = torch.nn.functional.normalize(torch.as_tensor(
+            rs.normal(size=(BLOCK, 3)).astype(np.float32), device=dev), dim=1).contiguous()
+        out_r = nb.node_bench(nodes, o_r, d_r, S1_ITERS)
+        ref_r = nb.node_bench_reference(nodes, o_r, d_r, S1_ITERS)
+        torch.cuda.synchronize()
+        differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+        differ_r = int((out_r.view(torch.int32) != ref_r.view(torch.int32)).sum())
+        err = float(torch.where(out == ref, 0.0, (out - ref).abs()).max())
+        if differ or differ_r:
+            raise SystemExit(f"S1 {label}: {differ} + {differ_r} rays differ from the plain version")
+        t_n = events_ms(lambda: nb.node_bench(nodes, o, d, S1_ITERS), 5)
+        t_h = events_ms(lambda: nb.node_bench(nodes, o, d, S1_ITERS // 2), 5)
+        step_ms = (t_n - t_h) / (S1_ITERS - S1_ITERS // 2)
+        fetch_ns = step_ms * 1e6 / S1_RAYS
+        nbytes = nodes.numel() * 4 + S1_RAYS * (24 + 4)
+        bound_ms, bound_by = bound(nbytes, S1_ITERS * S1_RAYS, 0, 1)
+        res[label] = {"rows": nodes.shape[0], "ms": t_n, "half_ms": t_h, "plain_ms": plain_ms,
+                      "c_node_step_ms": step_ms, "c_node_ns_per_fetch": fetch_ns,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                      "rays": S1_RAYS, "iters": S1_ITERS}
+        log(f"[12] S1 {label} ({nodes.shape[0]} f32 node rows), {S1_RAYS} rays x {S1_ITERS} "
+            f"steps: bit-equal to the plain version (and on {BLOCK} random rays); {t_n:.4f} ms "
+            f"({S1_ITERS // 2} steps: {t_h:.4f} ms): c_node {step_ms * 1e3:.4f} us per step of "
+            f"the launch, {fetch_ns:.5f} ns per node fetch; bound {bound_ms:.4f} ms "
+            f"({bound_by}), {bound_ms / t_n:.4f} of bound; plain {plain_ms:.1f} ms")
+    res["launches"] = nb.LAUNCHES["node_bench"]
+    return res
+
+
+def model_share(row: dict, c_fetch_ns: float, label: str) -> float:
+    """S1's model of a kernel's time: its node fetches times c_node per
+    fetch, over its measured time."""
+    share = row["wide_nodes"] * c_fetch_ns * 1e-6 / row["ms"]
+    log(f"[12] S1 model, {label}: {row['wide_nodes']} node fetches x {c_fetch_ns:.5f} ns = "
+        f"{row['wide_nodes'] * c_fetch_ns * 1e-6:.4f} ms of the measured {row['ms']:.3f} ms: "
+        f"{share:.4f}")
+    return share
+
+
 def whole_path_pass(mk, r, md):
     """A pass of the Renderer's scene through the whole-path kernel
     (auto_trace bypassed): sample 0's pcg streams and camera rays over the
@@ -1249,6 +1490,7 @@ def main():
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import cuda_build as cb
     from cuda_pt_torch.ops import megakernel as mk
+    from cuda_pt_torch.ops import node_bench as nb
     from cuda_pt_torch.ops import traverse_kernel as tk
     from cuda_pt_torch.scene import testscenes as tts
     from cuda_pt_torch.scene import types as T
@@ -1257,7 +1499,7 @@ def main():
 
     dev = torch.device("cuda")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    phase_build(cb)
+    build = phase_build(cb)
     card = phase_card()
     walk = phase_walk(mk, tts, dev)
     walk_k, kscene, kcam, build_s = phase_walk_kitchen(mk, tts, dev)
@@ -1291,13 +1533,25 @@ def main():
                                 RenderingConfig, ParsedScene, Renderer)
     routes = phase_routes(mk, tk, tts, dev, rv.parsed.scene, rv.parsed.camera, MaxDepthParams,
                           RendererType, RenderingConfig, ParsedScene, Renderer)
+    rm_cornell, rm_kitchen = phase_render_megakernel(mk, tk, tts, dev, kscene, kcam,
+                                                     res4["cornell"]["mean_plain"], MaxDepthParams)
+    s1 = phase_s1(mk, nb, tk, dev, {"cornell": tts.cornell_box(device=dev)[0],
+                                    "kitchen": kscene})
+    rm_cornell["s1_model_share"] = model_share(
+        rm_cornell, s1["cornell"]["c_node_ns_per_fetch"], "render_megakernel cornell, K2+BIN")
+    rm_kitchen["s1_model_share"] = model_share(
+        rm_kitchen, s1["kitchen"]["c_node_ns_per_fetch"], "render_megakernel kitchen, K5 "
+        "SEG+K3+ALL+BIN (c_node of the f32 rows; the pass walks bf16 rows)")
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
     kernels = [
         k2, k3, k4,
-        {"name": "trace_megakernel_seg (K5, kitchen_stress: SEG+K3+ALL)", **seg, **k5_kitchen},
-        {"name": "trace_megakernel_seg (K5, medium_cbox: SEG+ALL+MED)", **seg, **k5_vpt},
+        {"name": "trace_megakernel_seg (K5, kitchen_stress: SEG+K3+ALL+CPT, t9 prims, bf16 "
+                 "attrs)", **seg, "source": "cuda_pt_torch/csrc/megakernel_seg_cpt.cu",
+         **k5_kitchen},
+        {"name": "trace_megakernel_seg (K5, medium_cbox: SEG+ALL+MED+CPT, t9 prims, bf16 attrs)",
+         **seg, "source": "cuda_pt_torch/csrc/megakernel_seg_cpt.cu", **k5_vpt},
         {"name": "trace_megakernel_seg (K5 shade, grid_smoke: SEG+SHADE+ALL+MED+GRID)", **seg,
          **k5_grid},
         {"name": "traverse_closest (K6, grid_smoke)", "route": "cuda",
@@ -1316,10 +1570,25 @@ def main():
          "prim_tests": closest["prim_tests"], **k1_wf,
          "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
                  "rays of kitchen_stress; main_path_*: summed over one wavefront spp"},
+        {"name": "trace_megakernel (K2+BIN: render_megakernel, cornell, binary f32 nodes)",
+         "route": "cuda", "source": "cuda_pt_torch/csrc/megakernel_bin.cu",
+         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:802", "library_ms": None,
+         **rm_cornell},
+        {"name": "trace_megakernel_seg (K5 SEG+K3+ALL+BIN: render_megakernel, kitchen_stress, "
+                 "bf16 nodes, t9 prims, bf16 attrs)", **seg,
+         "source": "cuda_pt_torch/csrc/megakernel_seg_bin.cu",
+         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:802", **rm_kitchen},
+        {"name": "node_bench (S1, kitchen_stress f32 rows)", "route": "cuda",
+         "source": "cuda_pt_torch/csrc/node_bench.cu", "replaces": "scripts/roofline.py:116",
+         "library_ms": None, "launches": s1["launches"], **s1["kitchen"],
+         "cornell": s1["cornell"],
+         "note": "launches: S1's own phase (no render path runs it); ms: S1_ITERS steps on "
+                 "S1_RAYS equal rays"},
     ]
     for k in kernels:
         k.pop("runs", None)
-    extra = {"k1_check": {k: v for k, v in k1.items() if k != "timing"}, "routes_check": routes}
+    extra = {"k1_check": {k: v for k, v in k1.items() if k != "timing"}, "routes_check": routes,
+             "build": build}
     if args.profile:
         md = MaxDepthParams()
         for key, run in (("profile", r.render_raw), ("profile_kitchen", rk.render_raw),

@@ -36,6 +36,12 @@ compute the same estimator per lane on untextured scenes; on textured ones
 Russian roulette sees the texels of the earlier bounces, and it agrees
 with the whole-path kernel in the mean only, as in the reference.
 
+The kernel routes pack the scene as the reference's Renderer does
+(make_pack(node_fmt="w8")): w8 nodes, and attrs and prims by the
+reference's rule, so a scene whose f32 pack exceeds AUTO_COMPACT_BYTES
+(2 MiB; kitchen_stress, medium_cbox) renders with bf16 attrs (shading
+normals truncated to bf16) and, if all triangles, t9 prims.
+
 The kernel's envelope (megakernel_ok): all surface BSDF families but
 Plastic-forward, area / area-spot / point emitters, envmaps, diffuse
 textures, dispersion; under RendererType.VOLUME_PT (a vpt pack,
@@ -107,7 +113,10 @@ class Renderer:
         (module docstring).
 
         nee_candidates: M > 1 = RIS light sampling (M candidates, one
-        shadow ray); the volume path tracer takes 1. max_lanes_per_call: split a pass into full-width row
+        shadow ray); the fused volume path tracer takes 1 (traversal="fused"
+        raises), so under the default route VOLUME_PT with M > 1 renders the
+        composed volume path tracer, which ignores M, and info() reports M,
+        as in the reference. max_lanes_per_call: split a pass into full-width row
         bands of at most this many lanes, one call each (0 = one call
         per pass; default from CUDA_PT_MAX_LANES_PER_CALL, else 0); the
         wavefront route is never banded. Bands are bit-identical to the
@@ -124,7 +133,7 @@ class Renderer:
         if traversal not in (None, "fused", *pt.TRAVERSALS):
             raise ValueError(f"unknown traversal {traversal!r}")
         vpt = self.rtype == RendererType.VOLUME_PT
-        if vpt and int(nee_candidates) != 1:
+        if vpt and int(nee_candidates) != 1 and traversal == "fused":
             raise ValueError("the fused volume path tracer takes nee_candidates=1, as in the "
                              "reference")
         if traversal == "fused" and self.rtype == RendererType.WAVEFRONT_PT:
@@ -132,7 +141,10 @@ class Renderer:
                              "renderer, as in the reference")
         scene = self.parsed.scene
         self.md: MaxDepthParams = self.config.md
+        # the volume path tracer with nee_candidates > 1 takes the composed
+        # route, which ignores it (the reference's auto-pick, api.py:106-110)
         fused_ok = (self.rtype != RendererType.WAVEFRONT_PT
+                    and (not vpt or int(nee_candidates) == 1)
                     and mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"))
         self.fused = traversal == "fused" or (traversal is None and fused_ok)
         has_grid = vpt and bool((scene.media.mtype == T.MEDIUM_GRID).any())
@@ -162,6 +174,7 @@ class Renderer:
         if max_lanes_per_call is None:
             max_lanes_per_call = int(os.environ.get("CUDA_PT_MAX_LANES_PER_CALL", "0"))
         self.max_lanes_per_call = int(max_lanes_per_call)
+        # w8 nodes, attr and prim formats by the reference's rule (make_pack)
         self._pack = mk.make_pack(self.scene, node_fmt="w8", vpt=vpt) if self.fused else None
         self.film = film_mod.make_film(self.camera.height, self.camera.width, self.device)
         self._frame_times = deque(maxlen=32)

@@ -9,6 +9,8 @@
 //                            count hits only before t_far * SHADOW_T_FACTOR
 //   SLOT_F, MAX_EMITTERS     megakernel.SLOT_F (f32 fields per packed slot),
 //                            megakernel.MAX_EMITTERS (slot 0 = null)
+//   T9_PER_ROW               megakernel.T9_PER_ROW: prims per 128-float row
+//                            of the t9 prim table
 //   MK_MAX_STACK             cuda_build.MK_MAX_STACK, the per-thread
 //                            traversal stack (make_pack checks the scene fits)
 //   MK_MIN_BLOCKS            cuda_build.MK_MIN_BLOCKS: resident 128-thread
@@ -30,7 +32,7 @@
 
 #if !defined(HIT_EPS) || !defined(RAY_OFFSET) || !defined(SHADOW_T_FACTOR) || \
     !defined(SLOT_F) || !defined(MAX_EMITTERS) || !defined(MK_MAX_STACK) || \
-    !defined(MK_MIN_BLOCKS) || \
+    !defined(MK_MIN_BLOCKS) || !defined(T9_PER_ROW) || \
     !defined(SPEC_WL_MIN) || !defined(SPEC_M00) || !defined(SPEC_NORM_R) || \
     !defined(SPEC_LOBE63)
 #error "build with cuda_pt_torch/ops/cuda_build.py, which passes the shared constants"
@@ -61,11 +63,20 @@
 #define LOBE_TRANSMIT 2
 
 // Row-packed scene tables built by ops/megakernel.make_pack. Each table is
-// a flat f32 array; a slot is 16 consecutive floats.
-//   nodes : wide node w, child c at nodes[w*128 + c*9 + f],
-//           f = lo(3) hi(3) enc base cnt; enc >= 0 interior, -1 leaf, -2 empty
-//   prims : prim p at prims[p*16 + f], f = p0(3) e1(3) e2(3) is_sphere gid
-//   attrs : prim p at attrs[p*16 + f], f = n0(3) n1(3) n2(3) eid inv_area bid
+// a flat f32 array; a slot is 16 consecutive floats. The node, prim and
+// attr tables come in the formats of the reference's make_pack (the pack's
+// fmt bits, FMT_*):
+//   nodes : w8: wide node w, child c at nodes[w*128 + c*9 + f],
+//           f = lo(3) hi(3) enc base cnt; enc >= 0 interior, -1 leaf, -2 empty;
+//           binary (f32 or bf16 rows): the skip tree's nodes (csrc/bin_node.cuh)
+//   prims : f32: prim p at prims[p*16 + f], f = p0(3) e1(3) e2(3) is_sphere gid;
+//           t9 (all-triangle scenes): prim p at prims[(p / T9_PER_ROW)*128 +
+//           (p % T9_PER_ROW)*9 + f], f = p0(3) e1(3) e2(3); its id is p
+//   attrs : f32: prim p at attrs[p*16 + f], f = n0(3) n1(3) n2(3) eid inv_area
+//           bid medium_in is_null; bf16: prim p at attrs[p*8 + w], w = n0x|n0y
+//           n0z|n1x n1y|n1z n2x|n2y n2z|sph eid|bid inv_area(f32) medium_in|is_null,
+//           each pair two bf16 (the first in the high 16 bits); attr() reads
+//           either by the f32 field number
 //   erow  : emitter i at erow[i*16 + f],
 //           f = etype em(3) pos(3) sel_pmf sel_cdf kmax falloff
 //   eprims: slot s at eprims[s*16 + f], f = p0(3) e1(3) e2(3) cdf eid k inv_area
@@ -80,6 +91,13 @@
 // Kernel K4 reads attrs fields 12, 13 of prim p: medium_in (-1 = none),
 // is_null (forward BSDF or cullable object); its media row is not part of
 // the Pack (media.cuh, MedArgs).
+// The fmt bits of the C entry points (ops/megakernel.walk_args):
+#define FMT_BIN 1        // binary skip-tree nodes (else w8)
+#define FMT_NODE_BF16 2  // binary nodes in bf16 rows
+#define FMT_PRIM_T9 4    // t9 prims
+#define FMT_ATTR_BF16 8  // bf16 attrs
+// a compact table: a w8 pack with one runs the CPT build
+#define FMT_COMPACT (FMT_PRIM_T9 | FMT_ATTR_BF16)
 struct Pack {
     const float* nodes;
     const float* prims;
@@ -94,6 +112,10 @@ struct Pack {
     const float* envrow;
     int max_leaf;
     int tri_only;
+    int node_bf16;  // binary nodes: bf16 rows (the walk's template flag BIN picks binary)
+    int n_nodes;    // binary nodes: the tree's real nodes (the walk stops there)
+    int prim_t9;
+    int attr_bf16;
     int has_env;
     int textured;
     int has_disp;
@@ -102,6 +124,41 @@ struct Pack {
 struct V3 {
     float x, y, z;
 };
+
+// The table accessors take the kernel's template flag CPT: without it the
+// build reads f32 prim and attr rows only (the code of the f32 tables, with
+// no format branch); with it, the formats of the Pack, branched per fetch
+// (the branch is the same for every thread).
+
+// prim p's p0(3) e1(3) e2(3) (f32 rows go on with is_sphere, gid)
+template <bool CPT>
+__device__ __forceinline__ const float* prim_row(const Pack& pk, int p) {
+    if (CPT && pk.prim_t9) {
+        return pk.prims + (size_t)(p / T9_PER_ROW) * 128 + (p % T9_PER_ROW) * 9;
+    }
+    return pk.prims + (size_t)p * SLOT_F;
+}
+
+// the global id of prim slot p: the slot itself in t9 rows (make_pack packs
+// the prims in id order), field 10 of an f32 row
+template <bool CPT>
+__device__ __forceinline__ int prim_gid(const Pack& pk, int p) {
+    return (CPT && pk.prim_t9) ? p : (int)pk.prims[(size_t)p * SLOT_F + 10];
+}
+
+// field f of prim p's attrs, numbered as in the f32 rows; a bf16 field is
+// exact as an f32 (its high half)
+template <bool CPT>
+__device__ __forceinline__ float attr(const Pack& pk, int p, int f) {
+    if (!CPT || !pk.attr_bf16) return pk.attrs[(size_t)p * SLOT_F + f];
+    const float* a = pk.attrs + (size_t)p * 8;
+    if (f == 10) return a[6];  // inv_area stays f32
+    // normals 0-8 fill words 0-4 in order; eid|bid word 5; medium|null word 7
+    int w = f < 9 ? f >> 1 : (f == 9 || f == 11 ? 5 : 7);
+    bool high = f < 9 ? (f & 1) == 0 : (f == 9 || f == 12);
+    unsigned u = (unsigned)__float_as_int(a[w]);
+    return __int_as_float((int)(high ? (u & 0xFFFF0000u) : (u << 16)));
+}
 
 __device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
 __device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }

@@ -105,13 +105,14 @@ __device__ __forceinline__ V3 phase_sample(const Medium& m, V3 d, float up0, flo
 // hit before the light gives 0. The remaining distance drops by the full
 // advance (hit t plus the origin offset), so it stays the distance to the
 // light from the advanced origin.
+template <bool BIN, bool CPT>
 static __device__ V3 walk_transmittance(const Pack& pk, const MedArgs& ma, V3 o, V3 d,
                                         float dist, int med0, WalkStats& st) {
     V3 tr = v3(1.0f, 1.0f, 1.0f);
     int cur = med0;
     float rem = dist;
     for (int k = 0; k < MAX_CROSSINGS; ++k) {
-        ClosestHit h = walk_closest(pk, o, d, st);
+        ClosestHit h = walk_closest<BIN, CPT>(pk, o, d, st);
         bool hit = h.prim >= 0;
         if (cur >= 0) {
             V3 s = load3(ma.mrow + cur * SLOT_F + 6);
@@ -119,9 +120,8 @@ static __device__ V3 walk_transmittance(const Pack& pk, const MedArgs& ma, V3 o,
             tr = v3(tr.x * expf(-s.x * seg), tr.y * expf(-s.y * seg), tr.z * expf(-s.z * seg));
         }
         if (!(hit && h.t < rem * SHADOW_T_FACTOR)) break;  // the light is reached
-        const float* at = pk.attrs + (size_t)h.prim * SLOT_F;
-        if (!(at[13] > 0.5f)) return v3(0.0f, 0.0f, 0.0f);  // opaque: occluded
-        int med_obj = (int)at[12];
+        if (!(attr<CPT>(pk, h.prim, 13) > 0.5f)) return v3(0.0f, 0.0f, 0.0f);  // opaque
+        int med_obj = (int)attr<CPT>(pk, h.prim, 12);
         if (med_obj >= 0) cur = cur == med_obj ? -1 : med_obj;
         float adv = h.t + RAY_OFFSET;
         o = add(o, scale(d, adv));

@@ -3,9 +3,12 @@
 // Replaces the TPU kernel ops/pallas/megakernel.py::_kernel (:500) in its
 // whole-path mode (trace_megakernel, :2963, pallas_call at :3083) for the
 // surface envelope of that kernel: nine BSDF families, area / area-spot /
-// point emitters, and the K3 flags has_env, textured and has_disp (w8
-// nodes, f32 attrs and prims), and for a vpt pack the homogeneous media of
-// kernel K4 (below). Per bounce, in the pcg draw order
+// point emitters, and the K3 flags has_env, textured and has_disp, and for
+// a vpt pack the homogeneous media of kernel K4 (below); on every table
+// format of the reference's make_pack: w8 or binary nodes (f32 or bf16
+// rows; template flag BIN, csrc/walk.cuh), f32 or t9 prims, f32 or bf16
+// attrs (runtime fields of the Pack, branched per fetch: the branch is the
+// same for every thread). Per bounce, in the pcg draw order
 // of models/path_tracer.pt_bounce: closest walk -> [env miss] ->
 // emitter-hit MIS -> NEE (power-pmf emitter pick, emitter-prim CDF, RIS
 // over nee_m candidates, any-hit shadow walk) -> BSDF sample -> per-lobe
@@ -36,7 +39,10 @@
 // Three template flags prune code at compile time: K3 (any of the three
 // flags set), ALL (a family beyond Lambertian / Specular / Translucent
 // present) and MED (a vpt pack with media; built with ALL only). A scene
-// runs the smallest of the six instantiations that covers it.
+// runs the smallest of the six instantiations that covers it, in the build
+// of its tables: f32, CPT (a w8 pack with t9 prims or bf16 attrs: the
+// formats read from the Pack) or BIN (binary nodes, any prim and attr
+// format): eighteen in all.
 //
 // Bound on an H100: operations, not bytes. Each ray reads 36 B and writes
 // 12 B, while its walks run tens of slab and triangle tests per bounce on
@@ -57,16 +63,22 @@
 // operations.
 //
 // The kernel template is csrc/trace.cuh (its loop body csrc/bounce.inc);
-// this unit instantiates the four surface builds, csrc/megakernel_med.cu
-// the two MED ones (launch_trace_med). The sorted-wavefront driver's
+// this unit instantiates the four surface builds of w8 packs with f32
+// tables, csrc/megakernel_med.cu the two MED ones (launch_trace_med),
+// csrc/megakernel_cpt.cu the six of w8 packs with t9 prims or bf16 attrs
+// (CPT, launch_trace_cpt), csrc/megakernel_bin.cu the six of binary packs
+// (BIN, launch_trace_bin). The sorted-wavefront driver's
 // kernels, K5 (one bounce per launch, csrc/seg.cuh) and K6, are built in
 // csrc/megakernel_seg.cu and csrc/megakernel_split.cu.
 //
 // Two C entry points, called through ctypes (ops/megakernel.py):
 //   mk_trace        -> L (B, 3) for rays (B, 3) x 2 and pcg states (B, 2);
 //                      writes the instantiation it launched to *variant
-//   mk_closest_hit  -> (t, prim, b1, b2) of the same closest walk alone
-// Both return cudaGetLastError() right after the launch.
+//   mk_closest_hit  -> (t, prim, b1, b2) of the same closest walk alone (the
+//                      pack's node format's)
+// Both take the pack's table formats as fmt (FMT_* bits, csrc/common.cuh)
+// and a binary tree's node count as n_nodes, and return cudaGetLastError()
+// right after the launch.
 
 #include "trace.cuh"
 
@@ -76,6 +88,7 @@ void launch_trace_med(bool k3, const Pack& pk, const DepthCaps& md, int nee_m, c
                       const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
                       const MedArgs& ma, cudaStream_t stream);
 
+template <bool BIN, bool CPT>
 __global__ void __launch_bounds__(128) closest_hit_kernel(Pack pk,
                                                           const float* __restrict__ ray_o,
                                                           const float* __restrict__ ray_d,
@@ -86,29 +99,53 @@ __global__ void __launch_bounds__(128) closest_hit_kernel(Pack pk,
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= B) return;
     WalkStats st{0, 0};
-    ClosestHit h = walk_closest(pk, load3(ray_o + 3 * (size_t)i), load3(ray_d + 3 * (size_t)i), st);
+    ClosestHit h = walk_closest<BIN, CPT>(pk, load3(ray_o + 3 * (size_t)i),
+                                     load3(ray_d + 3 * (size_t)i), st);
     out_t[i] = h.t;
     out_prim[i] = h.prim;
     out_b1[i] = h.b1;
     out_b2[i] = h.b2;
 }
 
+template <bool BIN, bool CPT>
+static void launch_closest_hit(const Pack& pk, const float* ray_o, const float* ray_d,
+                               float* out_t, int* out_prim, float* out_b1, float* out_b2, int B,
+                               cudaStream_t stream) {
+    int threads = 128;
+    int blocks = (B + threads - 1) / threads;
+    closest_hit_kernel<BIN, CPT><<<blocks, threads, 0, stream>>>(pk, ray_o, ray_d, out_t,
+                                                                 out_prim, out_b1, out_b2, B);
+}
+
 extern "C" int mk_trace(const void* const* tables, const float* ray_o, const float* ray_d,
                         const uint32_t* rng, float* out_L, int* stats, int B, int max_leaf,
-                        int tri_only, int has_env, int textured, int has_disp, int all_families,
-                        int has_media, int ambient_med, int max_depth, int max_diffuse,
-                        int max_specular, int max_transmit, int max_volume, int nee_m,
-                        int* variant, void* stream) {
-    Pack pk = make_pack_view(tables, max_leaf, tri_only, has_env, textured, has_disp);
+                        int tri_only, int fmt, int n_nodes, int has_env, int textured,
+                        int has_disp, int all_families, int has_media, int ambient_med,
+                        int max_depth, int max_diffuse, int max_specular, int max_transmit,
+                        int max_volume, int nee_m, int* variant, void* stream) {
+    Pack pk = make_pack_view(tables, max_leaf, tri_only, fmt, n_nodes, has_env, textured,
+                             has_disp);
     DepthCaps md{max_depth, max_diffuse, max_specular, max_transmit};
     MedArgs ma{(const float*)tables[11], ambient_med, max_volume};
     cudaStream_t st = (cudaStream_t)stream;
     bool k3 = has_env || textured || has_disp;
     bool all = all_families || has_media;  // MED is built with ALL only
-    // the instantiation launched: bit 0 K3, bit 1 ALL, bit 2 MED
-    if (variant != nullptr) *variant = (k3 ? 1 : 0) | (all ? 2 : 0) | (has_media ? 4 : 0);
+    bool bin = (fmt & FMT_BIN) != 0;
+    bool cpt = !bin && (fmt & FMT_COMPACT) != 0;
+    // the instantiation launched: bit 0 K3, bit 1 ALL, bit 2 MED, bit 6 BIN,
+    // bit 7 CPT
+    if (variant != nullptr) {
+        *variant = (k3 ? 1 : 0) | (all ? 2 : 0) | (has_media ? 4 : 0) | (bin ? 64 : 0)
+                   | (cpt ? 128 : 0);
+    }
     if (B > 0) {
-        if (has_media) {
+        if (bin) {
+            launch_trace_bin(k3, all, has_media, pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                             B, ma, st);
+        } else if (cpt) {
+            launch_trace_cpt(k3, all, has_media, pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                             B, ma, st);
+        } else if (has_media) {
             launch_trace_med(k3, pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, st);
         } else if (k3 && all_families) {
             launch_trace<true, true, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, st);
@@ -125,13 +162,20 @@ extern "C" int mk_trace(const void* const* tables, const float* ray_o, const flo
 
 extern "C" int mk_closest_hit(const void* const* tables, const float* ray_o, const float* ray_d,
                               float* out_t, int* out_prim, float* out_b1, float* out_b2, int B,
-                              int max_leaf, int tri_only, void* stream) {
-    Pack pk = make_pack_view(tables, max_leaf, tri_only, 0, 0, 0);
-    int threads = 128;
-    int blocks = (B + threads - 1) / threads;
+                              int max_leaf, int tri_only, int fmt, int n_nodes, void* stream) {
+    Pack pk = make_pack_view(tables, max_leaf, tri_only, fmt, n_nodes, 0, 0, 0);
+    cudaStream_t st = (cudaStream_t)stream;
     if (B > 0) {
-        closest_hit_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            pk, ray_o, ray_d, out_t, out_prim, out_b1, out_b2, B);
+        if (fmt & FMT_BIN) {
+            launch_closest_hit<true, true>(pk, ray_o, ray_d, out_t, out_prim, out_b1, out_b2, B,
+                                           st);
+        } else if (fmt & FMT_COMPACT) {
+            launch_closest_hit<false, true>(pk, ray_o, ray_d, out_t, out_prim, out_b1, out_b2, B,
+                                            st);
+        } else {
+            launch_closest_hit<false, false>(pk, ray_o, ray_d, out_t, out_prim, out_b1, out_b2, B,
+                                             st);
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -1,22 +1,28 @@
-// Kernel K5's SEG instantiations (csrc/seg.cuh: one bounce per launch on
-// carried state, the bounce walking its own closest hit), in a translation
-// unit of their own so that the whole-path kernels' module stays as it is
-// (csrc/trace.cuh), and the C entry point of every K5 launch:
+// Kernel K5's SEG instantiations of w8 packs (csrc/seg.cuh: one bounce per
+// launch on carried state, the bounce walking its own closest hit), in a
+// translation unit of their own so that the whole-path kernels' module
+// stays as it is (csrc/trace.cuh), and the C entry point of every K5
+// launch (those of binary packs are built in csrc/megakernel_seg_bin.cu,
+// those of w8 packs with t9 prims or bf16 attrs in megakernel_seg_cpt.cu):
 //   mk_trace_seg -> the state planes advanced by one bounce in place, for
 //                   the first n lanes; writes the instantiation it launched
 //                   to *variant (bits: K3 1, ALL 2, MED 4, SEG 8, SHADE 16,
-//                   GRID 32)
-// It returns cudaGetLastError() right after the launch.
+//                   GRID 32, BIN 64, CPT 128)
+// It takes the pack's table formats as fmt (FMT_* bits, csrc/common.cuh)
+// and a binary tree's node count as n_nodes, and returns cudaGetLastError()
+// right after the launch.
 
 #include "seg.cuh"
 
 extern "C" int mk_trace_seg(const void* const* tables, int* state, int stride, int n, int bounce,
                             const float* hit, const float* flight, int* stats, int max_leaf,
-                            int tri_only, int has_env, int textured, int has_disp,
-                            int all_families, int has_media, int has_grid, int ambient_med, int max_depth, int max_diffuse, int max_specular,
+                            int tri_only, int fmt, int n_nodes, int has_env, int textured,
+                            int has_disp, int all_families, int has_media, int has_grid,
+                            int ambient_med, int max_depth, int max_diffuse, int max_specular,
                             int max_transmit, int max_volume, int nee_m, int* variant,
                             void* stream) {
-    Pack pk = make_pack_view(tables, max_leaf, tri_only, has_env, textured, has_disp);
+    Pack pk = make_pack_view(tables, max_leaf, tri_only, fmt, n_nodes, has_env, textured,
+                             has_disp);
     DepthCaps md{max_depth, max_diffuse, max_specular, max_transmit};
     MedArgs ma{(const float*)tables[11], ambient_med, max_volume};
     SegArgs a{bounce, state, stride, n, hit, flight, stats};
@@ -27,12 +33,22 @@ extern "C" int mk_trace_seg(const void* const* tables, int* state, int stride, i
     bool grid = has_media && has_grid;
     // MED and SHADE are built with ALL only
     bool all = all_families || has_media;
+    // no SHADE form for a binary pack: the split driver needs a w8 pack
+    // (ops/megakernel.trace_megakernel_swf raises before a launch)
+    if ((fmt & FMT_BIN) != 0 && grid) return (int)cudaErrorInvalidValue;
+    bool bin = (fmt & FMT_BIN) != 0;
+    bool cpt = !bin && (fmt & FMT_COMPACT) != 0;
     if (variant != nullptr) {
-        *variant = (k3 ? 1 : 0) | (all ? 2 : 0) | (has_media ? 4 : 0) | 8 | (grid ? 16 | 32 : 0);
+        *variant = (k3 ? 1 : 0) | (all ? 2 : 0) | (has_media ? 4 : 0) | 8 | (grid ? 16 | 32 : 0)
+                   | (bin ? 64 : 0) | (cpt ? 128 : 0);
     }
     if (n > 0) {
-        if (grid) {
-            launch_shade(k3, pk, md, nee_m, a, ma, st);
+        if (bin) {
+            launch_seg_bin(k3, all, has_media, pk, md, nee_m, a, ma, st);
+        } else if (grid) {
+            launch_shade(k3, cpt, pk, md, nee_m, a, ma, st);
+        } else if (cpt) {
+            launch_seg_cpt(k3, all, has_media, pk, md, nee_m, a, ma, st);
         } else if (has_media && k3) {
             launch_seg<true, true, true, false, false>(pk, md, nee_m, a, ma, st);
         } else if (has_media) {

@@ -74,15 +74,16 @@ struct SegIO {
     V3 gc, gp0, gp1;
 };
 
-// The bounce's closest hit: walked (SEG) or resolved from planes (SHADE;
-// prim 0 marks a hit, its attributes come from io).
-template <bool SHADE>
+// The bounce's closest hit: walked (SEG; BIN: the binary tree's walk) or
+// resolved from planes (SHADE; prim 0 marks a hit, its attributes come
+// from io).
+template <bool SHADE, bool BIN, bool CPT>
 __device__ __forceinline__ ClosestHit seg_hit(const Pack& pk, V3 o, V3 d, WalkStats& st,
                                               const SegIO& io) {
     if constexpr (SHADE) {
         return ClosestHit{io.t, io.hit ? 0 : -1, 0.0f, 0.0f};
     } else {
-        return walk_closest(pk, o, d, st);
+        return walk_closest<BIN, CPT>(pk, o, d, st);
     }
 }
 
@@ -148,7 +149,7 @@ __device__ __forceinline__ void seg_st3(int* sp, int k, int stride, V3 v) {
     seg_st(sp, k + 2, stride, v.z);
 }
 
-template <bool K3, bool ALL, bool MED, bool SHADE, bool GRID>
+template <bool K3, bool ALL, bool MED, bool SHADE, bool GRID, bool BIN, bool CPT>
 __global__ void __launch_bounds__(128, MK_MIN_BLOCKS) seg_kernel(Pack pk, DepthCaps md, int nee_m,
                                                   int bounce, int* __restrict__ state,
                                                   int stride, int n,
@@ -271,16 +272,45 @@ struct SegArgs {
     int* stats;
 };
 
-template <bool K3, bool ALL, bool MED, bool SHADE, bool GRID>
+template <bool K3, bool ALL, bool MED, bool SHADE, bool GRID, bool BIN = false,
+          bool CPT = false>
 static void launch_seg(const Pack& pk, const DepthCaps& md, int nee_m, const SegArgs& a,
                        const MedArgs& ma, cudaStream_t stream) {
     int threads = 128;
     int blocks = (a.n + threads - 1) / threads;
-    seg_kernel<K3, ALL, MED, SHADE, GRID><<<blocks, threads, 0, stream>>>(
+    seg_kernel<K3, ALL, MED, SHADE, GRID, BIN, CPT><<<blocks, threads, 0, stream>>>(
         pk, md, nee_m, a.bounce, a.state, a.stride, a.n, a.hit, a.flight, a.stats, ma);
 }
 
+// The six SEG instantiations of one table build: the one that covers the
+// pack's flags.
+template <bool BIN, bool CPT>
+static void launch_seg_fmt(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md,
+                           int nee_m, const SegArgs& a, const MedArgs& ma, cudaStream_t stream) {
+    if (med && k3) {
+        launch_seg<true, true, true, false, false, BIN, CPT>(pk, md, nee_m, a, ma, stream);
+    } else if (med) {
+        launch_seg<false, true, true, false, false, BIN, CPT>(pk, md, nee_m, a, ma, stream);
+    } else if (k3 && all) {
+        launch_seg<true, true, false, false, false, BIN, CPT>(pk, md, nee_m, a, ma, stream);
+    } else if (k3) {
+        launch_seg<true, false, false, false, false, BIN, CPT>(pk, md, nee_m, a, ma, stream);
+    } else if (all) {
+        launch_seg<false, true, false, false, false, BIN, CPT>(pk, md, nee_m, a, ma, stream);
+    } else {
+        launch_seg<false, false, false, false, false, BIN, CPT>(pk, md, nee_m, a, ma, stream);
+    }
+}
+
 // megakernel_split.cu: the SHADE instantiations of a grid pack (ALL, MED
-// and GRID; K3 with dispersion)
-void launch_shade(bool k3, const Pack& pk, const DepthCaps& md, int nee_m, const SegArgs& a,
-                  const MedArgs& ma, cudaStream_t stream);
+// and GRID; K3 with dispersion; CPT with t9 prims or bf16 attrs)
+void launch_shade(bool k3, bool cpt, const Pack& pk, const DepthCaps& md, int nee_m,
+                  const SegArgs& a, const MedArgs& ma, cudaStream_t stream);
+
+// The SEG instantiations of a pack with binary nodes (megakernel_seg_bin.cu:
+// BIN, with the Pack's formats) and of a w8 pack with t9 prims or bf16
+// attrs (megakernel_seg_cpt.cu: CPT)
+void launch_seg_bin(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
+                    const SegArgs& a, const MedArgs& ma, cudaStream_t stream);
+void launch_seg_cpt(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
+                    const SegArgs& a, const MedArgs& ma, cudaStream_t stream);

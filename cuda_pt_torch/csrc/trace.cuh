@@ -49,9 +49,10 @@ __device__ __forceinline__ V3 wavelength_to_rgb(float wl) {
 }
 
 // The pack's tables in ops/megakernel.PACK_KEYS + K3_KEYS order (the
-// media row follows them, MED_KEYS).
-static Pack make_pack_view(const void* const* t, int max_leaf, int tri_only, int has_env,
-                           int textured, int has_disp) {
+// media row follows them, MED_KEYS); fmt: the FMT_* bits of the table
+// formats, n_nodes: a binary tree's real nodes.
+static Pack make_pack_view(const void* const* t, int max_leaf, int tri_only, int fmt,
+                           int n_nodes, int has_env, int textured, int has_disp) {
     Pack pk;
     pk.nodes = (const float*)t[0];
     pk.prims = (const float*)t[1];
@@ -66,6 +67,10 @@ static Pack make_pack_view(const void* const* t, int max_leaf, int tri_only, int
     pk.envrow = (const float*)t[10];
     pk.max_leaf = max_leaf;
     pk.tri_only = tri_only;
+    pk.node_bf16 = (fmt & FMT_NODE_BF16) != 0;
+    pk.n_nodes = n_nodes;
+    pk.prim_t9 = (fmt & FMT_PRIM_T9) != 0;
+    pk.attr_bf16 = (fmt & FMT_ATTR_BF16) != 0;
     pk.has_env = has_env;
     pk.textured = textured;
     pk.has_disp = has_disp;
@@ -73,7 +78,7 @@ static Pack make_pack_view(const void* const* t, int max_leaf, int tri_only, int
 }
 
 #ifndef MK_SEG
-template <bool K3, bool ALL, bool MED>
+template <bool K3, bool ALL, bool MED, bool BIN, bool CPT>
 __global__ void __launch_bounds__(128, MK_MIN_BLOCKS) trace_kernel(Pack pk, DepthCaps md, int nee_m,
                                                     const float* __restrict__ ray_o,
                                                     const float* __restrict__ ray_d,
@@ -111,13 +116,51 @@ __global__ void __launch_bounds__(128, MK_MIN_BLOCKS) trace_kernel(Pack pk, Dept
     }
 }
 
-template <bool K3, bool ALL, bool MED>
+template <bool K3, bool ALL, bool MED, bool BIN = false, bool CPT = false>
 static void launch_trace(const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
                          const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
                          const MedArgs& ma, cudaStream_t stream) {
     int threads = 128;
     int blocks = (B + threads - 1) / threads;
-    trace_kernel<K3, ALL, MED><<<blocks, threads, 0, stream>>>(pk, md, nee_m, ray_o, ray_d, rng,
-                                                               out_L, stats, B, ma);
+    trace_kernel<K3, ALL, MED, BIN, CPT><<<blocks, threads, 0, stream>>>(
+        pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma);
 }
+
+// The six instantiations (surface and MED) of one table build: the one
+// that covers the pack's flags.
+template <bool BIN, bool CPT>
+static void launch_trace_fmt(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md,
+                             int nee_m, const float* ray_o, const float* ray_d,
+                             const uint32_t* rng, float* out_L, int* stats, int B,
+                             const MedArgs& ma, cudaStream_t stream) {
+    if (med && k3) {
+        launch_trace<true, true, true, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                                                 B, ma, stream);
+    } else if (med) {
+        launch_trace<false, true, true, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                                                  B, ma, stream);
+    } else if (k3 && all) {
+        launch_trace<true, true, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                                                  B, ma, stream);
+    } else if (k3) {
+        launch_trace<true, false, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                                                   B, ma, stream);
+    } else if (all) {
+        launch_trace<false, true, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                                                   B, ma, stream);
+    } else {
+        launch_trace<false, false, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                                    stats, B, ma, stream);
+    }
+}
+
+// The instantiations (surface and MED) of a pack with binary nodes
+// (megakernel_bin.cu: BIN, always with the Pack's prim and attr formats)
+// and of a w8 pack with t9 prims or bf16 attrs (megakernel_cpt.cu: CPT).
+void launch_trace_bin(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
+                      const float* ray_o, const float* ray_d, const uint32_t* rng, float* out_L,
+                      int* stats, int B, const MedArgs& ma, cudaStream_t stream);
+void launch_trace_cpt(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
+                      const float* ray_o, const float* ray_d, const uint32_t* rng, float* out_L,
+                      int* stats, int B, const MedArgs& ma, cudaStream_t stream);
 #endif  // MK_SEG

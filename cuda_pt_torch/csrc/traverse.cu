@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bin_node.cuh"
+
 #if !defined(HIT_EPS) || !defined(SHADOW_T_FACTOR) || !defined(SLOT_F)
 #error "build with cuda_pt_torch/ops/cuda_build.py, which passes the shared constants"
 #endif
@@ -55,7 +57,6 @@
 #define K1_ROW 128       // f32 per packed row
 #define K1_SLOTS 8       // f32 node / prim slots per row
 #define K1_SLOTS16 16    // bf16 node slots per row
-#define K1_SLOT_F16 8    // f32 fields per bf16 node slot
 #define K1_FAR 1e8f      // t_far when none is given
 
 struct K1Args {
@@ -74,63 +75,6 @@ struct K1Args {
     int* tile_iters;      // packet form: (n / tile,) node fetches over the chunks
     int* stats;           // per-ray form, optional: (n, 2) += node fetches, prim tests
 };
-
-struct K1Node {
-    float lo[3], hi[3];
-    int skip, base, cnt;
-};
-
-template <bool BF16>
-__device__ __forceinline__ K1Node k1_node(const float* __restrict__ chunk, int ptr) {
-    K1Node nd;
-    if (BF16) {
-        const float4* p = reinterpret_cast<const float4*>(chunk + (size_t)ptr * K1_SLOT_F16);
-        float4 a = __ldg(p);
-        float4 b = __ldg(p + 1);
-        float box[3] = {a.x, a.y, a.z};
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            unsigned u = (unsigned)__float_as_int(box[i]);
-            nd.lo[i] = __int_as_float((int)(u & 0xFFFF0000u));
-            nd.hi[i] = __int_as_float((int)(u << 16));
-        }
-        nd.skip = (int)a.w;
-        nd.base = (int)b.x;
-        nd.cnt = (int)b.y;
-    } else {
-        const float4* p = reinterpret_cast<const float4*>(chunk + (size_t)ptr * SLOT_F);
-        float4 a = __ldg(p);
-        float4 b = __ldg(p + 1);
-        float4 c = __ldg(p + 2);
-        nd.lo[0] = a.x; nd.lo[1] = a.y; nd.lo[2] = a.z;
-        nd.hi[0] = a.w; nd.hi[1] = b.x; nd.hi[2] = b.y;
-        nd.skip = (int)b.z;
-        nd.base = (int)b.w;
-        nd.cnt = (int)c.x;
-    }
-    return nd;
-}
-
-struct K1Ray {
-    float o[3], d[3], inv[3];
-};
-
-// safe_inv of the TPU kernel (traverse_kernel.py:339)
-__device__ __forceinline__ float k1_safe_inv(float v) {
-    return 1.0f / (fabsf(v) < 1e-8f ? (v < 0.0f ? -1e-8f : 1e-8f) : v);
-}
-
-__device__ __forceinline__ bool k1_box(const K1Node& nd, const K1Ray& r, float t_best) {
-    float tn = -INFINITY, tf = INFINITY;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-        float t0 = (nd.lo[i] - r.o[i]) * r.inv[i];
-        float t1 = (nd.hi[i] - r.o[i]) * r.inv[i];
-        tn = fmaxf(tn, fminf(t0, t1));
-        tf = fminf(tf, fmaxf(t0, t1));
-    }
-    return (tn <= tf) && (tf > HIT_EPS) && (tn < t_best);
-}
 
 // Prim row p against the ray (traverse_kernel.py:404-463, in its operation
 // order); true on a hit, with t, the barycentrics (0 for a sphere), the id.

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,13 +35,15 @@ MK_MIN_BLOCKS = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argtypes (csrc/megakernel*.cu: the first pointer is a host
-# array of the pack's table pointers; csrc/traverse.cu: kernel K1)
+# array of the pack's table pointers; csrc/traverse.cu: kernel K1;
+# csrc/node_bench.cu: kernel S1)
 _SIGNATURES = {
-    "mk_trace": [_P] * 6 + [_I] * 15 + [_P, _P],
-    "mk_closest_hit": [_P] * 7 + [_I] * 3 + [_P],
-    "mk_trace_seg": [_P, _P, _I, _I, _I, _P, _P, _P] + [_I] * 15 + [_P, _P],
-    "mk_traverse": [_P, _P, _I, _I, _P, _P, _I, _I, _P],
+    "mk_trace": [_P] * 6 + [_I] * 17 + [_P, _P],
+    "mk_closest_hit": [_P] * 7 + [_I] * 5 + [_P],
+    "mk_trace_seg": [_P, _P, _I, _I, _I, _P, _P, _P] + [_I] * 17 + [_P, _P],
+    "mk_traverse": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     "k1_traverse": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_P] * 7,
+    "s1_node_bench": [_P, _I, _I, _P, _P, _P, _I, _P],
 }
 
 _lib = None  # the CDLL, built from the sources as they were at first load
@@ -74,6 +77,7 @@ def _defines(min_blocks: int) -> list:
     return [f"-DHIT_EPS={isect.HIT_EPS!r}f", f"-DRAY_OFFSET={isect.RAY_OFFSET!r}f",
             f"-DSHADOW_T_FACTOR={1.0 - isect.SHADOW_T_SCALE!r}f",
             f"-DSLOT_F={mk.SLOT_F}", f"-DMAX_EMITTERS={mk.MAX_EMITTERS}",
+            f"-DT9_PER_ROW={mk.T9_PER_ROW}",
             f"-DMK_MAX_STACK={MK_MAX_STACK}", f"-DMK_MIN_BLOCKS={min_blocks}", *spec]
 
 
@@ -169,6 +173,41 @@ def build_log(lib_path: str | None = None) -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def _demangle(name: str) -> str:
+    """A kernel's mangled name as name<flags> (its bool template flags)."""
+    m = re.match(r"_Z(\d+)", name)
+    if not m:
+        return name
+    n = int(m.group(1))
+    base = name[m.end():m.end() + n]
+    flags = re.match(r"I((?:Lb[01]E)+)E", name[m.end() + n:])
+    return f"{base}<{','.join(re.findall(r'Lb([01])E', flags.group(1)))}>" if flags else base
+
+
+def ptxas_report(log: str) -> list:
+    """Per kernel entry in a build log (nvcc -Xptxas -v): (kernel, registers,
+    spill store bytes, spill load bytes), in the log's order."""
+    rows, cur, props, spill = [], None, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur and props == cur:  # the entry's own, not a callee's
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            rows.append((_demangle(cur), int(m.group(1)), *spill))
+            cur = None
+    return rows
 
 
 def load() -> ctypes.CDLL:

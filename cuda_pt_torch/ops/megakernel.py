@@ -8,8 +8,11 @@ area-spot and point emitters, envmaps, diffuse-textured Lambertian and
 Oren-Nayar, and wavelength-locked dispersion (K2 with the K3 flags
 ``has_env``, ``textured``, ``has_disp``), and homogeneous participating
 media for the volume path tracer (K4, ``has_media``: packs made with
-``vpt=True``), w8 nodes and f32 attrs and prims. The CUDA source is
-csrc/megakernel.cu; it is built with nvcc at first use (ops/cuda_build.py).
+``vpt=True``), on every table format of the reference's make_pack: w8 or
+binary nodes (the binary skip tree in f32 or bf16 rows), f32 or t9 prims,
+f32 or bf16 attrs (``make_pack`` picks them by the reference's rule,
+``AUTO_COMPACT_BYTES``). The CUDA source is csrc/megakernel.cu; it is
+built with nvcc at first use (ops/cuda_build.py).
 
 Every wrapper here takes the plain PyTorch version for CPU tensors and
 only for them; for CUDA tensors it launches its kernel or raises. Each
@@ -24,8 +27,12 @@ Kernels:
   in its ``fused`` mode (the TPU kernel's estimator) on ``kernel_scene``;
   for a pack with ``has_media`` the volume path tracer of
   models/volume_pt.py in its ``fused`` mode. The pack alone decides both
-  this and the kernel's instantiation.
-- ``closest_hit_w8``: the same device walk alone -> (t, prim, b1, b2).
+  this and the kernel's instantiation. Node and prim formats change no hit;
+  for bf16 attrs the plain version renders the scene with its vertex
+  normals truncated to bf16 as the pack stores them (``pack_scene``).
+- ``closest_hit_w8``: the same device walk alone (in the pack's node
+  format; the name is the w8 walk's, the first one ported) -> (t, prim,
+  b1, b2).
   Plain version: brute force up to path_tracer.BRUTE_FORCE_MAX_PRIMS
   prims, the skip walk of accel/traverse.py above. It exists so a walk
   bug shows as wrong prim ids, not as a noisy image.
@@ -96,9 +103,23 @@ KERNEL_EMITTERS = (T.EMITTER_NULL, T.EMITTER_POINT, T.EMITTER_AREA, T.EMITTER_AR
 MAX_MEDIA = 8
 KERNEL_PHASES = (T.PHASE_ISOTROPIC, T.PHASE_HG, T.PHASE_DUAL_HG, T.PHASE_RAYLEIGH, T.PHASE_SGGX)
 
-# The driver pick (auto_trace): packs of this many boxes (w8 node rows x 8)
-# or more take the sorted-wavefront driver, as in the reference.
+# The driver pick (auto_trace): packs of this many boxes (pack_boxes) or
+# more take the sorted-wavefront driver, as in the reference.
 SWF_AUTO_BOXES = 512
+# make_pack's format rule (the reference's, megakernel.py:2557): a scene
+# whose pack would take more than this in f32 (fused_pack_bytes) gets bf16
+# binary nodes (where no node format is asked for), bf16 attrs and, on an
+# all-triangle scene, t9 prims. On the TPU this fitted the pack in VMEM;
+# the card has no such limit, but the rule decides the image (bf16 attrs
+# quantize the shading normals), so the port keeps it. attr_fmt="f32"
+# keeps f32 attrs on any scene.
+AUTO_COMPACT_BYTES = 2 * 1024 * 1024
+T9_PER_ROW = 14  # t9 prims: 14 prims x 9 fields = 126 of a row's 128 floats
+NODE_FMTS = ("w8", "f32", "bf16")
+ATTR_FMTS = ("f32", "bf16")
+PRIM_FMTS = ("f32", "t9")
+# the table-format bits of the C entry points (csrc/common.cuh FMT_*)
+FMT_BIN, FMT_NODE_BF16, FMT_PRIM_T9, FMT_ATTR_BF16 = 1, 2, 4, 8
 
 # launches per wrapper: one dict with K1's (ops/traverse_kernel.py owns it;
 # this module imports that one, not the other way round)
@@ -116,9 +137,11 @@ def reset_launches():
 
 def instantiation_name(variant: int) -> str:
     """The instantiation bits the C side reports (K3 1, ALL 2, MED 4; the
-    segment kernel K5: SEG 8, SHADE 16, GRID 32) as a name, "K2" for the
-    pruned surface build ("SEG+K2" in segment form)."""
-    bits = ((8, "SEG"), (16, "SHADE"), (1, "K3"), (2, "ALL"), (4, "MED"), (32, "GRID"))
+    segment kernel K5: SEG 8, SHADE 16, GRID 32; the table builds: BIN 64
+    for binary nodes, CPT 128 for w8 nodes with t9 prims or bf16 attrs) as
+    a name, "K2" for the pruned surface build ("SEG+K2" in segment form)."""
+    bits = ((8, "SEG"), (16, "SHADE"), (1, "K3"), (2, "ALL"), (4, "MED"), (32, "GRID"),
+            (64, "BIN"), (128, "CPT"))
     flags = [name for bit, name in bits if variant & bit]
     if not variant & 7:
         flags.insert(1 if variant & 8 else 0, "K2")
@@ -243,6 +266,26 @@ def kernel_scene(scene: T.Scene) -> T.Scene:
     return dataclasses.replace(scene, emitters=emitters, env_importance=imp)
 
 
+def _bf16_truncated(x: torch.Tensor) -> torch.Tensor:
+    """f32 values cut to their high 16 bits, as tk._pack2 stores a bf16
+    field (not rounded to nearest, as Tensor.to(torch.bfloat16) would)."""
+    return (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+
+def pack_scene(pack) -> T.Scene:
+    """The scene the pack's plain versions render: kernel_scene, with the
+    vertex normals truncated to bf16 where the kernel reads them from bf16
+    attrs. A grid pack's shade form takes its normals from g_hit, in f32,
+    so its scene keeps them."""
+    scene = kernel_scene(pack.scene)
+    if pack.attr_fmt != "bf16" or pack.has_grid:
+        return scene
+    g = scene.geom
+    geom = dataclasses.replace(g, n0=_bf16_truncated(g.n0), n1=_bf16_truncated(g.n1),
+                               n2=_bf16_truncated(g.n2))
+    return dataclasses.replace(scene, geom=geom)
+
+
 # ---------------------------------------------------------------------------
 # scene pack (host side, NumPy; values identical to the TPU pack)
 # ---------------------------------------------------------------------------
@@ -276,6 +319,72 @@ def pack_attrs(scene: T.Scene) -> np.ndarray:
         [n0[:, 0], n0[:, 1], n0[:, 2], n1[:, 0], n1[:, 1], n1[:, 2],
          n2[:, 0], n2[:, 1], n2[:, 2], eid, inv_a, bid.astype(np.float32), med, nul],
         [0.0] * 9 + [0.0, 0.0, 0.0, -1.0, 0.0])
+
+
+def pack_prims_t9(geom: T.Geometry) -> np.ndarray:
+    """(R, 128) triangle-only prim rows: p0(3) e1(3) e2(3) per prim, T9_PER_ROW
+    prims per row, no id (make_pack packs the prims in id order, so the
+    kernel takes the slot as the id); padding prims are degenerate."""
+    p0, e1, e2 = _np(geom.p0), _np(geom.e1), _np(geom.e2)
+    M = p0.shape[0]
+    Mp = -(-max(M, 1) // T9_PER_ROW) * T9_PER_ROW + 2 * T9_PER_ROW
+    cols = [np.concatenate([np.asarray(c, np.float32), np.zeros(Mp - M, np.float32)])
+            for c in (p0[:, 0], p0[:, 1], p0[:, 2], e1[:, 0], e1[:, 1], e1[:, 2],
+                      e2[:, 0], e2[:, 1], e2[:, 2])]
+    out = np.zeros((Mp // T9_PER_ROW, 128), np.float32)
+    out[:, : T9_PER_ROW * 9] = np.stack(cols, axis=1).reshape(Mp // T9_PER_ROW, T9_PER_ROW * 9)
+    return out
+
+
+def pack_attrs_bf16(scene: T.Scene) -> np.ndarray:
+    """(R, 128) compact attrs, 8 f32 per prim (16 prims per row): bf16 pairs
+    (tk._pack2, the first in the high bits) n0x|n0y n0z|n1x n1y|n1z n2x|n2y
+    n2z|is_sphere eid|bid, then inv_area in f32, then medium_in|is_null."""
+    g = scene.geom
+    obj = _np(g.obj_idx)
+    bid = np.maximum(_np(scene.objects.bsdf_id)[obj], 0).astype(np.float32)
+    eid = _np(scene.objects.emitter_id)[obj].astype(np.float32)
+    inv_a = _np(scene.objects.inv_area)[obj]
+    sph = _np(g.is_sphere).astype(np.float32)
+    n0, n1, n2 = _np(g.n0), _np(g.n1), _np(g.n2)
+    M = n0.shape[0]
+    per_row = 2 * SLOTS
+    Mp = -(-max(M, 1) // per_row) * per_row + per_row
+
+    def pad(c, pv=0.0):
+        return np.concatenate([np.asarray(c, np.float32), np.full(Mp - M, pv, np.float32)])
+
+    med, nul = _prim_medium_null(scene)
+    pack2 = tk._pack2
+    cols = [pack2(pad(n0[:, 0]), pad(n0[:, 1])), pack2(pad(n0[:, 2]), pad(n1[:, 0])),
+            pack2(pad(n1[:, 1]), pad(n1[:, 2])), pack2(pad(n2[:, 0]), pad(n2[:, 1])),
+            pack2(pad(n2[:, 2]), pad(sph)), pack2(pad(eid), pad(bid)), pad(inv_a),
+            pack2(pad(med, -1.0), pad(nul))]
+    return np.stack(cols, axis=1).reshape(Mp // per_row, per_row * (SLOT_F // 2))
+
+
+def fused_pack_bytes(scene: T.Scene, node_fmt: str = "f32", attr_fmt: str = "f32",
+                     prim_fmt: str = "f32") -> int:
+    """The reference's size of a pack (megakernel.py:86): nodes (64 B f32,
+    32 B bf16) + prims (64 B f32, 37 B t9) + attrs (64 B f32, 32 B bf16) +
+    the emitter and material tables. make_pack's rule reads it in f32."""
+    n = int(scene.bvh.num_nodes)
+    p = int(scene.geom.num_prims)
+    nb = int(scene.bsdfs.btype.shape[0])
+    node_b = 32 if node_fmt == "bf16" else 64
+    prim_b = (512 // T9_PER_ROW + 1) if prim_fmt == "t9" else 64
+    attr_b = 32 if attr_fmt == "bf16" else 64
+    small = (2 * nb + SLOTS + MAX_EMITTER_PRIMS) * SLOT_F * 4
+    return n * node_b + p * prim_b + p * attr_b + small
+
+
+def resident_pack_bytes(scene: T.Scene) -> int:
+    """fused_pack_bytes of the formats make_pack(scene) picks."""
+    if fused_pack_bytes(scene) > AUTO_COMPACT_BYTES:
+        tri = not bool(scene.geom.is_sphere.any())
+        return fused_pack_bytes(scene, node_fmt="bf16", attr_fmt="bf16",
+                                prim_fmt="t9" if tri else "f32")
+    return fused_pack_bytes(scene)
 
 
 def pack_media(scene: T.Scene) -> np.ndarray:
@@ -564,32 +673,52 @@ class MKPack:
 
 # The six tables of the TPU pack (bit-equal to it), then kernel K3's and
 # kernel K4's inputs; the sorted-wavefront driver's tables (treelet boxes,
-# the hit matrix of the split form), and with a grid medium pack_grids'.
+# the hit matrix of the split form: w8 packs only, as in the reference),
+# and with a grid medium pack_grids'.
 PACK_KEYS = ("nodes", "prims", "attrs", "erow", "eprims", "brows")
 K3_KEYS = ("uvs", "texels", "tinfo", "tdiff", "envrow")
 MED_KEYS = ("mrow",)
 SWF_KEYS = ("tlbox", "g_hit")
 
 
-def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
+def make_pack(scene: T.Scene, node_fmt: str | None = None, attr_fmt: str | None = None,
               prim_fmt: str | None = None, vpt: bool = False) -> MKPack:
-    """Host-side scene pack on the scene's device. Only the w8 node format
-    with f32 attrs and prims is ported. vpt=True packs for the volume path
-    tracer: a scene with media then sets has_media and carries the media
-    row; without vpt such a scene raises, so the pack alone says which
+    """Host-side scene pack on the scene's device, in the reference's formats
+    and by its rule: a format left None is f32 (binary f32 nodes) where the
+    pack's f32 size (fused_pack_bytes) is at most AUTO_COMPACT_BYTES, else
+    compact: bf16 binary nodes (boxes rounded outward: the same hits), bf16
+    attrs (shading normals truncated to bf16) and, on an all-triangle scene,
+    t9 prims (f32 positions: the same hits). node_fmt "w8" is the 8-wide
+    tree the Renderer asks for. vpt=True packs for the volume path tracer:
+    a scene with media then sets has_media and carries the media row;
+    without vpt such a scene raises, so the pack alone says which
     estimator both the kernel and its plain version run. The K3 and K4
-    tables are placeholders of one row where their flag is off. Every pack
-    carries the driver's tlbox and g_hit (as the reference's w8 pack);
-    a vpt pack with a grid medium sets has_grid and carries pack_grids'
-    tables."""
-    if node_fmt != "w8" or attr_fmt not in (None, "f32") or prim_fmt not in (None, "f32"):
-        raise NotImplementedError(
-            "only node_fmt='w8' with f32 attrs and prims is ported (ROADMAP Queue 2, K1)")
-    wb = wide_build.from_bvharrays(scene.bvh)
-    max_stack = int(wb.max_stack) + 8  # the TPU walk's unconditional 8-slot write
-    if max_stack > cuda_build.MK_MAX_STACK:
-        raise ValueError(
-            f"scene needs a traversal stack of {max_stack} > {cuda_build.MK_MAX_STACK}")
+    tables are placeholders of one row where their flag is off. A w8 pack
+    carries the driver's tlbox and g_hit (as the reference's); a vpt pack
+    with a grid medium sets has_grid and carries pack_grids' tables."""
+    big = fused_pack_bytes(scene) > AUTO_COMPACT_BYTES
+    tri_only = not bool(scene.geom.is_sphere.any())
+    node_fmt = node_fmt or ("bf16" if big else "f32")
+    attr_fmt = attr_fmt or ("bf16" if big else "f32")
+    prim_fmt = prim_fmt or ("t9" if big and tri_only else "f32")
+    if node_fmt not in NODE_FMTS or attr_fmt not in ATTR_FMTS or prim_fmt not in PRIM_FMTS:
+        raise ValueError(f"formats: node_fmt in {NODE_FMTS}, attr_fmt in {ATTR_FMTS}, "
+                         f"prim_fmt in {PRIM_FMTS}; got {node_fmt!r}, {attr_fmt!r}, "
+                         f"{prim_fmt!r}")
+    if prim_fmt == "t9" and not tri_only:
+        raise ValueError("prim_fmt='t9' requires an all-triangle scene")
+    max_stack = 0
+    if node_fmt == "w8":
+        wb = wide_build.from_bvharrays(scene.bvh)
+        max_stack = int(wb.max_stack) + 8  # the TPU walk's unconditional 8-slot write
+        if max_stack > cuda_build.MK_MAX_STACK:
+            raise ValueError(
+                f"scene needs a traversal stack of {max_stack} > {cuda_build.MK_MAX_STACK}")
+        nodes = pack_nodes_w8(wb)
+    elif node_fmt == "bf16":
+        nodes = tk.pack_nodes_bf16(scene.bvh)
+    else:
+        nodes = tk.pack_nodes(scene.bvh)
     if int(scene.bvh.max_leaf) > MK_MAX_LEAF:
         raise ValueError(f"max_leaf {scene.bvh.max_leaf} > {MK_MAX_LEAF}")
     tdiff = _np(scene.bsdfs.tex_ids)[:, T.TEX_DIFFUSE].astype(np.int32)
@@ -603,9 +732,9 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
         raise ValueError("the fused volume path tracer takes no textures (as on the TPU)")
     texels, tinfo = pack_textures(scene.textures)
     host = {
-        "nodes": pack_nodes_w8(wb),
-        "prims": pack_prims(scene.geom),
-        "attrs": pack_attrs(scene),
+        "nodes": nodes,
+        "prims": pack_prims_t9(scene.geom) if prim_fmt == "t9" else pack_prims(scene.geom),
+        "attrs": pack_attrs_bf16(scene) if attr_fmt == "bf16" else pack_attrs(scene),
         "erow": pack_emitters(scene),
         "eprims": pack_emitter_prims(scene),
         "brows": pack_bsdfs(scene),
@@ -615,15 +744,15 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
         "tdiff": tdiff,
         "envrow": pack_env(scene),
         "mrow": pack_media(scene) if has_media else np.zeros((1, 128), np.float32),
-        "tlbox": treelet_boxes_w8(wb),
-        "g_hit": pack_hit_matrix(scene),
     }
+    if node_fmt == "w8":
+        host.update(tlbox=treelet_boxes_w8(wb), g_hit=pack_hit_matrix(scene))
     has_grid = has_media and bool((_np(scene.media.mtype) == T.MEDIUM_GRID).any())
     if has_grid:
         host.update(pack_grids(scene))
     arrays = {k: torch.as_tensor(v, device=scene.device).contiguous() for k, v in host.items()}
-    return MKPack(arrays, scene, tri_only=not bool(scene.geom.is_sphere.any()),
-                  max_leaf=int(scene.bvh.max_leaf), max_stack=max_stack, has_env=has_env,
+    return MKPack(arrays, scene, node_fmt=node_fmt, attr_fmt=attr_fmt, prim_fmt=prim_fmt,
+                  tri_only=tri_only, max_leaf=int(scene.bvh.max_leaf), max_stack=max_stack, has_env=has_env,
                   textured=textured, has_disp=T.BSDF_DISPERSION in set(scene.present_bsdfs),
                   all_families=bool(set(scene.present_bsdfs) - set(BASIC_BSDFS)),
                   has_media=has_media, ambient_med=int(scene.cam_medium) if vpt else -1,
@@ -632,6 +761,17 @@ def make_pack(scene: T.Scene, node_fmt: str = "w8", attr_fmt: str | None = None,
 
 def pack_bytes(pack: MKPack, keys=PACK_KEYS + K3_KEYS + MED_KEYS) -> int:
     return sum(pack[k].numel() * pack[k].element_size() for k in keys)
+
+
+def walk_args(pack: MKPack) -> tuple:
+    """The walk's arguments of every C entry point: max_leaf, tri_only, the
+    table formats as FMT_* bits, the binary tree's node count (the walk
+    stops there)."""
+    fmt = (0 if pack.node_fmt == "w8" else FMT_BIN) \
+        | (FMT_NODE_BF16 if pack.node_fmt == "bf16" else 0) \
+        | (FMT_PRIM_T9 if pack.prim_fmt == "t9" else 0) \
+        | (FMT_ATTR_BF16 if pack.attr_fmt == "bf16" else 0)
+    return pack.max_leaf, int(pack.tri_only), fmt, int(pack.scene.bvh.num_nodes)
 
 
 # ---------------------------------------------------------------------------
@@ -706,7 +846,7 @@ def trace_megakernel_reference(pack: MKPack, md, o, d, rng, nee_candidates: int 
     tracer's (envmap misses at MIS weight 1, deferred diffuse texels,
     in-stream dispersion wavelength; for scenes without the K3 flags the
     composed estimator itself), which ignores any media in the scene."""
-    scene = kernel_scene(pack.scene)
+    scene = pack_scene(pack)
     if pack.has_media:
         if nee_candidates != 1:
             raise ValueError("the fused volume path tracer takes nee_candidates=1")
@@ -718,8 +858,8 @@ def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: to
                      nee_candidates: int = 1, count_stats: bool = False):
     """(B, 3) rays + (B, 2) pcg states -> L (B, 3). CPU tensors run the plain
     version; CUDA tensors launch the kernel. count_stats (CUDA only) also
-    returns per-ray (B, 2) int32 [wide nodes expanded, prim tests], the
-    shadow rays' transmittance walks included."""
+    returns per-ray (B, 2) int32 [wide nodes expanded (binary nodes: node
+    fetches), prim tests], the shadow rays' transmittance walks included."""
     if pack.has_media and nee_candidates != 1:
         raise ValueError("the fused volume path tracer takes nee_candidates=1 (as on the TPU)")
     if pack.has_grid:
@@ -741,7 +881,7 @@ def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: to
     variant = ctypes.c_int(-1)
     rc = lib.mk_trace(_tables(pack), o.data_ptr(), d.data_ptr(), rng32.data_ptr(), L.data_ptr(),
                       stats.data_ptr() if stats is not None else None,
-                      B, pack.max_leaf, int(pack.tri_only), int(pack.has_env),
+                      B, *walk_args(pack), int(pack.has_env),
                       int(pack.textured), int(pack.has_disp), int(pack.all_families),
                       int(pack.has_media), int(pack.ambient_med),
                       int(md.max_depth), int(md.max_diffuse), int(md.max_specular),
@@ -765,7 +905,8 @@ def closest_hit_plain(scene: T.Scene, o: torch.Tensor, d: torch.Tensor) -> dict:
 
 def closest_hit_w8(pack: MKPack, o: torch.Tensor, d: torch.Tensor):
     """Closest hit of (B, 3) rays -> (t, prim (int64, -1 = miss), b1, b2).
-    CPU tensors run closest_hit_plain; CUDA tensors launch the w8 walk."""
+    CPU tensors run closest_hit_plain; CUDA tensors launch the walk of the
+    pack's node format (w8 or binary)."""
     if o.device.type == "cpu":
         h = closest_hit_plain(pack.scene, o, d)
         return h["t"], h["prim"], h["b1"], h["b2"]
@@ -779,8 +920,8 @@ def closest_hit_w8(pack: MKPack, o: torch.Tensor, d: torch.Tensor):
     b1 = torch.empty_like(t)
     b2 = torch.empty_like(t)
     rc = lib.mk_closest_hit(_tables(pack), o.data_ptr(), d.data_ptr(), t.data_ptr(),
-                            prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), B, pack.max_leaf,
-                            int(pack.tri_only), torch.cuda.current_stream(o.device).cuda_stream)
+                            prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), B, *walk_args(pack),
+                            torch.cuda.current_stream(o.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mk_closest_hit launch failed: cudaError {rc}")
     LAUNCHES["closest_hit_w8"] += 1
@@ -931,7 +1072,7 @@ def seg_step_reference(pack: MKPack, md, st: torch.Tensor, n: int, bounce: int,
     first n lanes of the planes, in place. hit: resolve_hit's planes and
     flight: grid_flight's (the split driver, grid packs only); stats (the
     kernel's walk counters) is not counted here."""
-    scene = kernel_scene(pack.scene)
+    scene = pack_scene(pack)
     s = _seg_state(pack, st, n, bounce)
     hd = _hit_dict(pack, hit) if hit is not None else None
     if pack.has_media:
@@ -974,6 +1115,8 @@ def trace_megakernel_seg(pack: MKPack, md, st: torch.Tensor, n: int, bounce: int
     if pack.has_grid != (hit is not None) or pack.has_grid != (flight is not None):
         raise ValueError("a grid-media pack's bounce takes the split driver's hit and flight "
                          "planes, and only such a pack's")
+    if pack.has_grid and pack.node_fmt != "w8":
+        raise ValueError("split traversal needs a w8 pack (g_hit matrix)")
     if st.device.type == "cpu":
         return seg_step_reference(pack, md, st, n, bounce, nee_candidates, hit, flight)
     _check_state(pack, st, n, hit, flight)
@@ -983,7 +1126,7 @@ def trace_megakernel_seg(pack: MKPack, md, st: torch.Tensor, n: int, bounce: int
                           hit.data_ptr() if hit is not None else None,
                           flight.data_ptr() if flight is not None else None,
                           stats.data_ptr() if stats is not None else None,
-                          pack.max_leaf, int(pack.tri_only), int(pack.has_env), int(pack.textured),
+                          *walk_args(pack), int(pack.has_env), int(pack.textured),
                           int(pack.has_disp), int(pack.all_families), int(pack.has_media),
                           int(pack.has_grid), int(pack.ambient_med),
                           int(md.max_depth), int(md.max_diffuse), int(md.max_specular),
@@ -1019,7 +1162,7 @@ def traverse_closest(pack: MKPack, st: torch.Tensor, n: int,
     out = torch.empty((4, n), dtype=torch.float32, device=st.device)
     rc = cuda_build.load().mk_traverse(
         _tables(pack), st.data_ptr(), st.shape[1], n, out.data_ptr(),
-        stats.data_ptr() if stats is not None else None, pack.max_leaf, int(pack.tri_only),
+        stats.data_ptr() if stats is not None else None, *walk_args(pack),
         torch.cuda.current_stream(st.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mk_traverse launch failed: cudaError {rc}")
@@ -1268,6 +1411,10 @@ def trace_megakernel_swf(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng
     if o.dtype != torch.float32 or d.dtype != torch.float32 or o.shape != d.shape \
             or o.dim() != 2 or o.shape[1] != 3 or tuple(rng.shape) != (o.shape[0], 2):
         raise ValueError("expected o, d (B, 3) float32 and rng (B, 2)")
+    if pack.has_grid and "g_hit" not in pack.arrays:
+        raise ValueError("split traversal needs a w8 pack (g_hit matrix)")
+    if key_mode.startswith("tl") and "tlbox" not in pack.arrays:
+        raise ValueError("treelet sort keys need a w8 pack (its treelet boxes, tlbox)")
     if plain is None:
         plain = o.device.type == "cpu"
     if not plain:
@@ -1298,8 +1445,12 @@ def trace_megakernel_swf_reference(pack: MKPack, md, o, d, rng, nee_candidates: 
 
 
 def pack_boxes(pack: MKPack) -> int:
-    """Boxes of the pack's node table: w8 rows x 8 children."""
-    return pack["nodes"].shape[0] * 8
+    """Boxes of the pack's node table, as the reference counts them
+    (_pack_boxes): w8 rows x 8 children, binary rows x their node slots."""
+    rows = pack["nodes"].shape[0]
+    if pack.node_fmt == "w8":
+        return rows * 8
+    return rows * (tk.SLOTS16 if pack.node_fmt == "bf16" else SLOTS)
 
 
 def driver_of(pack: MKPack) -> str:
@@ -1346,3 +1497,13 @@ def render_pack(pack: MKPack, cam: cam_mod.Camera, md, spp: int, seed,
         o, d, rng = cam_mod.generate_rays(cam, perm, rng)
         acc = acc + auto_trace(pack, md, o, d, rng, nee_candidates)
     return (acc[inv] / spp).reshape(cam.height, cam.width, 3)
+
+
+def render_megakernel(scene: T.Scene, cam: cam_mod.Camera, md, spp: int, seed: int = 0,
+                      sampler: str = "pcg") -> torch.Tensor:
+    """The reference's convenience entry (megakernel.py:3743): make_pack(scene)
+    in the formats of its rule (binary nodes), then render_pack. The pcg
+    sampler only, as in the reference."""
+    if sampler != "pcg":
+        raise ValueError("the fused megakernel takes the pcg sampler, as in the reference")
+    return render_pack(make_pack(scene), cam, md, spp, seed)

@@ -86,7 +86,7 @@ def _lanes_differing(a: torch.Tensor, b: torch.Tensor) -> float:
 @pytest.mark.parametrize("nee_m", [1, 4])
 def test_kernel_matches_plain(cuda, kind, nee_m):
     scene, cam, _ = t_ts.cornell_box(64, 64, tall_box_bsdf=SPECS[kind], device=cuda)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     perm, _ = t_mk.tile_swizzle(64, 64, cuda)
     rng = t_qmc.make_state("pcg", 3, perm, 0)
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -105,7 +105,7 @@ def test_kernel_matches_plain_k3_envelope(cuda, kind):
     """The K3 flags (envmap, diffuse textures, dispersion), Oren-Nayar,
     Forward and the area-spot cone: kernel vs its plain version."""
     scene, cam, _ = K3_SCENES[kind](cuda)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
     rng = t_qmc.make_state("pcg", 5, perm, 0)
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -122,7 +122,7 @@ def test_kernel_matches_plain_multi_light(cuda, nee_m):
     """Area light, point light, emissive box: the kernel's emitter and
     emitter-prim pick against the plain version's."""
     scene, cam, _ = t_ts.cornell_box_lights(64, 64, device=cuda)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     perm, _ = t_mk.tile_swizzle(64, 64, cuda)
     rng = t_qmc.make_state("pcg", 4, perm, 0)
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -140,7 +140,7 @@ def test_walk_matches_brute_force(cuda):
     o = torch.as_tensor(rs.uniform(0.05, 0.95, (8192, 3)).astype(np.float32), device=cuda)
     d = torch.nn.functional.normalize(
         torch.as_tensor(rs.normal(size=(8192, 3)).astype(np.float32), device=cuda), dim=1)
-    t, prim, _, _ = t_mk.closest_hit_w8(t_mk.make_pack(scene), o, d)
+    t, prim, _, _ = t_mk.closest_hit_w8(t_mk.make_pack(scene, node_fmt="w8"), o, d)
     h = t_isect.closest_hit_brute(scene.geom, o, d)
     differ = prim != h["prim"]
     torch.testing.assert_close(t[~differ], h["t"][~differ], rtol=1e-6, atol=0)
@@ -167,7 +167,7 @@ def test_k4_matches_plain(cuda, kind):
     """Kernel K4 against the fused volume path tracer; the C side reports
     the MED instantiation it launched (K3 x MED with the envmap)."""
     scene, cam, _ = MEDIA_SCENES[kind](cuda)
-    pack = t_mk.make_pack(scene, vpt=True)
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=True)
     perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
     rng = t_qmc.make_state("pcg", 8, perm, 0)
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -208,8 +208,8 @@ def test_wrapper_branches_agree_on_media_scene(cuda):
     for dev in (cuda, torch.device("cpu")):
         scene, cam, _ = t_ts.medium_box(48, 48, device=dev)
         with pytest.raises(ValueError, match="vpt=True"):
-            t_mk.make_pack(scene)
-        pack = t_mk.make_pack(scene, vpt=True)
+            t_mk.make_pack(scene, node_fmt="w8")
+        pack = t_mk.make_pack(scene, node_fmt="w8", vpt=True)
         perm, _ = t_mk.tile_swizzle(cam.width, cam.height, dev)
         rng = t_qmc.make_state("pcg", 9, perm, 0)
         o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -243,7 +243,7 @@ def test_k5_matches_plain(cuda, kind):
     versions (same rays, key "pos_dir"); the instantiations launched."""
     make, vpt, name = SEG_SCENES[kind]
     scene, cam, _ = make(cuda)
-    pack = t_mk.make_pack(scene, vpt=vpt)
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=vpt)
     perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
     rng = t_qmc.make_state("pcg", 12, perm, 0)
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -266,7 +266,7 @@ def test_k5_matches_whole_path_kernel(cuda, kind):
     compute the same estimator lane for lane."""
     make, vpt, _ = SEG_SCENES[kind]
     scene, cam, _ = make(cuda)
-    pack = t_mk.make_pack(scene, vpt=vpt)
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=vpt)
     perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
     rng = t_qmc.make_state("pcg", 13, perm, 0)
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -281,7 +281,7 @@ def test_k6_matches_plain_walk(cuda):
     """The traverse kernel's prim ids against the plain walk's on kitchen
     rays with every fifth lane dead (no hit there)."""
     scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=16, nt=12, device=cuda)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     rs = np.random.default_rng(6)
     n = 16384
     lo, hi = scene.bvh.node_min[0].cpu().numpy(), scene.bvh.node_max[0].cpu().numpy()
@@ -433,3 +433,92 @@ def test_wavefront_renderer_cuda_matches_cpu(cuda):
                      device="cpu").render(2)
     assert np.isfinite(img_k).all() and img_k.mean() > 0.01
     assert np.isclose(img_k, img_p, rtol=1e-4, atol=1e-5).all(axis=-1).mean() > 0.98
+
+
+# ---------------------------------------------------------------------------
+# the reference's binary and compact pack formats; kernel S1
+# ---------------------------------------------------------------------------
+
+FORMATS = {
+    "bin_f32": dict(node_fmt="f32"),
+    "bin_bf16": dict(node_fmt="bf16"),
+    "w8_t9": dict(node_fmt="w8", prim_fmt="t9"),
+    "w8_attr_bf16": dict(node_fmt="w8", attr_fmt="bf16"),
+    "bin_bf16_t9_attr_bf16": dict(node_fmt="bf16", prim_fmt="t9", attr_fmt="bf16"),
+}
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+@pytest.mark.parametrize("kind", ["kitchen_small", "medium_box"])
+def test_pack_formats_match_plain(cuda, kind, fmt):
+    """Each table format through the whole-path kernel (K2 / K3, K4 on the
+    media scene) and through the driver on K5, per lane against the plain
+    versions on the same pack; a binary pack launches the BIN
+    instantiations, a w8 pack with t9 prims or bf16 attrs the CPT ones."""
+    vpt = kind == "medium_box"
+    scene, cam, _ = (MEDIA_SCENES if vpt else K3_SCENES)[kind](cuda)
+    pack = t_mk.make_pack(scene, vpt=vpt, **FORMATS[fmt])
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height, cuda)
+    rng = t_qmc.make_state("pcg", 8, perm, 0)
+    o, d, rng = t_cam.generate_rays(cam, perm, rng)
+    md = MaxDepthParams()
+    t_mk.reset_launches()
+    Lk = t_mk.trace_megakernel(pack, md, o, d, rng)
+    Ls = t_mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+    torch.cuda.synchronize()
+    suffix = "+BIN" if pack.node_fmt != "w8" else "+CPT"
+    assert all(name.endswith(suffix) for name in t_mk.INSTANTIATION_LAUNCHES)
+    for L, Lp in ((Lk, t_mk.trace_megakernel_reference(pack, md, o, d, rng)),
+                  (Ls, t_mk.trace_megakernel_swf_reference(pack, md, o, d, rng,
+                                                           key_mode="pos_dir"))):
+        assert torch.isfinite(L).all()
+        assert _lanes_differing(L, Lp) <= 0.02
+        assert abs(float(L.mean()) - float(Lp.mean())) < 5e-3
+
+
+def test_binary_walk_matches_k1(cuda):
+    """The binary walk (closest_hit_w8 on binary f32 and bf16 packs) against
+    K1's per-ray form over the BVH as one chunk: prim ids equal."""
+    scene, _, _ = t_ts.kitchen_stress(32, 32, grid=2, ns=6, nt=4, device=cuda)
+    forest = t_tk.single_chunk_forest(scene.geom, scene.bvh)
+    rs = np.random.default_rng(4)
+    lo, hi = scene.bvh.node_min[0].cpu().numpy(), scene.bvh.node_max[0].cpu().numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (8192, 3)).astype(np.float32), device=cuda)
+    d = torch.nn.functional.normalize(torch.as_tensor(
+        rs.normal(size=(8192, 3)).astype(np.float32), device=cuda), dim=1).contiguous()
+    k1 = t_tk.traverse_forest(forest, o, d)
+    for node_fmt in ("f32", "bf16"):
+        _, prim, _, _ = t_mk.closest_hit_w8(t_mk.make_pack(scene, node_fmt=node_fmt), o, d)
+        assert torch.equal(prim, k1["prim"])
+
+
+def test_grid_pack_with_binary_nodes_raises(cuda):
+    """A grid pack takes the split driver, which needs a w8 pack (g_hit), as
+    in the reference."""
+    scene, cam, _ = t_ts.grid_smoke(16, 16, device=cuda)
+    pack = t_mk.make_pack(scene, node_fmt="f32", vpt=True)
+    assert pack.has_grid and t_mk.driver_of(pack) == "swf_split"
+    perm, _ = t_mk.tile_swizzle(16, 16, cuda)
+    o, d, rng = t_cam.generate_rays(cam, perm, t_qmc.make_state("pcg", 1, perm, 0))
+    with pytest.raises(ValueError, match="w8 pack"):
+        t_mk.auto_trace(pack, MaxDepthParams(), o, d, rng)
+
+
+def test_node_bench_bit_equal(cuda):
+    """Kernel S1 against its plain version on cornell's binary f32 rows, bit
+    for bit, on the reference's rays and on random rays; launches counted."""
+    from cuda_pt_torch.ops import node_bench as t_nb
+
+    scene, _, _ = t_ts.cornell_box(8, 8)
+    nodes = torch.as_tensor(t_tk.pack_nodes(scene.bvh), device=cuda)
+    o, d = t_nb.reference_rays(4096, cuda)
+    rs = np.random.default_rng(6)
+    o[2048:] = torch.as_tensor(rs.uniform(0.05, 0.95, (2048, 3)).astype(np.float32), device=cuda)
+    d[2048:] = torch.nn.functional.normalize(torch.as_tensor(
+        rs.normal(size=(2048, 3)).astype(np.float32), device=cuda), dim=1)
+    n0 = t_nb.LAUNCHES["node_bench"]
+    out = t_nb.node_bench(nodes, o, d, 300)
+    torch.cuda.synchronize()
+    assert t_nb.LAUNCHES["node_bench"] == n0 + 1
+    ref = t_nb.node_bench_reference(nodes, o, d, 300)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))

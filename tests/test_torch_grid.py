@@ -147,7 +147,7 @@ def test_grid_smoke_scene_arrays_equal(smoke):
             np.testing.assert_array_equal(got, flat[f"{name}.{f}"], err_msg=f"{name}.{f}")
     for f in ("R", "t", "focal"):
         np.testing.assert_array_equal(getattr(ct, f).numpy(), np.asarray(getattr(cj, f)), f)
-    pack = t_mk.make_pack(st, vpt=True)
+    pack = t_mk.make_pack(st, node_fmt="w8", vpt=True)
     pack_j = j_mk.make_pack(sj, node_fmt="w8", vpt=True)
     assert pack.has_grid and pack_j.has_grid and t_mk.megakernel_ok(st, TMD(), renderer="vpt")
     for k in ("mrow", "g_hit", "tlbox", "gr_gscale", "gr_isg"):
@@ -167,7 +167,7 @@ def test_split_driver_matches_jax_interpret(smoke):
     Lj = np.asarray(j_mk.trace_megakernel_swf(pack_j, md_j, o, d, rng, interpret=True,
                                               key_mode="pos_dir"))
     st = bridge.scene_from_numpy(flatten_jax_scene(sj))
-    pack = t_mk.make_pack(st, vpt=True)
+    pack = t_mk.make_pack(st, node_fmt="w8", vpt=True)
     ot, dt_, rt = (torch.tensor(np.asarray(o)), torch.tensor(np.asarray(d)),
                    torch.tensor(np.asarray(rng).astype(np.int64)))
     Lt = t_mk.auto_trace(pack, md_t, ot, dt_, rt)

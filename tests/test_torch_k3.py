@@ -61,7 +61,7 @@ def _hold(sj, cj, md_j, md_t, seed):
     pack_j = j_mk.make_pack(sj, node_fmt="w8")
     Lj = np.asarray(j_mk.trace_megakernel(pack_j, md_j, o, d, rng, interpret=True))
     st = bridge.scene_from_numpy(flatten_jax_scene(sj))
-    pack_t = t_mk.make_pack(st)
+    pack_t = t_mk.make_pack(st, node_fmt="w8")
     Lt = t_mk.trace_megakernel(pack_t, md_t, torch.tensor(np.asarray(o)),
                                torch.tensor(np.asarray(d)),
                                torch.tensor(np.asarray(rng).astype(np.int64))).numpy()
@@ -103,7 +103,9 @@ def test_lifted_vmem_limits_admit_kitchen(kitchen_full):
     fails the TPU kernel's VMEM budget (FUSED_VMEM_BUDGET_BYTES with the
     compacted pack plus the textured tile state) and passes the port's
     envelope, which has no VMEM limit: the card reads the tables from
-    device memory."""
+    device memory. AUTO_COMPACT_BYTES stays, as make_pack's format rule
+    (it decides the image, not the admission), with the reference's
+    value."""
     sj, st = kitchen_full
     assert st.geom.num_prims == 98790
     assert not j_mk.megakernel_ok(sj, JMD())
@@ -111,8 +113,9 @@ def test_lifted_vmem_limits_admit_kitchen(kitchen_full):
                                                                     textured=True)
             > j_mk.FUSED_VMEM_BUDGET_BYTES)
     assert t_mk.megakernel_ok(st, TMD())
-    for name in ("FUSED_VMEM_BUDGET_BYTES", "AUTO_COMPACT_BYTES", "_tile_state_bytes"):
+    for name in ("FUSED_VMEM_BUDGET_BYTES", "_tile_state_bytes"):
         assert not hasattr(t_mk, name)
+    assert t_mk.AUTO_COMPACT_BYTES == j_mk.AUTO_COMPACT_BYTES
 
 
 def test_envelope_keeps_table_limits(kitchen_full):

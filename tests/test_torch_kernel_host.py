@@ -60,6 +60,7 @@ inline float __int_as_float(int x) { float f; std::memcpy(&f, &x, 4); return f; 
 inline int __float_as_int(float f) { int x; std::memcpy(&x, &f, 4); return x; }
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
+enum { cudaErrorInvalidValue = 1 };
 // the tile vote of K1's packet form, which runs on a card only: the host
 // loop runs a block's threads one after another
 inline int __syncthreads_or(int p) { return p; }
@@ -107,7 +108,8 @@ def host_lib(tmp_path_factory):
                        f"{m.group(1)}({m.group(2)}); }}"), src, flags=re.S)
         launches += n
         (d / (name[:-3] + "_host.cpp" if name.endswith(".cu") else name)).write_text(src)
-    assert launches == 5  # the trace, closest-hit, segment, traverse and K1 launches
+    # the trace, closest-hit, segment, traverse, K1 and S1 launches
+    assert launches == 6
     defines = [f for f in cb._flags() if f.startswith("-D")]
     out = d / "libmegakernel_host.so"
     host_units = [str(d / (os.path.basename(u)[:-3] + "_host.cpp")) for u in cb.units()]
@@ -133,7 +135,7 @@ def _host_trace(lib, pack, md, o, d, rng, nee_m, expect=None):
     variant = ctypes.c_int(-1)
     rc = lib.mk_trace(t_mk._tables(pack), o.data_ptr(), d.data_ptr(),
                       rng32.data_ptr(), L.data_ptr(), None, o.shape[0],
-                      pack.max_leaf, int(pack.tri_only), int(pack.has_env), int(pack.textured),
+                      *t_mk.walk_args(pack), int(pack.has_env), int(pack.textured),
                       int(pack.has_disp), int(pack.all_families), int(pack.has_media),
                       pack.ambient_med, md.max_depth, md.max_diffuse, md.max_specular,
                       md.max_transmit, md.max_volume, nee_m, ctypes.byref(variant), None)
@@ -146,7 +148,7 @@ def _host_trace(lib, pack, md, o, d, rng, nee_m, expect=None):
 @pytest.mark.parametrize("kind", list(SCENES))
 def test_host_kernel_matches_plain(host_lib, kind):
     scene, cam, _ = SCENES[kind]()
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     perm, _ = t_mk.tile_swizzle(cam.width, cam.height)
     md = MaxDepthParams()
     for nee_m in (1, 3):
@@ -167,7 +169,7 @@ def test_host_kernel_media_matches_plain(host_lib, kind):
     sides take the same vpt pack: the plain version is trace_megakernel's
     own CPU branch, which the pack sends to the volume path tracer."""
     scene, cam, _ = MEDIA_SCENES[kind]()
-    pack = t_mk.make_pack(scene, vpt=True)
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=True)
     assert pack.has_media and pack.has_env == (kind == "medium_box_env")
     perm, _ = t_mk.tile_swizzle(cam.width, cam.height)
     md = MaxDepthParams()
@@ -186,7 +188,7 @@ def test_host_kernel_media_matches_plain(host_lib, kind):
 def test_host_walk_matches_skip_walk(host_lib):
     """mk_closest_hit (the w8 walk) against accel/traverse on kitchen."""
     scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     rs = np.random.default_rng(3)
     B = 2048
     lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
@@ -197,8 +199,8 @@ def test_host_walk_matches_skip_walk(host_lib):
     prim = torch.empty(B, dtype=torch.int32)
     b1, b2 = torch.empty(B), torch.empty(B)
     rc = host_lib.mk_closest_hit(t_mk._tables(pack), o.data_ptr(), d.data_ptr(), t.data_ptr(),
-                                 prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), B, pack.max_leaf,
-                                 int(pack.tri_only), None)
+                                 prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), B,
+                                 *t_mk.walk_args(pack), None)
     assert rc == 0
     h = t_mk.closest_hit_plain(scene, o, d)
     np.testing.assert_array_equal(prim.long().numpy(), h["prim"].numpy())
@@ -222,8 +224,8 @@ def _host_driver(monkeypatch, lib, launched: set):
         rc = lib.mk_trace_seg(
             t_mk._tables(pack), st.data_ptr(), st.shape[1], n, bounce,
             hit.data_ptr() if hit is not None else None,
-            flight.data_ptr() if flight is not None else None, None, pack.max_leaf,
-            int(pack.tri_only), int(pack.has_env), int(pack.textured), int(pack.has_disp),
+            flight.data_ptr() if flight is not None else None, None, *t_mk.walk_args(pack),
+            int(pack.has_env), int(pack.textured), int(pack.has_disp),
             int(pack.all_families), int(pack.has_media), int(pack.has_grid), pack.ambient_med, md.max_depth, md.max_diffuse, md.max_specular, md.max_transmit,
             md.max_volume, nee_m, ctypes.byref(variant), None)
         assert rc == 0
@@ -232,7 +234,7 @@ def _host_driver(monkeypatch, lib, launched: set):
     def walk(pack, st, n, stats=None):
         out = torch.empty((4, n))
         rc = lib.mk_traverse(t_mk._tables(pack), st.data_ptr(), st.shape[1], n, out.data_ptr(),
-                             None, pack.max_leaf, int(pack.tri_only), None)
+                             None, *t_mk.walk_args(pack), None)
         assert rc == 0
         launched.add("K6")
         return out
@@ -277,7 +279,7 @@ def test_host_segment_kernel_matches_plain(host_lib, monkeypatch, kind):
     "pos_dir": the phase-4 contract, and the instantiation expected."""
     make, vpt, expect = SEG_SCENES[kind]
     scene, cam, _ = make()
-    pack = t_mk.make_pack(scene, vpt=vpt)
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=vpt)
     perm, _ = t_mk.tile_swizzle(cam.width, cam.height)
     rng = t_qmc.make_state("pcg", 17, perm, 0)
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -297,7 +299,7 @@ def test_host_traverse_matches_plain(host_lib):
     """mk_traverse (K6) against traverse_plain on kitchen: prim ids equal, a
     dead lane reports no hit."""
     scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     rs = np.random.default_rng(5)
     n = 2048
     lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
@@ -308,7 +310,7 @@ def test_host_traverse_matches_plain(host_lib):
     st.view(torch.float32)[t_mk.S_ACT, ::5] = 0.0
     out = torch.empty((4, n))
     rc = host_lib.mk_traverse(t_mk._tables(pack), st.data_ptr(), n, n, out.data_ptr(), None,
-                              pack.max_leaf, int(pack.tri_only), None)
+                              *t_mk.walk_args(pack), None)
     assert rc == 0
     ref = t_mk.traverse_plain(pack, st, n)
     np.testing.assert_array_equal(out[1].numpy(), ref[1].numpy())
@@ -371,3 +373,133 @@ def test_host_k1_matches_plain(host_lib, node_fmt):
     ref_occ = tk.traverse_forest_reference(forest, o, d, t_far, occlusion=True)["occluded"]
     np.testing.assert_array_equal((occ >= 0).numpy(), ref_occ.numpy())
     assert 0.05 < ref_occ.float().mean() < 0.95
+
+
+# ---------------------------------------------------------------------------
+# the reference's compact and binary pack formats in the same kernels
+# ---------------------------------------------------------------------------
+
+FORMAT_CASES = {
+    # name: (scene, vpt pack, make_pack's formats)
+    "cornell_bin_f32": (SCENES["cornell"], False, dict(node_fmt="f32")),
+    "cornell_bin_bf16_t9_attr_bf16": (SCENES["cornell"], False,
+                                      dict(node_fmt="bf16", prim_fmt="t9", attr_fmt="bf16")),
+    "kitchen_bin_bf16_t9_attr_bf16": (SCENES["kitchen_small"], False,
+                                      dict(node_fmt="bf16", prim_fmt="t9", attr_fmt="bf16")),
+    "kitchen_w8_t9_attr_bf16": (SCENES["kitchen_small"], False,
+                                dict(node_fmt="w8", prim_fmt="t9", attr_fmt="bf16")),
+    "medium_box_bin_f32_attr_bf16": (MEDIA_SCENES["medium_box"], True,
+                                     dict(node_fmt="f32", attr_fmt="bf16")),
+    "medium_box_w8_t9_attr_bf16": (MEDIA_SCENES["medium_box"], True,
+                                   dict(node_fmt="w8", prim_fmt="t9", attr_fmt="bf16")),
+}
+
+
+def _hold(Lk, Lp, label):
+    assert torch.isfinite(Lk).all() and float(Lp.mean()) > 0.01
+    close = torch.isclose(Lk, Lp, rtol=1e-4, atol=1e-5).all(dim=-1)
+    assert float(close.float().mean()) >= 0.98, (label, float(close.float().mean()))
+    assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3
+
+
+@pytest.mark.parametrize("kind", list(FORMAT_CASES))
+def test_host_pack_formats_match_plain(host_lib, monkeypatch, kind):
+    """Binary f32 and bf16 nodes, t9 prims and bf16 attrs through the
+    whole-path kernel (mk_trace) and through the driver on K5's segment
+    form (mk_trace_seg), each against its plain version on the same pack
+    (bf16 attrs: the scene's normals truncated to bf16) under the phase-4
+    contract; a binary pack runs the BIN instantiations, a w8 pack with t9
+    prims or bf16 attrs the CPT ones."""
+    make, vpt, fmts = FORMAT_CASES[kind]
+    scene, cam, _ = make()
+    pack = t_mk.make_pack(scene, vpt=vpt, **fmts)
+    assert (pack.node_fmt, pack.prim_fmt, pack.attr_fmt) == (
+        fmts["node_fmt"], fmts.get("prim_fmt", "f32"), fmts.get("attr_fmt", "f32"))
+    suffix = "+BIN" if pack.node_fmt != "w8" else "+CPT"
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height)
+    rng = t_qmc.make_state("pcg", 19, perm, 0)
+    o, d, rng = t_cam.generate_rays(cam, perm, rng)
+    md = MaxDepthParams()
+    variant = ctypes.c_int(-1)
+    Lk = torch.empty_like(o)
+    rng32 = t_mk.rng_bits(rng)
+    rc = host_lib.mk_trace(t_mk._tables(pack), o.data_ptr(), d.data_ptr(), rng32.data_ptr(),
+                           Lk.data_ptr(), None, o.shape[0], *t_mk.walk_args(pack),
+                           int(pack.has_env), int(pack.textured), int(pack.has_disp),
+                           int(pack.all_families), int(pack.has_media), pack.ambient_med,
+                           md.max_depth, md.max_diffuse, md.max_specular, md.max_transmit,
+                           md.max_volume, 1, ctypes.byref(variant), None)
+    assert rc == 0
+    assert t_mk.instantiation_name(variant.value).endswith(suffix)
+    _hold(Lk, t_mk.trace_megakernel_reference(pack, md, o, d, rng), f"{kind} whole path")
+    Lp = t_mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+    launched = set()
+    _host_driver(monkeypatch, host_lib, launched)
+    Lk = t_mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir", plain=False)
+    assert launched and all(name.startswith("SEG") and name.endswith(suffix) for name in launched)
+    _hold(Lk, Lp, f"{kind} segment form")
+
+
+def test_host_bf16_attrs_plain_scene_truncates_normals():
+    """The plain version of a bf16-attr pack renders normals cut to their
+    high 16 bits (tk._pack2's truncation, not round-to-nearest), and the
+    image differs from the f32 pack's."""
+    scene, cam, _ = SCENES["kitchen_small"]()
+    pack = t_mk.make_pack(scene, node_fmt="w8", attr_fmt="bf16")
+    n0 = t_mk.pack_scene(pack).geom.n0
+    bits = scene.geom.n0.view(torch.int32) & -65536
+    assert torch.equal(n0.view(torch.int32), bits)
+    assert not torch.equal(n0, scene.geom.n0.to(torch.bfloat16).float())
+
+
+def test_host_binary_walk_matches_k1(host_lib):
+    """mk_closest_hit on binary packs (f32 and bf16 rows, t9 prims) against
+    kernel K1's per-ray form over the scene's BVH as one chunk, both built
+    here: prim ids equal on every ray, t bit-equal in f32 rows."""
+    from cuda_pt_torch.ops import traverse_kernel as tk
+
+    scene, _, _ = SCENES["kitchen_small"]()
+    forest = tk.single_chunk_forest(scene.geom, scene.bvh)
+    rs = np.random.default_rng(21)
+    B = 2048
+    lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (B, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(B, 3)).astype(np.float32)),
+                                      dim=1)
+    t1, p1, _, _, _ = _host_k1(host_lib, forest, o, d, None, False)
+    for fmts in (dict(node_fmt="f32"), dict(node_fmt="bf16", prim_fmt="t9")):
+        pack = t_mk.make_pack(scene, **fmts)
+        t = torch.empty(B)
+        prim = torch.empty(B, dtype=torch.int32)
+        b1, b2 = torch.empty(B), torch.empty(B)
+        rc = host_lib.mk_closest_hit(t_mk._tables(pack), o.data_ptr(), d.data_ptr(), t.data_ptr(),
+                                     prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), B,
+                                     *t_mk.walk_args(pack), None)
+        assert rc == 0
+        np.testing.assert_array_equal(prim.long().numpy(), p1.numpy())
+        hit = p1 >= 0
+        assert 0.2 < float(hit.float().mean()) < 1.0
+        np.testing.assert_array_equal(t[hit].numpy(), t1[hit].numpy())
+
+
+def test_host_node_bench_bit_equal(host_lib):
+    """Kernel S1 (s1_node_bench) against its plain version on cornell's
+    binary f32 rows, bit for bit: the reference's rays (every ray equal)
+    and random rays, 200 steps (past the rows' end, so the walk wraps)."""
+    from cuda_pt_torch.ops import node_bench as nb
+    from cuda_pt_torch.ops import traverse_kernel as tk
+
+    scene, _, _ = SCENES["cornell"]()
+    nodes = torch.as_tensor(tk.pack_nodes(scene.bvh))
+    o, d = nb.reference_rays(64)
+    rs = np.random.default_rng(23)
+    o = torch.cat([o, torch.as_tensor(rs.uniform(0.05, 0.95, (64, 3)).astype(np.float32))])
+    d = torch.cat([d, torch.nn.functional.normalize(torch.as_tensor(
+        rs.normal(size=(64, 3)).astype(np.float32)), dim=1)]).contiguous()
+    out = torch.empty(o.shape[0])
+    rc = host_lib.s1_node_bench(nodes.data_ptr(), nodes.shape[0] * tk.SLOTS, 200, o.data_ptr(),
+                                d.data_ptr(), out.data_ptr(), o.shape[0], None)
+    assert rc == 0
+    ref = nb.node_bench_reference(nodes, o, d, 200)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert (out[:64] == out[0]).all() and float(out[0]) != 0.0

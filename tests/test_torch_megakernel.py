@@ -42,7 +42,7 @@ def test_trace_megakernel_cpu_matches_jax_interpret():
                                           o, d, rng, interpret=True))
     st = bridge.scene_from_numpy(flatten_jax_scene(sj))
     before = dict(t_mk.LAUNCHES)
-    Lt = t_mk.trace_megakernel(t_mk.make_pack(st), TMD(max_depth=3), torch.tensor(np.asarray(o)),
+    Lt = t_mk.trace_megakernel(t_mk.make_pack(st, node_fmt="w8"), TMD(max_depth=3), torch.tensor(np.asarray(o)),
                                torch.tensor(np.asarray(d)),
                                torch.tensor(np.asarray(rng).astype(np.int64))).numpy()
     assert t_mk.LAUNCHES == before  # CPU tensors never count as kernel launches
@@ -59,7 +59,7 @@ def test_closest_hit_w8_cpu_is_brute_force_reference():
     d = rs.normal(size=(2048, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     hj = j_isect.closest_hit_brute(sj.geom, jnp.asarray(o), jnp.asarray(d))
-    t, prim, b1, b2 = t_mk.closest_hit_w8(t_mk.make_pack(st), torch.as_tensor(o), torch.as_tensor(d))
+    t, prim, b1, b2 = t_mk.closest_hit_w8(t_mk.make_pack(st, node_fmt="w8"), torch.as_tensor(o), torch.as_tensor(d))
     np.testing.assert_array_equal(prim.numpy(), np.asarray(hj["prim"]))
     np.testing.assert_allclose(t.numpy(), np.asarray(hj["t"]), rtol=1e-6)
     np.testing.assert_allclose(b1.numpy(), np.asarray(hj["b1"]), rtol=1e-5, atol=1e-6)
@@ -80,7 +80,7 @@ def test_envelope_matches_reference_on_supported_families(btype):
 
 def test_kernel_input_check_rejects_cpu_tensors():
     st, _, _ = t_ts.cornell_box(8, 8)
-    pack = t_mk.make_pack(st)
+    pack = t_mk.make_pack(st, node_fmt="w8")
     o = torch.zeros(4, 3)
     with pytest.raises(ValueError):
         t_mk._check_rays(pack, o)
@@ -93,7 +93,7 @@ def test_emitter_prim_rows_follow_emitter_order():
     rows belong to the emitter in k order, and the search gives the plain
     version's count of CDF entries below u."""
     scene, _, _ = t_ts.cornell_box_lights(8, 8)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     er = pack["erow"].numpy().reshape(-1, t_mk.SLOT_F)
     ep = pack["eprims"].numpy().reshape(-1, t_mk.SLOT_F)
     cdf = scene.emitters.prim_cdf.numpy()

@@ -78,7 +78,7 @@ def test_render_pack_matches_renderer():
     scene, cam, _ = t_ts.cornell_box(12, 8)
     md = MaxDepthParams(max_depth=3)
     img_r = Renderer(_parsed(scene, cam, md, seed=7), device="cpu").render(2)
-    img_p = t_mk.render_pack(t_mk.make_pack(scene), cam, md, spp=2, seed=7).numpy()
+    img_p = t_mk.render_pack(t_mk.make_pack(scene, node_fmt="w8"), cam, md, spp=2, seed=7).numpy()
     assert img_p.shape == img_r.shape == (8, 12, 3) and img_r.mean() > 0.01
     # Welford mean (film) vs sum / spp: one rounding apart
     np.testing.assert_allclose(img_p, img_r, rtol=1e-6, atol=1e-7)

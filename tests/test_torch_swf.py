@@ -59,7 +59,7 @@ def kitchen_packs():
     finally:
         mp.undo()
     st, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
-    return j_mk.make_pack(sj, node_fmt="w8"), t_mk.make_pack(st), sj, st
+    return j_mk.make_pack(sj, node_fmt="w8"), t_mk.make_pack(st, node_fmt="w8"), sj, st
 
 
 @pytest.mark.parametrize("mode", ["dir_pos", "pos_dir", "tl_pos", "tl_oct"])
@@ -136,7 +136,7 @@ def test_swf_plain_matches_jax_interpret(case, request):
         sj, o, d, rng, Lj = request.getfixturevalue("jax_cornell_unsorted")
     else:
         sj, o, d, rng, Lj = _jax_driver(*CASES[case])
-    pack_t = t_mk.make_pack(bridge.scene_from_numpy(flatten_jax_scene(sj)), vpt=vpt)
+    pack_t = t_mk.make_pack(bridge.scene_from_numpy(flatten_jax_scene(sj)), node_fmt="w8", vpt=vpt)
     before = dict(t_mk.LAUNCHES)
     Lt = t_mk.trace_megakernel_swf(pack_t, TMD(max_depth=depth), *_torch(o, d, rng),
                                    key_mode=key_mode).numpy()
@@ -163,7 +163,7 @@ def test_sorting_changes_nothing_per_lane(kind, key_mode):
         "nested_media": lambda: t_ts.nested_media(8, 8),
         "spot": lambda: t_ts.spot_light(8, 8),
     }[kind]()
-    pack = t_mk.make_pack(scene, vpt=kind == "nested_media")
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=kind == "nested_media")
     perm, _ = t_mk.tile_swizzle(cam.width, cam.height)
     rng = t_qmc.make_state("pcg", 2, perm, 3)
     o, d, rng = t_cam.generate_rays(cam, perm, rng)
@@ -179,9 +179,9 @@ def test_auto_trace_routes_as_the_reference():
     reference's threshold."""
     assert t_mk.SWF_AUTO_BOXES == j_mk.SWF_AUTO_BOXES == 512
     scene, _, _ = t_ts.cornell_box(8, 8)
-    assert t_mk.driver_of(t_mk.make_pack(scene)) == "whole_path"
+    assert t_mk.driver_of(t_mk.make_pack(scene, node_fmt="w8")) == "whole_path"
     scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=16, nt=12)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     assert t_mk.pack_boxes(pack) >= 512 and t_mk.driver_of(pack) == "swf"
     scene, _, _ = t_ts.grid_smoke(8, 8)
-    assert t_mk.driver_of(t_mk.make_pack(scene, vpt=True)) == "swf_split"
+    assert t_mk.driver_of(t_mk.make_pack(scene, node_fmt="w8", vpt=True)) == "swf_split"

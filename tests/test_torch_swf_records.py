@@ -72,7 +72,7 @@ def test_swf_inline_texturing_matches_jax_interpret(kind):
     assert pack_j.textured
     Lj = np.asarray(j_mk.trace_megakernel_swf(pack_j, JMD(max_depth=4), o, d, rng,
                                               interpret=True, key_mode="pos_dir"))
-    pack = t_mk.make_pack(bridge.scene_from_numpy(flatten_jax_scene(sj)))
+    pack = t_mk.make_pack(bridge.scene_from_numpy(flatten_jax_scene(sj)), node_fmt="w8")
     assert pack.textured
     Lt = t_mk.trace_megakernel_swf(pack, TMD(max_depth=4), torch.tensor(np.asarray(o)),
                                    torch.tensor(np.asarray(d)),
@@ -88,7 +88,7 @@ def test_render_pack_batches_big_scenes():
     """A pack of SWF_AUTO_BOXES boxes or more traces all samples in one
     driver call: the image equals the per-sample loop's."""
     scene, cam, _ = t_ts.kitchen_stress(6, 4, grid=2, ns=16, nt=12)
-    pack = t_mk.make_pack(scene)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
     md = TMD(max_depth=3)
     assert t_mk.driver_of(pack) == "swf"
     img = t_mk.render_pack(pack, cam, md, 3, seed=2)
@@ -114,7 +114,7 @@ def test_swf_media_box_matches_jax_interpret():
     pack_j = j_mk.make_pack(sj, node_fmt="w8", vpt=True)
     Lj = np.asarray(j_mk.trace_megakernel_swf(pack_j, JMD(max_depth=6), o, d, rng,
                                               interpret=True, key_mode="pos_dir"))
-    pack = t_mk.make_pack(bridge.scene_from_numpy(flatten_jax_scene(sj)), vpt=True)
+    pack = t_mk.make_pack(bridge.scene_from_numpy(flatten_jax_scene(sj)), node_fmt="w8", vpt=True)
     assert pack.has_media
     Lt = t_mk.trace_megakernel_swf(pack, TMD(max_depth=6), torch.tensor(np.asarray(o)),
                                    torch.tensor(np.asarray(d)),

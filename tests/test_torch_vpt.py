@@ -191,13 +191,13 @@ def test_vpt_pack_equals_reference(kind):
     sj, _ = SCENE_PAIRS[kind][1]()
     st = bridge.scene_from_numpy(flatten_jax_scene(sj))
     pj = j_mk.make_pack(sj, node_fmt="w8", vpt=True)
-    pt = t_mk.make_pack(st, vpt=True)
+    pt = t_mk.make_pack(st, node_fmt="w8", vpt=True)
     for k in t_mk.PACK_KEYS + t_mk.MED_KEYS:
         np.testing.assert_array_equal(pt[k].numpy(), np.asarray(pj[k]), err_msg=k)
     assert pt.has_media and pj.has_media
     assert pt.ambient_med == int(pj.ambient_med) == (0 if kind == "cornell_vpt" else -1)
     with pytest.raises(ValueError, match="vpt=True"):  # the pack decides the estimator
-        t_mk.make_pack(st)
+        t_mk.make_pack(st, node_fmt="w8")
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +262,7 @@ def test_fused_vpt_matches_jax_kernel(jax_kernel_image):
     perm, inv = j_mk.tile_swizzle(8, 8)
     o, d, rng = _jax_rays(cj, SEED, perm)
     st = bridge.scene_from_numpy(flatten_jax_scene(sj))
-    pack = t_mk.make_pack(st, vpt=True)
+    pack = t_mk.make_pack(st, node_fmt="w8", vpt=True)
     Lt = t_mk.trace_megakernel(pack, TMD(max_depth=MD_FUSED), *_torch(o, d, rng)).numpy()
     _hold(Lt[np.asarray(inv)], img.reshape(-1, 3))
 
@@ -288,7 +288,7 @@ def test_fused_vpt_matches_jax_kernel_dual_hg_rayleigh():
                                           JMD(max_depth=md), o, d, rng, interpret=True))
     st = bridge.scene_from_numpy(flatten_jax_scene(sj))
     assert st.media.phase_type.tolist() == [TT.PHASE_RAYLEIGH, TT.PHASE_DUAL_HG]
-    pack = t_mk.make_pack(st, vpt=True)
+    pack = t_mk.make_pack(st, node_fmt="w8", vpt=True)
     _hold(t_mk.trace_megakernel(pack, TMD(max_depth=md), *_torch(o, d, rng)).numpy(), Lj)
 
 
@@ -349,7 +349,7 @@ def test_grid_media_raise_naming_k6():
     raise naming K6, and the Renderer takes the driver."""
     scene, cam = _grid_scene()
     assert t_mk.megakernel_ok(scene, TMD(), renderer="vpt")
-    pack = t_mk.make_pack(scene, vpt=True)
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=True)
     assert pack.has_grid
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]] * 4)
@@ -363,13 +363,19 @@ def test_grid_media_raise_naming_k6():
 
 
 def test_vpt_renderer_errors():
+    """The fused route of the volume path tracer takes nee_candidates=1:
+    traversal="fused" raises with M = 2, the default route takes the
+    composed volume path tracer and reports M (the reference's routing)."""
     scene, cam, _ = t_ts.medium_box(8, 8)
     with pytest.raises(ValueError, match="nee_candidates=1"):
         Renderer(_parsed(scene, cam), renderer=RendererType.VOLUME_PT, nee_candidates=2,
-                 device="cpu")
+                 device="cpu", traversal="fused")
+    info = Renderer(_parsed(scene, cam), renderer=RendererType.VOLUME_PT, nee_candidates=2,
+                    device="cpu").info()
+    assert (info["driver"], info["nee_candidates"]) == ("composed", 2)
     with pytest.raises(ValueError, match="VOLUME_PT"):
         Renderer(_parsed(scene, cam), device="cpu")
-    pack = t_mk.make_pack(scene, vpt=True)
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=True)
     with pytest.raises(ValueError, match="nee_candidates=1"):
         t_mk.trace_megakernel(pack, TMD(), torch.zeros((1, 3)), torch.ones((1, 3)),
                               torch.zeros((1, 2), dtype=torch.int64), nee_candidates=2)
@@ -379,6 +385,20 @@ def test_vpt_renderer_errors():
         t_vpt.trace_paths(scene, TMD(), o, d, rng, compact=True)
     with pytest.raises(NotImplementedError, match="item 4"):
         t_vpt.trace_paths(scene, TMD(), o, d, rng, differentiable=True)
+
+
+def test_vpt_composed_route_ignores_nee_candidates():
+    """VOLUME_PT with nee_candidates=2 renders the composed volume path
+    tracer, which ignores M: the same image as the composed route with
+    M = 1, bit for bit."""
+    scene, cam, _ = t_ts.medium_box(8, 8)
+    parsed = _parsed(scene, cam)
+    m2 = Renderer(parsed, renderer=RendererType.VOLUME_PT, nee_candidates=2, device="cpu")
+    m1 = Renderer(parsed, renderer=RendererType.VOLUME_PT, traversal="xla", device="cpu")
+    assert m2.info()["traversal"] == m1.info()["traversal"] == "xla"
+    img = m2.render(1)
+    np.testing.assert_array_equal(img, m1.render(1))
+    assert img.mean() > 0.01
 
 
 def test_vpt_envelope_rules():

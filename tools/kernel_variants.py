@@ -86,7 +86,7 @@ def main():
     for name, (scene, cam, _) in scenes.items():
         rng = qmc.make_state("pcg", 0, perm, 0)
         o, d, rng = cam_mod.generate_rays(cam, perm, rng)
-        rays[name] = (mk.make_pack(scene), o, d, mk.rng_bits(rng), rng)
+        rays[name] = (mk.make_pack(scene, node_fmt="w8"), o, d, mk.rng_bits(rng), rng)
     pack, o, d, _, rng = rays["kitchen"]
     k0 = int(inv[(SIZE // 2) * SIZE + SIZE // 2]) // BLOCK * BLOCK
     ob, db, rb = (x[k0:k0 + BLOCK].contiguous() for x in (o, d, rng))
