@@ -112,7 +112,27 @@ Phases (any failure exits non-zero):
      reference's) and on a block of random rays bit-equal to the plain
      version; c_node from its time at S1_ITERS and S1_ITERS / 2 steps, and
      S1's model share (node fetches x c_node over the measured time) of
-     phase 11's two kernels.
+     phase 11's two kernels;
+  13. kernel S2 (csrc/extract_ab.cu) on kitchen_stress's binary f32 rows:
+     every tag bit-equal to its plain version on a tile of the reference's
+     equal rays and a tile of random rays (8,192 lanes each, S2_HOLD_ITERS
+     steps), v0 = v1 = v2 per lane, v0 on the equal rays = S1; the entry
+     (extract_ab.main, launches counted from 0) on one tile over kitchen's
+     and cornell's rows at 30,000 and 15,000 steps (the reference's shape),
+     and over CARD_LANES lanes on kitchen's; c_node per tag and its bound;
+  14. kernel S3 (csrc/lanegather.cu): every tag bit-equal to its plain
+     version at (64, 128) x 512 and (8192, 128) x 16, the check gather equal
+     to torch.take_along_dim; the entry (lanegather.main, launches counted)
+     at (64, 128) and (8192, 128); per tag ns per iteration, per gather and
+     per select; the gather against torch.take_along_dim;
+  15. kernel S4 (csrc/mxuleaf.cu): scalar bit-equal to its plain version,
+     mxu (3xTF32 mma.sync) within the script's parity contract (>= 0.999
+     agree and hit mask) against the plain product and against scalar, the
+     1xTF32 A/B's hit mask >= 0.99, at 4,096 rays x 2,000 leaves and at
+     CARD_LANES rays x S4_CARD_HOLD_LEAVES; HMMA in mxu's SASS (and the
+     select chains' opcodes of phase 14); the entry (mxuleaf.main, launches
+     counted) at 4,096 and CARD_LANES rays; the batched torch.matmul of
+     the product alone.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
@@ -171,6 +191,19 @@ RM_KITCHEN_SPP = 2
 # kernel S1 (phase 12): rays and node steps per timed launch
 S1_RAYS = 1 << 20
 S1_ITERS = 1024
+# kernels S2-S4 (phases 13-15): lanes of the card's scale, S2's hold steps
+# (S1's), S4's hold leaves at the card's scale (the plain version's chunks
+# shrink with the rays)
+CARD_LANES = 1 << 20
+S2_HOLD_ITERS = 1024
+S4_CARD_HOLD_LEAVES = 16
+PEAK_TF32_S = 495e12  # H100 SXM dense TF32 on the tensor cores
+# f32 operations per lane and step of each S2 form (the slab test: OPS_SLAB)
+OPS_S2 = {"e0": 1, "e1": 1, "e2": 1, "e3": 10, "v0": 22, "v1": 22, "v2": 22, "w2": 44,
+          "v0_ilp2": 44, "v0_ilp4": 88, "v2_ilp2": 44}
+# f32 operations per triangle and ray of S4's mxu epilogue (|det|, a select,
+# the divide, 3 products, |det| again, 5 compares and an add, the update)
+OPS_MXU_EPI = 14
 # the device sleep before a kernel timed alone (swf_loop): 0.5 ms at the
 # H100's highest SM clock (1.98 GHz), longer at lower clocks; it only has to
 # outlast the host's launch latency
@@ -229,6 +262,30 @@ def phase_build(cb) -> dict:
     for name, regs, st, ld in rows:
         log(f"    {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     return {"build_s": secs, "ptxas": rows}
+
+
+def start_sass(cb) -> dict:
+    """The built library's SASS, dumped by cuobjdump in a process of its own
+    while the phases run; "read"(patterns) waits for it and returns the
+    opcode counts of the kernels whose symbols contain a pattern (phase
+    15), "stop"() ends the process if it still runs."""
+    from tools import sass_ops
+
+    path = os.path.join(cb.BUILD_DIR, "sass_dump.txt")
+    proc = sass_ops.start_dump(cb.library_path(), path)
+
+    def read(patterns):
+        if proc.wait() != 0:
+            raise SystemExit(f"cuobjdump failed: {proc.stderr.read().decode()[-2000:]}")
+        with open(path) as f:
+            return sass_ops.opcodes_of(f.read(), patterns)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    return {"read": read, "stop": stop}
 
 
 def phase_card() -> str:
@@ -1424,6 +1481,290 @@ def model_share(row: dict, c_fetch_ns: float, label: str) -> float:
     return share
 
 
+def bit_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def host_ms(fn) -> tuple:
+    """(fn()'s result, its wall ms, synchronized on both ends): the plain
+    versions' time, many launches each."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def counted_entry(mk, launches: dict, key: str, run) -> tuple:
+    """run() (an entry's main()) with every launch count set to 0 just
+    before and read just after; fails unless the entry launched its
+    kernel. Returns (its rows, the launches)."""
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    rows = run()
+    torch.cuda.synchronize()
+    n = launches[key]
+    if n == 0:
+        raise SystemExit(f"{key}: the entry launched no kernel")
+    return rows, n
+
+
+def phase_s2(mk, ab, nb, tk, dev, kscene, cscene) -> dict:
+    """Kernel S2 (csrc/extract_ab.cu): every tag bit-equal to its plain
+    version on kitchen_stress's binary f32 rows, S2_HOLD_ITERS steps on two
+    tiles of 8,192 lanes (the reference's equal rays, random rays around the
+    scene); v0 = v1 = v2 per lane and v0 on the equal rays = S1; then the
+    entry (ab.main) on one tile (the reference's shape) over kitchen's and
+    cornell's rows, launches counted, and on CARD_LANES lanes over
+    kitchen's."""
+    from cuda_pt_torch.utils.timing import events_ms as launch_ms
+
+    nodes = {name: torch.as_tensor(tk.pack_nodes(sc.bvh), device=dev)
+             for name, sc in (("kitchen", kscene), ("cornell", cscene))}
+    nk = nodes["kitchen"]
+    o_eq, d_eq = nb.reference_rays(ab.TILE, dev)
+    rs = np.random.default_rng(31)
+    lo = kscene.bvh.node_min[0].cpu().numpy() - 1.0
+    hi = kscene.bvh.node_max[0].cpu().numpy() + 1.0
+    o_r = torch.as_tensor(rs.uniform(lo, hi, (ab.TILE, 3)).astype(np.float32), device=dev)
+    d_r = torch.nn.functional.normalize(torch.as_tensor(
+        rs.normal(size=(ab.TILE, 3)).astype(np.float32), device=dev), dim=1)
+    o, d = torch.cat([o_eq, o_r]).contiguous(), torch.cat([d_eq, d_r]).contiguous()
+    outs, plain, err = {}, {}, 0.0
+    for tag in ab.TAGS:
+        outs[tag] = ab.extract_ab(tag, nk, o, d, S2_HOLD_ITERS)
+        ref, plain[tag] = host_ms(lambda: ab.extract_ab_reference(tag, nk, o, d, S2_HOLD_ITERS))
+        err = max(err, float(torch.where(outs[tag] == ref, 0.0, (outs[tag] - ref).abs()).max()))
+        if bit_differ(outs[tag], ref):
+            raise SystemExit(f"S2 {tag}: {bit_differ(outs[tag], ref)} lanes differ from the "
+                             "plain version")
+    if bit_differ(outs["v0"], outs["v1"]) or bit_differ(outs["v0"], outs["v2"]):
+        raise SystemExit("S2: v0, v1 and v2 differ per lane")
+    s1 = nb.node_bench(nk, o_eq, d_eq, S2_HOLD_ITERS)
+    if bit_differ(outs["v0"][:ab.TILE], s1):
+        raise SystemExit("S2: v0 on equal rays differs from S1")
+    hits = int((outs["v0"][ab.TILE:] != 0).sum())
+    hold_ms = launch_ms(lambda: ab.extract_ab("v0", nk, o, d, S2_HOLD_ITERS), 3)
+    log(f"[13] S2 on kitchen's {nk.shape[0]} f32 node rows, 2 tiles x {ab.TILE} lanes x "
+        f"{S2_HOLD_ITERS} steps: all {len(ab.TAGS)} tags bit-equal to the plain version "
+        f"(random tile: {hits} lanes with box hits); v0 = v1 = v2 per lane; v0 = S1 on the "
+        f"equal rays; v0 {hold_ms:.3f} ms, plain {plain['v0']:.1f} ms")
+    rows, launches = counted_entry(mk, ab.LAUNCHES, "extract_ab", lambda: ab.main(
+        ["--tiles", "1", "--reps", "3"], nodes=nodes))
+    card = ab.main(["--tiles", str(CARD_LANES // ab.TILE), "--reps", "3", "--scene", "kitchen"],
+                   nodes=nodes)
+    res = {"launches": launches, "max_abs_err": err, "hold_plain_ms": plain, "hold_ms": hold_ms,
+           "hold_lanes": 2 * ab.TILE, "hold_iters": S2_HOLD_ITERS, "random_tile_hit_lanes": hits}
+    for label, rs_ in (("reference", rows), ("card_scale", card)):
+        lanes = ab.TILE * (1 if label == "reference" else CARD_LANES // ab.TILE)
+        for r in rs_:
+            if "variant" not in r:
+                continue
+            rows_b = nodes[r["scene"]].numel() * 4 + lanes * 28
+            b_ms, b_by = bound(rows_b, ab.ITERS * lanes, 0, OPS_S2[r["variant"]] / OPS_SLAB)
+            r.update(bound_ms=b_ms, bound_by=b_by, lanes=lanes)
+            res.setdefault(label, {}).setdefault(r["scene"], {})[r["variant"]] = r
+        for sc, tags in res[label].items():
+            log(f"[13] S2 {label} ({lanes} lanes, {ab.ITERS} steps), {sc}: " + ", ".join(
+                f"{t} {r['c_node_ns']:.1f} ns/step" for t, r in tags.items()))
+    return res
+
+
+def phase_s3(mk, lg, dev) -> dict:
+    """Kernel S3 (csrc/lanegather.cu): every tag bit-equal to its plain
+    version at the reference's (64, 128) x REPS and at (8192, 128) x 16; the
+    check gather equal to torch.take_along_dim; then the entry (lg.main) at
+    64 rows, launches counted, and at CARD_LANES / 128 rows; the gather's
+    time, its plain version's and torch.take_along_dim's at both sizes (each
+    launch timed alone, after a device sleep)."""
+    from cuda_pt_torch.utils.timing import events_ms as launch_ms
+
+    res, err = {}, 0.0
+    for label, rows, reps in (("reference", lg.ROWS, lg.REPS),
+                              ("card_scale", CARD_LANES // lg.ROW, 16)):
+        x, row, idx = lg.make_inputs(0, rows, dev)
+        plain = {}
+        for tag in lg.TAGS:
+            out = lg.lanegather(tag, x, row, idx, reps)
+            ref, plain[tag] = host_ms(lambda: lg.lanegather_reference(tag, x, row, idx, reps))
+            if bit_differ(out, ref):
+                raise SystemExit(f"S3 {tag}, {rows} rows: {bit_differ(out, ref)} lanes differ "
+                                 "from the plain version")
+        g = lg.gather(row, idx)
+        idx64 = idx.long()
+        rb = row.expand(rows, lg.ROW)
+        lib = torch.take_along_dim(rb, idx64, dim=1)
+        ref = lg.gather_reference(row, idx)
+        if not torch.equal(g, lib) or not torch.equal(g, ref):
+            raise SystemExit(f"S3 gather, {rows} rows: differs from torch.take_along_dim")
+        err = max(err, float((g - ref).abs().max()))
+        n = rows * lg.ROW
+        b_ms, b_by = bound(n * 8 + lg.ROW * 4, 0, 0)
+        res["hold_" + label] = h = {"lanes": n, "hold_reps": reps, "hold_plain_ms": plain,
+                     "gather_ms": launch_ms(lambda: lg.gather(row, idx), 5),
+                     "gather_plain_ms": launch_ms(lambda: lg.gather_reference(row, idx), 5),
+                     "library_ms": launch_ms(lambda: torch.take_along_dim(rb, idx64, dim=1), 5),
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[14] S3 at ({rows}, 128) x {reps}: every tag bit-equal to the plain version, "
+            f"the gather equal to torch.take_along_dim; gather {h['gather_ms']:.4f} ms, "
+            f"plain {h['gather_plain_ms']:.4f}, take_along_dim {h['library_ms']:.4f}, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+    rows_ref, launches = counted_entry(mk, lg.LAUNCHES, "lanegather", lambda: lg.main([]))
+    rows_card = lg.main(["--rows", str(CARD_LANES // lg.ROW)])
+    for label, rows_, r_ in (("reference", rows_ref, lg.ROWS),
+                             ("card_scale", rows_card, CARD_LANES // lg.ROW)):
+        per = {r["tag"]: r["per_iter_ns"] for r in rows_ if "tag" in r}
+        summary = next(r for r in rows_ if "summary" in r)
+        res[label] = {"rows": r_, "per_iter_ns": per, "summary": summary}
+        log(f"[14] S3 {label} ({r_}, 128) x {lg.REPS}: " + ", ".join(
+            f"{t} {v:.2f}" for t, v in per.items()) + " ns/iter; per gather "
+            f"{summary['g14_minus_e0_per']:.3f} ns (shuffle {summary['s14_minus_e0_per']:.3f}), "
+            f"per select {summary['w112_minus_e0_per']:.3f} ns")
+    res["launches"] = launches
+    res["max_abs_err"] = err
+    return res
+
+
+def phase_s4(mk, mx, dev, sass_job: dict) -> dict:
+    """Kernel S4 (csrc/mxuleaf.cu): at the reference's 4,096 rays x 2,000
+    leaves, scalar bit-equal to its plain version and mxu (3xTF32) within
+    the script's parity contract (agree >= 0.999 on lanes finite in both,
+    hit mask >= 0.999) against the plain product and against scalar; the
+    1xTF32 A/B's hit mask >= 0.99; the same at CARD_LANES rays x
+    S4_CARD_HOLD_LEAVES leaves; mxu's SASS holds HMMA; then the entry
+    (mx.main) at 4,096 rays, launches counted, and at CARD_LANES rays; the
+    batched torch.matmul of the product alone (f32, allow_tf32 False)."""
+    from cuda_pt_torch.utils.timing import events_ms as launch_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain product and the library call in f32
+    res = {}
+    for label, rays, nleaf in (("reference", mx.ROWS * 128, mx.NLEAF),
+                               ("card_scale", CARD_LANES, S4_CARD_HOLD_LEAVES)):
+        inp = mx.make_inputs(0, rays // 128, nleaf, dev)
+        o, d = inp["o"], inp["d"]
+        t_s = mx.leaf_min_t("scalar", inp["prow"], o, d)
+        t_m = mx.leaf_min_t("mxu", inp["coef"], o, d)
+        t_1 = mx.leaf_min_t("mxu_1xtf32", inp["coef"], o, d)
+        ref_s, plain_s = host_ms(lambda: mx.scalar_reference(inp["prow"], o, d))
+        ref_m, plain_m = host_ms(lambda: mx.mxu_reference(inp["coef"], o, d))
+        if bit_differ(t_s, ref_s):
+            raise SystemExit(f"S4 scalar, {rays} rays: {bit_differ(t_s, ref_s)} lanes differ "
+                             "from the plain version")
+        p_plain = mx.parity(ref_m.cpu().numpy(), t_m.cpu().numpy())
+        p_scalar = mx.parity(t_s.cpu().numpy(), t_m.cpu().numpy())
+        p_1x = mx.parity(ref_m.cpu().numpy(), t_1.cpu().numpy())
+        for p in (p_plain, p_scalar):
+            if p["agree_frac"] < 0.999 or p["hitmask_match"] < 0.999:
+                raise SystemExit(f"S4 mxu, {rays} rays: outside the parity contract {p}")
+        if p_1x["hitmask_match"] < 0.99:
+            raise SystemExit(f"S4 mxu_1xtf32, {rays} rays: hit mask {p_1x}")
+        fin = torch.isfinite(t_m) & torch.isfinite(ref_m)
+        err = float((t_m[fin] - ref_m[fin]).abs().max()) if bool(fin.any()) else 0.0
+        res["hold_" + label] = {"rays": rays, "nleaf": nleaf, "parity_plain": p_plain, "parity_scalar": p_scalar,
+                     "parity_1xtf32": p_1x, "max_abs_err": err, "plain_scalar_ms": plain_s,
+                     "plain_mxu_ms": plain_m, "hit_frac": float(torch.isfinite(t_s).float().mean())}
+        log(f"[15] S4 {rays} rays x {nleaf} leaves: scalar bit-equal to the plain version; mxu "
+            f"(3xTF32) agree {p_plain['agree_frac']:.6f} / hit mask {p_plain['hitmask_match']:.6f}"
+            f" against the plain product, {p_scalar['agree_frac']:.6f} / "
+            f"{p_scalar['hitmask_match']:.6f} against scalar, max |dt| {err:.3g}; 1xTF32 agree "
+            f"{p_1x['agree_frac']:.6f}, hit mask {p_1x['hitmask_match']:.6f}; plain scalar "
+            f"{plain_s:.1f} ms, mxu {plain_m:.1f} ms")
+    sass = sass_job["read"](["leaf_mxu_kernel", "lanegather_kernelILi2E"])
+    hmma = {k: v.get("HMMA", 0) for k, v in sass.items() if k.startswith("leaf_mxu")}
+    if not hmma.get("leaf_mxu_kernel<1>"):
+        raise SystemExit(f"S4: no HMMA in mxu's SASS ({hmma})")
+    res["sass"] = {k: dict(v.most_common(8)) for k, v in sass.items()}
+    log(f"[15] SASS: HMMA per kernel {hmma}; the S3 select chains: " + "; ".join(
+        f"{k} {dict(v.most_common(4))}" for k, v in sass.items() if k.startswith("lanegather")))
+    rows_ref, launches = counted_entry(mk, mx.LAUNCHES, "mxuleaf", lambda: mx.main([]))
+    rows_card = mx.main(["--rows", str(CARD_LANES // 128)])
+    inp = mx.make_inputs(0, mx.ROWS, mx.NLEAF, dev)
+    blocks = inp["coef"].reshape(mx.NLEAF, 32, 16)
+    feat = mx.features(inp["o"], inp["d"])
+    res["library_ms"] = launch_ms(lambda: torch.matmul(blocks, feat), 3)
+    for label, rows_, rays in (("reference", rows_ref, mx.ROWS * 128),
+                               ("card_scale", rows_card, CARD_LANES)):
+        forms = {r["variant"]: r for r in rows_ if "variant" in r}
+        work = rays * mx.NLEAF
+        nbytes = mx.NLEAF * (128 + 32 * 16) * 4 + rays * 28
+        t_b = nbytes / PEAK_BYTES_S
+        t_f32 = work * mx.NP8 * OPS_MXU_EPI / PEAK_F32_S
+        for form, t_ops in (("scalar", work * mx.NP8 * OPS_TRI / PEAK_F32_S),
+                            ("mxu", max(t_f32, work * 3 * 2 * 32 * 16 / PEAK_TF32_S)),
+                            ("mxu_1xtf32", max(t_f32, work * 2 * 32 * 16 / PEAK_TF32_S))):
+            forms[form].update(bound_ms=max(t_b, t_ops) * 1e3, ms=forms[form]["sec"] * 1e3,
+                               bound_by="bytes" if t_b > t_ops else "operations")
+        res[label] = {"rays": rays, "forms": forms,
+                      "parity": next(r for r in rows_ if r.get("check") == "parity"),
+                      "parity_1xtf32": next(r for r in rows_ if r.get("check") == "parity_1xtf32")}
+        log(f"[15] S4 {label} ({rays} rays x {mx.NLEAF} leaves): " + ", ".join(
+            f"{f} {r['ms']:.4f} ms ({r['ns_per_leaf']:.2f} ns/leaf, bound {r['bound_ms']:.4f})"
+            for f, r in forms.items()))
+    log(f"[15] batched torch.matmul (2000, 32, 16) x (16, 4096) in f32, product only, no "
+        f"epilogue: {res['library_ms']:.4f} ms")
+    res["launches"] = launches
+    return res
+
+
+def s2_entry(s2: dict) -> dict:
+    """The results line's S2 entry: v0 on kitchen's rows, one tile at the
+    reference's steps; every tag and the card's scale beside it."""
+    v0 = s2["reference"]["kitchen"]["v0"]
+    pick = ("c_node_ns", "ms", "bound_ms", "checksum")
+    return {"name": "extract_ab (S2 v0, kitchen_stress f32 rows, one 8,192-lane tile)",
+            "route": "cuda", "source": "cuda_pt_torch/csrc/extract_ab.cu",
+            "replaces": "scripts/exp_extract_ab.py:232", "launches": s2["launches"],
+            "max_abs_err": s2["max_abs_err"], "ms": v0["ms"], "plain_ms": s2["hold_plain_ms"]["v0"],
+            "bound_ms": v0["bound_ms"], "bound_by": v0["bound_by"], "library_ms": None,
+            "c_node_ns": v0["c_node_ns"], "hold_ms": s2["hold_ms"],
+            "variants": {label: {sc: {t: {k: r[k] for k in pick} for t, r in tags.items()}
+                                 for sc, tags in s2[label].items()}
+                         for label in ("reference", "card_scale")},
+            "note": "ms: a launch of 30,000 steps; plain_ms and hold_ms: the plain version and "
+                    "the kernel on the hold's 2 tiles x S2_HOLD_ITERS steps; launches: the "
+                    "entry at the reference's shape"}
+
+
+def s3_entry(s3: dict) -> dict:
+    """The results line's S3 entry: the check gather at the reference's
+    (64, 128) against torch.take_along_dim; the timed tags beside it."""
+    ref, card = s3["hold_reference"], s3["hold_card_scale"]
+    return {"name": "lanegather (S3 gather, (64, 128))", "route": "cuda",
+            "source": "cuda_pt_torch/csrc/lanegather.cu",
+            "replaces": "scripts/exp_lanegather.py:57", "launches": s3["launches"],
+            "max_abs_err": s3["max_abs_err"], "ms": ref["gather_ms"],
+            "plain_ms": ref["gather_plain_ms"], "bound_ms": ref["bound_ms"],
+            "bound_by": ref["bound_by"], "library_ms": ref["library_ms"],
+            "card_scale": {k: card[k] for k in ("gather_ms", "gather_plain_ms", "library_ms",
+                                               "bound_ms", "bound_by", "lanes")},
+            "per_iter_ns": {label: s3[label]["per_iter_ns"] for label in ("reference", "card_scale")},
+            "summary": {label: s3[label]["summary"] for label in ("reference", "card_scale")},
+            "note": "ms: one launch of the check form (kern_chk, :100), timed alone after a device "
+                    "sleep; per_iter_ns: the timed tags (:57), a launch over REPS"}
+
+
+def s4_entry(s4: dict) -> dict:
+    """The results line's S4 entry: mxu (3xTF32) at the reference's 4,096
+    rays x 2,000 leaves against the batched torch.matmul of its product;
+    scalar, the 1xTF32 A/B and the card's scale beside it."""
+    forms = s4["reference"]["forms"]
+    held = s4["hold_reference"]
+    pick = ("ms", "ns_per_leaf", "ns_per_prim_lane", "bound_ms", "bound_by")
+    return {"name": "mxuleaf (S4 mxu, 3xTF32 mma.sync, 4,096 rays x 2,000 leaves)",
+            "route": "cuda", "source": "cuda_pt_torch/csrc/mxuleaf.cu",
+            "replaces": "scripts/exp_r5_mxuleaf.py:176", "launches": s4["launches"],
+            "max_abs_err": held["max_abs_err"], "ms": forms["mxu"]["ms"],
+            "plain_ms": held["plain_mxu_ms"], "bound_ms": forms["mxu"]["bound_ms"],
+            "bound_by": forms["mxu"]["bound_by"], "library_ms": s4["library_ms"],
+            "forms": {label: {f: {k: r[k] for k in pick} for f, r in s4[label]["forms"].items()}
+                      for label in ("reference", "card_scale")},
+            "parity": held["parity_plain"], "parity_scalar": held["parity_scalar"],
+            "parity_1xtf32": held["parity_1xtf32"], "plain_scalar_ms": held["plain_scalar_ms"],
+            "note": "library_ms: the batched torch.matmul (2000, 32, 16) x (16, 4096) in f32 "
+                    "(allow_tf32 False), product only, no epilogue; max_abs_err: mxu against "
+                    "the plain product on lanes finite in both"}
+
+
 def whole_path_pass(mk, r, md):
     """A pass of the Renderer's scene through the whole-path kernel
     (auto_trace bypassed): sample 0's pcg streams and camera rays over the
@@ -1486,10 +1827,25 @@ def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
         return 1
+    from cuda_pt_torch.ops import cuda_build as cb
+
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    build = phase_build(cb)
+    sass_job = start_sass(cb)
+    try:
+        return run_phases(args, build, sass_job)
+    finally:
+        sass_job["stop"]()
+
+
+def run_phases(args, build: dict, sass_job: dict) -> int:
+    """Phases 2-15 and the result lines, after the build (phase 1)."""
     from cuda_pt_torch.api import Renderer
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
-    from cuda_pt_torch.ops import cuda_build as cb
+    from cuda_pt_torch.ops import extract_ab as ab
+    from cuda_pt_torch.ops import lanegather as lg
     from cuda_pt_torch.ops import megakernel as mk
+    from cuda_pt_torch.ops import mxuleaf as mx
     from cuda_pt_torch.ops import node_bench as nb
     from cuda_pt_torch.ops import traverse_kernel as tk
     from cuda_pt_torch.scene import testscenes as tts
@@ -1498,8 +1854,6 @@ def main():
     from cuda_pt_torch.scene.xml_parser import ParsedScene
 
     dev = torch.device("cuda")
-    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    build = phase_build(cb)
     card = phase_card()
     walk = phase_walk(mk, tts, dev)
     walk_k, kscene, kcam, build_s = phase_walk_kitchen(mk, tts, dev)
@@ -1542,6 +1896,9 @@ def main():
     rm_kitchen["s1_model_share"] = model_share(
         rm_kitchen, s1["kitchen"]["c_node_ns_per_fetch"], "render_megakernel kitchen, K5 "
         "SEG+K3+ALL+BIN (c_node of the f32 rows; the pass walks bf16 rows)")
+    s2 = phase_s2(mk, ab, nb, tk, dev, kscene, tts.cornell_box(device=dev)[0])
+    s3 = phase_s3(mk, lg, dev)
+    s4 = phase_s4(mk, mx, dev, sass_job)
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
@@ -1584,6 +1941,7 @@ def main():
          "cornell": s1["cornell"],
          "note": "launches: S1's own phase (no render path runs it); ms: S1_ITERS steps on "
                  "S1_RAYS equal rays"},
+        s2_entry(s2), s3_entry(s3), s4_entry(s4),
     ]
     for k in kernels:
         k.pop("runs", None)

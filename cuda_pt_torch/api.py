@@ -98,7 +98,7 @@ def _envelope_message(scene: T.Scene, vpt: bool) -> str:
     elif vpt and bool((scene.bsdfs.tex_ids >= 0).any()):
         item = "the fused volume path tracer takes no textures, as in the reference"
     else:
-        item = "see megakernel_ok for the limits; ROADMAP Queue 2 lists what is to port"
+        item = "see megakernel_ok for the limits; ROADMAP Queue 2 lists them"
     return f"scene outside the fused-megakernel envelope: {item}"
 
 

@@ -36,7 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argtypes (csrc/megakernel*.cu: the first pointer is a host
 # array of the pack's table pointers; csrc/traverse.cu: kernel K1;
-# csrc/node_bench.cu: kernel S1)
+# csrc/node_bench.cu: kernel S1; csrc/extract_ab.cu, lanegather.cu and
+# mxuleaf.cu: kernels S2, S3 and S4)
 _SIGNATURES = {
     "mk_trace": [_P] * 6 + [_I] * 17 + [_P, _P],
     "mk_closest_hit": [_P] * 7 + [_I] * 5 + [_P],
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "mk_traverse": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     "k1_traverse": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_P] * 7,
     "s1_node_bench": [_P, _I, _I, _P, _P, _P, _I, _P],
+    "s2_extract_ab": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    "s3_lanegather": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
+    "s4_mxuleaf": [_I, _P, _I, _P, _P, _P, _I, _P],
 }
 
 _lib = None  # the CDLL, built from the sources as they were at first load
@@ -176,14 +180,15 @@ def build_log(lib_path: str | None = None) -> str:
 
 
 def _demangle(name: str) -> str:
-    """A kernel's mangled name as name<flags> (its bool template flags)."""
+    """A kernel's mangled name as name<args> (its bool and int template
+    arguments: 1 / 0 for a flag)."""
     m = re.match(r"_Z(\d+)", name)
     if not m:
         return name
     n = int(m.group(1))
     base = name[m.end():m.end() + n]
-    flags = re.match(r"I((?:Lb[01]E)+)E", name[m.end() + n:])
-    return f"{base}<{','.join(re.findall(r'Lb([01])E', flags.group(1)))}>" if flags else base
+    args = re.match(r"I((?:L[bi]\d+E)+)E", name[m.end() + n:])
+    return f"{base}<{','.join(re.findall(r'L[bi](\d+)E', args.group(1)))}>" if args else base
 
 
 def ptxas_report(log: str) -> list:
@@ -208,6 +213,13 @@ def ptxas_report(log: str) -> list:
             rows.append((_demangle(cur), int(m.group(1)), *spill))
             cur = None
     return rows
+
+
+def check_inputs(*tensors):
+    """Raise unless the tensors a kernel reads through raw pointers are
+    contiguous and on one device."""
+    if any(t.device != tensors[0].device or not t.is_contiguous() for t in tensors):
+        raise ValueError("kernel inputs must be contiguous and on one device")
 
 
 def load() -> ctypes.CDLL:

@@ -81,9 +81,7 @@ def node_bench(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     if o.device.type == "cpu":
         return node_bench_reference(nodes, o, d, n_iters)
     _check(nodes, o, d)
-    if nodes.device != o.device or d.device != o.device or not all(
-            x.is_contiguous() for x in (nodes, o, d)):
-        raise ValueError("kernel inputs must be contiguous and on one device")
+    cuda_build.check_inputs(o, d, nodes)
     out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
     rc = cuda_build.load().s1_node_bench(
         nodes.data_ptr(), nodes.shape[0] * tk.SLOTS, int(n_iters), o.data_ptr(), d.data_ptr(),

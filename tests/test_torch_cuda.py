@@ -522,3 +522,134 @@ def test_node_bench_bit_equal(cuda):
     assert t_nb.LAUNCHES["node_bench"] == n0 + 1
     ref = t_nb.node_bench_reference(nodes, o, d, 300)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def _s2_rays(n_equal: int, n_random: int, lo, hi, seed: int, dev):
+    """n_equal of the reference's equal rays, then n_random random rays with
+    origins in [lo, hi] (some outside the scene's box) -> (o, d)."""
+    from cuda_pt_torch.ops import node_bench as t_nb
+
+    o, d = t_nb.reference_rays(n_equal, dev)
+    rs = np.random.default_rng(seed)
+    o_r = torch.as_tensor(rs.uniform(lo, hi, (n_random, 3)).astype(np.float32), device=dev)
+    d_r = torch.nn.functional.normalize(torch.as_tensor(
+        rs.normal(size=(n_random, 3)).astype(np.float32), device=dev), dim=1)
+    return torch.cat([o, o_r]).contiguous(), torch.cat([d, d_r]).contiguous()
+
+
+def test_extract_ab_bit_equal(cuda):
+    """Kernel S2, every tag against its plain version bit for bit on small
+    kitchen's binary f32 rows: tiles of 256 lanes (one of equal rays, three
+    of random rays) and of 2,048 and 8,192 random lanes (2 and 8 lanes per
+    thread), 200 steps; v0 = v1 = v2 per lane, v0 on equal rays = S1."""
+    from cuda_pt_torch.ops import extract_ab as t_ab
+    from cuda_pt_torch.ops import node_bench as t_nb
+
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    nodes = torch.as_tensor(t_tk.pack_nodes(scene.bvh), device=cuda)
+    lo, hi = scene.bvh.node_min[0].numpy() - 1.0, scene.bvh.node_max[0].numpy() + 1.0
+    cases = {256: _s2_rays(256, 768, lo, hi, 8, cuda), 2048: _s2_rays(0, 2048, lo, hi, 9, cuda),
+             8192: _s2_rays(0, 8192, lo, hi, 10, cuda)}
+    outs = {}
+    for tag in t_ab.TAGS:
+        for tile, (o, d) in cases.items():
+            n0 = t_ab.LAUNCHES["extract_ab"]
+            out = t_ab.extract_ab(tag, nodes, o, d, 200, tile)
+            torch.cuda.synchronize()
+            assert t_ab.LAUNCHES["extract_ab"] == n0 + 1
+            ref = t_ab.extract_ab_reference(tag, nodes, o, d, 200, tile)
+            assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), (tag, tile)
+            outs[tag, tile] = out
+    for tile in cases:
+        assert torch.equal(outs["v0", tile], outs["v1", tile])
+        assert torch.equal(outs["v0", tile], outs["v2", tile])
+    o, d = cases[256]
+    s1 = t_nb.node_bench(nodes, o[:256], d[:256], 200)
+    assert torch.equal(outs["v0", 256][:256], s1) and float(s1[0]) != 0.0
+
+
+def test_lanegather_bit_equal(cuda):
+    """Kernel S3, every tag against its plain version bit for bit at the
+    reference's (64, 128) inputs, 64 iterations; the check gather against
+    torch.take_along_dim; the shuffle forms equal the gather forms."""
+    from cuda_pt_torch.ops import lanegather as t_lg
+
+    x, row, idx = t_lg.make_inputs(0, 64, cuda)
+    outs = {}
+    for tag in t_lg.TAGS:
+        n0 = t_lg.LAUNCHES["lanegather"]
+        outs[tag] = t_lg.lanegather(tag, x, row, idx, 64)
+        torch.cuda.synchronize()
+        assert t_lg.LAUNCHES["lanegather"] == n0 + 1
+        ref = t_lg.lanegather_reference(tag, x, row, idx, 64)
+        assert torch.equal(outs[tag].view(torch.int32), ref.view(torch.int32)), tag
+    for n in (1, 4, 14):
+        assert torch.equal(outs[f"s{n}"], outs[f"g{n}"])
+    g = t_lg.gather(row, idx)
+    assert torch.equal(g, torch.take_along_dim(row.expand(64, 128), idx.long(), dim=1))
+
+
+def test_mxuleaf_matches_plain(cuda):
+    """Kernel S4 at 4,096 rays x 64 leaves: scalar bit-equal to its plain
+    version; mxu (3xTF32) under the script's parity contract (agree and hit
+    mask >= 0.999) against the plain product and against scalar; the
+    1xTF32 A/B's hit mask >= 0.99."""
+    from cuda_pt_torch.ops import mxuleaf as t_mx
+
+    inp = t_mx.make_inputs(0, 32, 64, cuda)
+    o, d = inp["o"], inp["d"]
+    n0 = t_mx.LAUNCHES["mxuleaf"]
+    t_s = t_mx.leaf_min_t("scalar", inp["prow"], o, d)
+    t_m = t_mx.leaf_min_t("mxu", inp["coef"], o, d)
+    t_1 = t_mx.leaf_min_t("mxu_1xtf32", inp["coef"], o, d)
+    torch.cuda.synchronize()
+    assert t_mx.LAUNCHES["mxuleaf"] == n0 + 3
+    ref_s = t_mx.scalar_reference(inp["prow"], o, d)
+    ref_m = t_mx.mxu_reference(inp["coef"], o, d)
+    assert torch.equal(t_s.view(torch.int32), ref_s.view(torch.int32))
+    assert 0.2 < float(torch.isfinite(t_s).float().mean()) < 1.0
+    for other in (ref_m, t_s):
+        p = t_mx.parity(other.cpu().numpy(), t_m.cpu().numpy())
+        assert p["agree_frac"] >= 0.999 and p["hitmask_match"] >= 0.999, p
+    assert t_mx.parity(ref_m.cpu().numpy(), t_1.cpu().numpy())["hitmask_match"] >= 0.99
+
+
+def test_microkernel_launch_error_raises(cuda, monkeypatch):
+    """A form the C entries do not build (S2 with 3 pointers, S3 with 5
+    gathers, S4's form 3) is refused: the wrappers raise and count no
+    launch."""
+    from cuda_pt_torch.ops import extract_ab as t_ab
+    from cuda_pt_torch.ops import lanegather as t_lg
+    from cuda_pt_torch.ops import mxuleaf as t_mx
+
+    real = t_tk.cuda_build.load()
+
+    class Refused:
+        def s2_extract_ab(self, variant, n_ptr, *args):
+            return real.s2_extract_ab(variant, 3, *args)
+
+        def s3_lanegather(self, kind, n_ops, *args):
+            return real.s3_lanegather(kind, 5, *args)
+
+        def s4_mxuleaf(self, form, *args):
+            return real.s4_mxuleaf(3, *args)
+
+    scene, _, _ = t_ts.cornell_box(8, 8)
+    nodes = torch.as_tensor(t_tk.pack_nodes(scene.bvh), device=cuda)
+    o, d = _s2_rays(256, 0, 0.0, 1.0, 0, cuda)
+    x, row, idx = t_lg.make_inputs(0, 2, cuda)
+    inp = t_mx.make_inputs(0, 1, 2, cuda)
+    monkeypatch.setattr(t_tk.cuda_build, "load", Refused)
+    t_mk.reset_launches()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        t_ab.extract_ab("v0", nodes, o, d, 4, 256)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        t_lg.lanegather("g1", x, row, idx, 4)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        t_mx.leaf_min_t("mxu", inp["coef"], inp["o"], inp["d"])
+    assert t_mk.LAUNCHES["extract_ab"] == t_mk.LAUNCHES["lanegather"] == 0
+    assert t_mk.LAUNCHES["mxuleaf"] == 0
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.equal(t_lg.lanegather("g1", x, row, idx, 4),
+                       t_lg.lanegather_reference("g1", x, row, idx, 4))

@@ -90,6 +90,13 @@ SCENES = {
 }
 
 
+# kernels S2-S4 (csrc/extract_ab.cu, lanegather.cu, mxuleaf.cu) cooperate
+# across a block's threads or a warp's lanes every step (a tile vote, shared
+# memory, shuffles, mma.sync), which a loop over the threads one after
+# another cannot run: test_torch_cuda.py and chip_smoke.py hold them on a card
+CARD_ONLY = {"extract_ab.cu", "lanegather.cu", "mxuleaf.cu"}
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -98,7 +105,9 @@ def host_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("host_kernel")
     (d / "cuda_runtime.h").write_text(_SHIM)
     launches = 0
-    for name in os.listdir(cb.CSRC):  # every source, launches rewritten
+    for name in os.listdir(cb.CSRC):  # every host-runnable source, launches rewritten
+        if name in CARD_ONLY:
+            continue
         with open(os.path.join(cb.CSRC, name)) as f:
             src = f.read()
         src, n = re.subn(
@@ -112,12 +121,19 @@ def host_lib(tmp_path_factory):
     assert launches == 6
     defines = [f for f in cb._flags() if f.startswith("-D")]
     out = d / "libmegakernel_host.so"
-    host_units = [str(d / (os.path.basename(u)[:-3] + "_host.cpp")) for u in cb.units()]
+    host_units = [str(d / (os.path.basename(u)[:-3] + "_host.cpp")) for u in cb.units()
+                  if os.path.basename(u) not in CARD_ONLY]
     res = subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                           f"-I{d}", *defines, *host_units, "-o", str(out)],
                          capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-4000:]
-    return cb.open_library(str(out))
+    lib = ctypes.CDLL(str(out))  # the entry points of the host-runnable units
+    for name, argtypes in cb._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    assert not hasattr(lib, "s2_extract_ab") and hasattr(lib, "s1_node_bench")
+    return lib
 
 
 # kernel K4 (the MED instantiations): vpt packs of media scenes
@@ -503,3 +519,167 @@ def test_host_node_bench_bit_equal(host_lib):
     ref = nb.node_bench_reference(nodes, o, d, 200)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     assert (out[:64] == out[0]).all() and float(out[0]) != 0.0
+
+
+# ---- kernels S2-S4 (card only): their wrappers and plain versions on the CPU
+
+
+def _s2_node_rows(slots: list) -> torch.Tensor:
+    """Binary f32 node rows from (lo, hi, skip, count) per slot, 8 per row."""
+    rows = np.zeros((len(slots) // 8, 128), np.float32)
+    for k, (lo, hi, skip, cnt) in enumerate(slots):
+        rows.reshape(-1, 16)[k, :9] = [*lo, *hi, skip, 0, cnt]
+    return torch.as_tensor(rows)
+
+
+def _diag_rays():
+    """128 equal rays from the origin along (1, 1, 1) / sqrt(3)."""
+    d = np.full((128, 3), 1.0 / np.sqrt(3.0), np.float32)
+    return torch.zeros((128, 3)), torch.as_tensor(d)
+
+
+def test_extract_ab_w2_second_slot_wraps_in_its_row():
+    """w2's second slot is (slot + 1) % 8 of the same row, as the
+    reference's (sb + SLOT_F) % 128 is: walking slots 0-7 of row 0, the
+    step at slot 7 adds slot 0's box (hit at tn = 1 * inv) and not slot 8's
+    (the next row's, hit at 5 * inv), and with it slot 7's own tn (-3 *
+    inv: the second box's hit counts as the step's); v0 adds slot 0 once."""
+    from cuda_pt_torch.ops import extract_ab as ab
+
+    hit = lambda a: ((a, a, a), (a + 1, a + 1, a + 1))  # noqa: E731
+    miss = ((-3.0,) * 3, (-2.5,) * 3)  # behind the ray: tf < 0
+    slots = [(*hit(1.0), 1, 1)]  # a leaf: the walk goes to its skip
+    slots += [(*miss, k + 1, 0) for k in range(1, 7)] + [(*miss, 15, 0)]
+    slots += [(*hit(5.0), 9, 0)] + [(*miss, 0, 0)] * 7
+    o, d = _diag_rays()
+    inv = np.float32(1.0) / d[0, 0].numpy()
+    w2 = ab.extract_ab("w2", _s2_node_rows(slots), o, d, 8, tile=128)
+    v0 = ab.extract_ab("v0", _s2_node_rows(slots), o, d, 8, tile=128)
+    np.testing.assert_allclose(w2.numpy(), (1.0 + 1.0 - 3.0) * inv, rtol=1e-6)
+    np.testing.assert_allclose(v0.numpy(), 1.0 * inv, rtol=1e-6)
+    slots[8] = (*hit(7.0), 9, 0)  # the next row's first slot is not read
+    assert torch.equal(ab.extract_ab("w2", _s2_node_rows(slots), o, d, 8, tile=128), w2)
+
+
+def test_extract_ab_e3_reads_lo_x_for_every_axis():
+    """e3 takes a node's lo_x as the box minimum on all three axes and
+    steps ptr + 1 on a tile hit, ptr + 2 otherwise: its output moves with
+    lo_x only."""
+    from cuda_pt_torch.ops import extract_ab as ab
+
+    o, d = _diag_rays()
+    slots = [((2.0, 3.0, 4.0), (5.0, 5.0, 5.0), 1, 0)] + [((9.0,) * 3, (9.0,) * 3, 0, 0)] * 7
+    e3 = ab.extract_ab("e3", _s2_node_rows(slots), o, d, 1, tile=128)
+    np.testing.assert_allclose(e3.numpy(), 2.0 / d[0, 0].numpy(), rtol=1e-6)
+    slots[0] = ((2.0, -7.0, 11.0), (0.0, 0.0, 0.0), 1, 0)
+    assert torch.equal(ab.extract_ab("e3", _s2_node_rows(slots), o, d, 1, tile=128), e3)
+    slots[0] = ((3.0, 3.0, 4.0), (5.0, 5.0, 5.0), 1, 0)
+    assert not torch.equal(ab.extract_ab("e3", _s2_node_rows(slots), o, d, 1, tile=128), e3)
+
+
+def test_microkernel_wrappers_check_their_inputs():
+    """The wrappers' shape and type checks raise on the CPU as on the card;
+    the contiguity and device check of the kernel path raises too."""
+    from cuda_pt_torch.ops import extract_ab as ab
+    from cuda_pt_torch.ops import lanegather as lg
+    from cuda_pt_torch.ops import mxuleaf as mx
+
+    nodes = torch.zeros((4, 128))
+    o, d = _diag_rays()
+    with pytest.raises(ValueError, match="tile"):
+        ab.extract_ab("v0", nodes, o, d, 2, tile=96)
+    with pytest.raises(ValueError, match="tile"):
+        ab.extract_ab("v0", nodes, o[:100], d[:100], 2, tile=128)
+    with pytest.raises(ValueError, match="node rows"):
+        ab.extract_ab("v0", nodes[:, :64], o, d, 2, tile=128)
+    with pytest.raises(ValueError, match="unknown tag"):
+        ab.extract_ab("v3", nodes, o, d, 2, tile=128)
+    with pytest.raises(ValueError, match="pointers"):
+        ab.extract_ab("v0_ilp4", torch.zeros((2, 128)), o, d, 2, tile=128)
+    x, row, idx = lg.make_inputs(0, 2)
+    with pytest.raises(ValueError, match="idx"):
+        lg.lanegather("g1", x, row, idx.long())
+    with pytest.raises(ValueError, match="row"):
+        lg.gather(row[:, :64], idx)
+    with pytest.raises(ValueError, match="x"):
+        lg.lanegather("g1", x[:1], row, idx)
+    with pytest.raises(ValueError, match="unknown tag"):
+        lg.lanegather("g2", x, row, idx)
+    inp = mx.make_inputs(0, 1, 2)
+    with pytest.raises(ValueError, match="coefficient rows"):
+        mx.leaf_min_t("mxu", inp["prow"], inp["o"], inp["d"])
+    with pytest.raises(ValueError, match="leaf rows"):
+        mx.leaf_min_t("scalar", inp["coef"], inp["o"], inp["d"])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        mx.leaf_min_t("scalar", inp["prow"], inp["o"][:64], inp["d"][:64])
+    with pytest.raises(ValueError, match="unknown form"):
+        mx.leaf_min_t("mxu_2xtf32", inp["coef"], inp["o"], inp["d"])
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.check_inputs(inp["o"], inp["coef"].t())
+    cb.check_inputs(inp["o"], inp["d"], inp["coef"])
+
+
+@pytest.mark.parametrize("entry", ["extract_ab", "lanegather", "mxuleaf"])
+def test_microkernel_entries_run_plain_on_cpu(entry):
+    """On CPU tensors each entry runs its plain version and launches no
+    kernel: main(--device cpu) prints the reference's rows with no time;
+    the public functions equal the plain versions."""
+    import importlib
+
+    mod = importlib.import_module(f"cuda_pt_torch.ops.{entry}")
+    t_mk.reset_launches()
+    argv = {"extract_ab": ["--scene", "cornell", "--iters", "6"],
+            "lanegather": ["--rows", "2", "--iters", "8"],
+            "mxuleaf": ["--rows", "1", "--nleaf", "8"]}[entry]
+    rows = mod.main(["--device", "cpu", *argv])
+    assert t_mk.LAUNCHES[entry] == 0
+    timed = [r for r in rows if any(k in r for k in ("c_node_ns", "per_iter_ns", "sec"))]
+    assert timed and all(r.get("c_node_ns", r.get("per_iter_ns", r.get("sec"))) is None
+                         for r in timed)
+    if entry == "extract_ab":
+        assert all(r["match_v0"] for r in rows if r.get("variant") in ("v1", "v2"))
+    elif entry == "lanegather":
+        assert {"check": "gather_bit_exact", "ok": True} in rows
+    else:
+        parity = next(r for r in rows if r.get("check") == "parity")
+        assert parity["agree_frac"] == 1.0 and parity["hitmask_match"] == 1.0
+
+
+def test_microkernel_make_inputs_are_the_scripts():
+    """make_inputs draws the scripts' arrays: exp_lanegather.py's x, row,
+    idx and exp_r5_mxuleaf.py's rays, prim rows and coefficients (their
+    code, at R = 2 and NLEAF = 3)."""
+    from cuda_pt_torch.ops import lanegather as lg
+    from cuda_pt_torch.ops import mxuleaf as mx
+
+    rs = np.random.default_rng(0)
+    x = rs.normal(size=(2, 128)).astype(np.float32)
+    row = rs.normal(size=(1, 128)).astype(np.float32)
+    idx = rs.integers(0, 128, size=(2, 128)).astype(np.int32)
+    for a, b in zip(lg.make_inputs(0, 2), (x, row, idx)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    R, NLEAF, NP8 = 2, 3, 8
+    rs = np.random.default_rng(0)
+    o_np = rs.uniform(-1, 1, (R, 128, 3)).astype(np.float32)
+    d_np = rs.normal(size=(R, 128, 3)).astype(np.float32)
+    d_np /= np.linalg.norm(d_np, axis=-1, keepdims=True)
+    M = NLEAF * NP8
+    a_np = rs.uniform(-1, 1, (M, 3)).astype(np.float32)
+    e1_np = rs.uniform(-0.5, 0.5, (M, 3)).astype(np.float32)
+    e2_np = rs.uniform(-0.5, 0.5, (M, 3)).astype(np.float32)
+    prow = np.zeros((NLEAF, 128), np.float32)
+    prow[:, :NP8 * 9] = np.concatenate([a_np, e1_np, e2_np], -1).reshape(NLEAF, NP8 * 9)
+    n_np = np.cross(e1_np, e2_np)
+    coef = np.zeros((M, 4, 16), np.float32)
+    coef[:, 0, 3:6] = -n_np
+    coef[:, 1, 0:3] = e2_np
+    coef[:, 1, 3:6] = np.cross(a_np, e2_np)
+    coef[:, 2, 0:3] = -e1_np
+    coef[:, 2, 3:6] = np.cross(e1_np, a_np)
+    coef[:, 3, 6:9] = n_np
+    coef[:, 3, 9] = -np.sum(a_np * n_np, -1)
+    inp = mx.make_inputs(0, R, NLEAF)
+    np.testing.assert_array_equal(inp["o"].numpy(), o_np.reshape(-1, 3))
+    np.testing.assert_array_equal(inp["d"].numpy(), d_np.reshape(-1, 3))
+    np.testing.assert_array_equal(inp["prow"].numpy(), prow)
+    np.testing.assert_array_equal(inp["coef"].numpy(), coef.reshape(NLEAF * 32, 16))
