@@ -7,7 +7,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from cuda_pt_torch/csrc (one nvcc per
      translation unit, all started together, sm_90a) and print the seconds
-     and ptxas' registers and spills per kernel instantiation;
+     and ptxas' registers and spills per kernel instantiation (and what
+     ptxas says of the wgmma products); with --parent, start the parent
+     tree's build in the background;
   2. print the card's name and power limit (nvidia-smi);
   3. closest_hit_w8 against closest_hit_brute on 65536 random rays in the
      cornell box, and against the skip walk (accel/traverse.py) on 16384
@@ -49,8 +51,9 @@ Phases (any failure exits non-zero):
      bit for bit to the driver) for per spp K5's summed kernel time, the
      sort-and-gather glue, the other glue, the wall and the launches, the
      bound (the pack once plus the state planes K5 reads and writes,
-     k5_bytes) and its share; and the whole-path kernel
-     (K3, called directly) on the same rays: its time and a block held to
+     k5_bytes) and its share; with --parent, the parent tree's K5 on the
+     same rays in turns (ab_k5: ms per spp, lanes whose L differs from
+     this build's); and the whole-path kernel (K3, called directly) on the same rays: its time and a block held to
      its plain version, as before; then the same scene packed with f32
      attrs and prims: K5's and the whole-path kernel's time per spp and the
      image-mean gap between the two attr formats (f32_pass);
@@ -82,7 +85,11 @@ Phases (any failure exits non-zero):
      ids equal to the f32 rows'; the packet form (count_iters) on 16,384
      camera rays: tile_iters and prim ids equal to the plain packet walk;
      K1's time per 1M camera rays, closest and any hit (CUDA events), with
-     its walk work (stats), bound and share;
+     its walk work (stats), bound and share; the sorted-lane walk alone
+     (closest_hit_sorted, written for K5, which keeps the w8 walk) on the
+     Renderer's kitchen pack against K1 on the camera rays (prim ids equal
+     but on exact ties, counted) and bit-equal to the w8 walk, its stack
+     depth and its time beside the w8 walk's;
   10. the wavefront main path: api.Renderer(renderer=WAVEFRONT_PT,
      traversal="pallas") on full-size kitchen_stress with its f32 forest,
      1024x1024, WF_SPP spp (cut: spp only), default depth caps: K1 and no
@@ -126,20 +133,23 @@ Phases (any failure exits non-zero):
      at (64, 128) and (8192, 128); per tag ns per iteration, per gather and
      per select; the gather against torch.take_along_dim;
   15. kernel S4 (csrc/mxuleaf.cu): scalar bit-equal to its plain version,
-     mxu (3xTF32 mma.sync) within the script's parity contract (>= 0.999
+     mxu (3xTF32 wgmma) within the script's parity contract (>= 0.999
      agree and hit mask) against the plain product and against scalar, the
      1xTF32 A/B's hit mask >= 0.99, at 4,096 rays x 2,000 leaves and at
-     CARD_LANES rays x S4_CARD_HOLD_LEAVES; HMMA in mxu's SASS (and the
-     select chains' opcodes of phase 14); the entry (mxuleaf.main, launches
-     counted) at 4,096 and CARD_LANES rays; the batched torch.matmul of
-     the product alone.
+     CARD_LANES rays x S4_CARD_HOLD_LEAVES; HGMMA in both mxu builds' SASS
+     (and the select chains' opcodes of phase 14); with --parent, the
+     parent's mxu forms on the same inputs in turns; the entry
+     (mxuleaf.main, launches counted) at 4,096 and CARD_LANES rays; the
+     batched torch.matmul of the product alone.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
 at VPT_SPP and GRID_SPP samples per pixel and hold BLOCK lanes.
 ``--profile`` adds a torch.profiler breakdown of a few main-path passes
 of each scene, of kitchen_stress and medium_cbox through the whole-path
-kernel too, and of the wavefront main path.
+kernel too, and of the wavefront main path. ``--parent TREE`` (a git
+archive of the parent commit unpacked under the git-ignored build/) times
+the parent's K5 and S4 mxu against this tree's in phases 6, 7 and 15.
 """
 
 from __future__ import annotations
@@ -255,13 +265,45 @@ def phase_build(cb) -> dict:
     """Build the library; print the seconds and, per kernel instantiation,
     ptxas' registers and spill bytes (the template flags in the order of
     each kernel's template: trace_kernel<K3,ALL,MED,BIN>,
-    seg_kernel<K3,ALL,MED,SHADE,GRID,BIN>, ...)."""
+    seg_kernel<K3,ALL,MED,SHADE,GRID,BIN,CPT>, ...) and what ptxas says of
+    the wgmma products (a serialized wgmma is named there)."""
     secs = cb.build()
     log(f"[1] built megakernel in {secs:.1f} s")
-    rows = cb.ptxas_report(cb.build_log())
+    blog = cb.build_log()
+    rows = cb.ptxas_report(blog)
     for name, regs, st, ld in rows:
         log(f"    {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
-    return {"build_s": secs, "ptxas": rows}
+    notes = sorted({line.strip() for line in blog.splitlines() if "wgmma" in line.lower()})
+    for line in notes:
+        log(f"    ptxas: {line}")
+    return {"build_s": secs, "ptxas": rows, "wgmma_notes": notes}
+
+
+# the parent tree's build (--parent): its running build, then its library
+_PARENT = {"job": None, "lib": None}
+
+
+def start_parent(cb, args) -> None:
+    """Start the build of the parent checkout's library (--parent: a git
+    archive of the parent commit unpacked in a directory, e.g. under the
+    git-ignored build/), timed against this tree's on the same inputs."""
+    if args.parent:
+        _PARENT["job"] = cb.start_tree_build(args.parent)
+
+
+def parent_lib() -> str | None:
+    """The library path of start_parent's build (None without --parent),
+    waited for at the first call; prints its K5 SEG and S4 instantiations'
+    registers and spills."""
+    from cuda_pt_torch.ops import cuda_build as cb
+
+    if _PARENT["job"] is not None and _PARENT["lib"] is None:
+        _PARENT["lib"] = cb.finish_tree_build(_PARENT["job"])
+        for kname, regs, st, ld in cb.ptxas_report(cb.build_log(_PARENT["lib"])):
+            if kname.startswith(("seg_kernel", "leaf_mxu")):
+                log(f"    [parent] {kname}: {regs} registers, spill stores {st} B, "
+                    f"spill loads {ld} B")
+    return _PARENT["lib"]
 
 
 def start_sass(cb) -> dict:
@@ -710,7 +752,43 @@ def k5_bytes(pack, lanes: list, misses: list) -> tuple:
     return sum(lanes) * (reads + writes) + sum(misses) * 24, reads, writes
 
 
-def hold_swf(mk, r, md, blk: int, phase: str, label: str) -> dict:
+def ab_k5(mk, pack, md, o, d, rng, L, phase: str, label: str) -> dict:
+    """The parent tree's K5 (parent_lib) on the same rays as this build's,
+    in turns (parent, this, this, parent) after an untimed run of the
+    parent's (its first launches load its kernels): the mean ms per spp of
+    each (swf_loop's "seg") and the lanes whose L differs from this
+    build's L, bit for bit."""
+    from cuda_pt_torch.ops import cuda_build as cb
+
+    path = parent_lib()
+
+    def parent_run(**kw):
+        prev = cb.use_library(path)
+        try:
+            return swf_loop(mk, pack, md, o, d, rng, **kw)
+        finally:
+            cb.use_library(prev)
+
+    parent_run()
+    ms = {"parent": [], "this": []}
+    differ = 0
+    for who in ("parent", "this", "this", "parent"):
+        if who == "this":
+            run = swf_loop(mk, pack, md, o, d, rng, timing=True)
+        else:
+            run = parent_run(timing=True)
+            differ = max(differ, int((run["L"] != L).any(dim=-1).sum()))
+        ms[who].append(run["ms"]["seg"])
+    row = {"parent_ms": float(np.mean(ms["parent"])), "this_ms": float(np.mean(ms["this"])),
+           "runs_ms": ms, "lanes_differ": differ}
+    log(f"[{phase}] K5 {label}: the parent {row['parent_ms']:.3f} ms against this tree's "
+        f"{row['this_ms']:.3f} ms per spp, in turns on the same rays (this / parent "
+        f"{row['this_ms'] / row['parent_ms']:.4f}; runs {ms}); lanes whose L differs from "
+        f"this tree's: {differ}")
+    return row
+
+
+def hold_swf(mk, r, md, blk: int, phase: str, label: str, ab: bool = False) -> dict:
     """Kernel K5 (and K6 in the split form) under the sorted-wavefront
     driver on one spp of the main path's rays: a blk-lane block of the
     output held to the phase-4 contract against the driver on the plain
@@ -718,7 +796,8 @@ def hold_swf(mk, r, md, blk: int, phase: str, label: str) -> dict:
     bit for bit to the driver's output; per spp (three runs) K5's summed
     kernel time, K6's, the sort-and-gather glue, the other glue, the wall
     of an untimed driver run and the launches; the walk work and the
-    bound: the pack once plus what K5 moves (k5_bytes)."""
+    bound: the pack once plus what K5 moves (k5_bytes); with ab and
+    --parent, the parent tree's K5 on the same rays (ab_k5)."""
     pack = r._pack
     o, d, rng, blk_sl = main_rays(mk, r, blk)
     B = o.shape[0]
@@ -771,6 +850,9 @@ def hold_swf(mk, r, md, blk: int, phase: str, label: str) -> dict:
            "launches_per_spp": len(lanes), "live_lanes": lanes, "sort_gather_ms": mean["sort"],
            "glue_ms": mean["glue"], "swf_wall_ms": mean["wall_ms"], "runs": runs, "L": L_k,
            **pack_formats(pack)}
+    if ab and parent_lib() is not None:
+        out["parent"] = ab_k5(mk, pack, md, o, d, rng, L_k, phase, label)
+        out["parent_ms"] = out["parent"]["parent_ms"]
     if split:
         t_nodes = int(cnt["stats_t"][:, 0].sum(dtype=torch.int64))
         t_prims = int(cnt["stats_t"][:, 1].sum(dtype=torch.int64))
@@ -808,7 +890,7 @@ def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingC
     want = ("w8", "t9", "bf16")
     if (r._pack.node_fmt, r._pack.prim_fmt, r._pack.attr_fmt) != want:
         raise SystemExit(f"kitchen: the Renderer's pack is not in the reference's formats {want}")
-    k5 = hold_swf(mk, r, md, BLOCK, "6", "kitchen")
+    k5 = hold_swf(mk, r, md, BLOCK, "6", "kitchen", ab=True)
     k3 = hold_main_path(mk, r, md, BLOCK, "6", "kitchen",
                         f"incl. {mk.pack_bytes(r._pack, mk.K3_KEYS)} of uvs, texels and K3 tables")
     dmean = abs(float(k5.pop("L").mean()) - float(k3.pop("L").mean()))
@@ -944,7 +1026,7 @@ def phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, Parse
         f"{wall:.2f} s wall ({wall * 1e3 / spp:.2f} ms per spp), launches {launches} {inst} "
         f"({launches['trace_megakernel_seg'] / spp:g} per spp), image mean {mean:.6f}, pack "
         f"{pack_formats(r._pack)} (f32 size {mk.fused_pack_bytes(r.scene)} B)")
-    k5 = hold_swf(mk, r, md, BLOCK, "7", "medium_cbox")
+    k5 = hold_swf(mk, r, md, BLOCK, "7", "medium_cbox", ab=True)
     k4 = hold_main_path(mk, r, md, BLOCK, "7", "VPT",
                         f"incl. {mk.pack_bytes(r._pack, mk.MED_KEYS)} of the media row; the "
                         f"walk work incl. the transmittance walks")
@@ -1071,10 +1153,52 @@ def hold_k1(tk, forest, o, d, t_far, label: str) -> dict:
             "occluded_frac": float(p_occ.float().mean()), "prim": k["prim"], "t": p["t"]}
 
 
-def phase_k1(tk, tts, dev, kscene, kcam, forests: dict, T) -> dict:
+def check_sorted_walk(mk, pack, scene, o, d, k1_prim) -> dict:
+    """The sorted-lane walk alone (closest_hit_sorted) on the Renderer's
+    kitchen pack against K1 on the same camera rays: prim ids
+    equal but on exact ties (both prims hit at one t); against the w8 walk
+    (closest_hit_w8, the same visit order): t and prim ids bit-equal; the
+    most entries each ray's stack held (the share beyond the SW_SS entries
+    kept in shared memory), and the two walks' times (CUDA events)."""
+    from cuda_pt_torch.ops import intersect as isect
+
+    t_s, prim_s, _, _, depth = mk.closest_hit_sorted(pack, o, d)
+    t_w, prim_w, _, _ = mk.closest_hit_w8(pack, o, d)
+    torch.cuda.synchronize()
+    differ = prim_s != k1_prim
+    # an exact tie: both prims hit at one t, each intersected by the plain
+    # arithmetic (ops/intersect)
+    idx = torch.nonzero(differ & (prim_s >= 0) & (k1_prim >= 0))[:, 0]
+    t_of, hit_of, _, _ = isect.intersect_gather(
+        scene.geom, o[idx], d[idx], torch.stack([prim_s[idx], k1_prim[idx]], 1),
+        torch.ones((idx.numel(), 2), dtype=torch.bool, device=o.device))
+    ties = int((hit_of.all(dim=1) & (t_of[:, 0] == t_of[:, 1])).sum())
+    bad = int(differ.sum()) - ties
+    vs_w8 = int((prim_s != prim_w).sum()) + bit_differ(t_s, t_w)
+    dep = depth.float()
+    ss = 16  # SW_SS, csrc/walk.cuh
+    ms_s = events_ms(lambda: mk.closest_hit_sorted(pack, o, d), 10)
+    ms_w = events_ms(lambda: mk.closest_hit_w8(pack, o, d), 10)
+    out = {"rays": o.shape[0], "differ_k1": int(differ.sum()), "exact_ties": ties,
+           "differ_w8_walk": vs_w8, "depth_max": int(depth.max()),
+           "depth_mean": float(dep.mean()), "depth_over_shared": float((depth > ss).float().mean()),
+           "ms": ms_s, "w8_walk_ms": ms_w, "hits": int((prim_s >= 0).sum())}
+    log(f"[9] the sorted-lane walk against K1 on the {o.shape[0]} kitchen camera rays "
+        f"(pack {pack_formats(pack)}): {out['differ_k1']} prim ids differ, {ties} on exact ties, "
+        f"{bad} otherwise; against the w8 walk {vs_w8} prim ids or t differ; stack depth max "
+        f"{out['depth_max']}, mean {out['depth_mean']:.2f}, {out['depth_over_shared']:.5f} of "
+        f"rays beyond the {ss} shared entries; walk alone {ms_s:.4f} ms, the w8 walk {ms_w:.4f} ms")
+    if bad or vs_w8:
+        raise SystemExit(f"sorted-lane walk check failed: {out}")
+    return out
+
+
+def phase_k1(tk, tts, dev, kscene, kcam, forests: dict, T, mk=None, kpack=None) -> dict:
     """Kernel K1 on full-size kitchen_stress forests (f32 and bf16 rows,
     forest_chunk 65536) and on cornell's single-chunk forest, against its
-    plain version; the packet form's tile_iters; K1's time per 1M rays."""
+    plain version; the packet form's tile_iters; K1's time per 1M rays;
+    with mk and kpack (the Renderer's kitchen pack), the sorted-lane walk
+    against K1 on the camera rays (check_sorted_walk)."""
     from cuda_pt_torch.core import camera as cam_mod
     from cuda_pt_torch.core import qmc
 
@@ -1105,6 +1229,8 @@ def phase_k1(tk, tts, dev, kscene, kcam, forests: dict, T) -> dict:
             prims[(fmt, rays)] = row.pop("prim")
             row.pop("t")
             res[f"{fmt}_{rays}"] = row
+    if mk is not None:
+        res["sorted_walk"] = check_sorted_walk(mk, kpack, kscene, o, d, prims[("f32", "camera")])
     for rays in ("camera", "random"):
         bf_differ = int((prims[("bf16", rays)] != prims[("f32", rays)]).sum())
         log(f"[9] bf16 against f32 rows, {rays} rays: {bf_differ} prim ids differ")
@@ -1625,15 +1751,69 @@ def phase_s3(mk, lg, dev) -> dict:
     return res
 
 
+def ab_s4(mx, path: str, dev) -> dict:
+    """S4's mxu forms against the parent tree's (its library at path) on the
+    same inputs, at 4,096 and at CARD_LANES rays x 2,000 leaves, in turns
+    (parent, this, this, parent); each launch timed alone
+    (utils/timing.events_ms). The parent's C entry takes a scratch argument
+    where its library exports s4_mxuleaf_scratch (the wgmma kernel), none
+    where it does not (the mma.sync kernel)."""
+    import ctypes
+
+    from cuda_pt_torch.ops import cuda_build as cb
+    from cuda_pt_torch.utils.timing import events_ms as launch_ms
+
+    lib = cb.open_library(path)
+    fn = lib.s4_mxuleaf
+    scratch_floats = getattr(lib, "s4_mxuleaf_scratch", None)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I, P, I, P, P, P, I] + ([P] if scratch_floats else []) + [P]
+    res = {}
+    for label, rows in (("reference", mx.ROWS), ("card_scale", CARD_LANES // 128)):
+        inp = mx.make_inputs(0, rows, mx.NLEAF, dev)
+        o, d, coef = inp["o"], inp["d"], inp["coef"]
+        n = o.shape[0]
+        scratch = [] if scratch_floats is None else [
+            torch.empty(scratch_floats(mx.NLEAF), dtype=torch.float32, device=dev)]
+        row = {}
+        for form in ("mxu", "mxu_1xtf32"):
+            out = torch.empty(n, dtype=torch.float32, device=dev)
+
+            def parent_run():
+                rc = fn(mx.FORMS.index(form), coef.data_ptr(), mx.NLEAF, o.data_ptr(),
+                        d.data_ptr(), out.data_ptr(), n, *[x.data_ptr() for x in scratch],
+                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise SystemExit(f"the parent's s4_mxuleaf failed: cudaError {rc}")
+
+            ms = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                run = parent_run if who == "parent" else (
+                    lambda: mx.leaf_min_t(form, coef, o, d))
+                ms[who].append(launch_ms(run, 3 if rows > mx.ROWS else 10))
+            same = torch.equal(mx.leaf_min_t(form, coef, o, d).isfinite(), out.isfinite())
+            row[form] = {"parent_ms": float(np.mean(ms["parent"])),
+                         "ms": float(np.mean(ms["this"])), "runs_ms": ms,
+                         "hit_mask_equal_parent": same}
+            log(f"[15] S4 {form}, {n} rays x {mx.NLEAF} leaves: this tree {row[form]['ms']:.4f} "
+                f"ms, the parent {row[form]['parent_ms']:.4f} ms, in turns (runs {ms}); hit "
+                f"masks equal: {same}")
+        res[label] = row
+    return res
+
+
 def phase_s4(mk, mx, dev, sass_job: dict) -> dict:
     """Kernel S4 (csrc/mxuleaf.cu): at the reference's 4,096 rays x 2,000
     leaves, scalar bit-equal to its plain version and mxu (3xTF32) within
     the script's parity contract (agree >= 0.999 on lanes finite in both,
     hit mask >= 0.999) against the plain product and against scalar; the
     1xTF32 A/B's hit mask >= 0.99; the same at CARD_LANES rays x
-    S4_CARD_HOLD_LEAVES leaves; mxu's SASS holds HMMA; then the entry
-    (mx.main) at 4,096 rays, launches counted, and at CARD_LANES rays; the
-    batched torch.matmul of the product alone (f32, allow_tf32 False)."""
+    S4_CARD_HOLD_LEAVES leaves; both mxu builds' SASS hold HGMMA (wgmma);
+    with --parent, the parent's mxu forms timed on the same inputs (ab_s4);
+    then the entry (mx.main) at 4,096 rays, launches counted, and at
+    CARD_LANES rays; the batched torch.matmul of the product alone (f32,
+    allow_tf32 False)."""
+    from cuda_pt_torch.ops import cuda_build as cb
     from cuda_pt_torch.utils.timing import events_ms as launch_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain product and the library call in f32
@@ -1670,12 +1850,16 @@ def phase_s4(mk, mx, dev, sass_job: dict) -> dict:
             f"{p_1x['agree_frac']:.6f}, hit mask {p_1x['hitmask_match']:.6f}; plain scalar "
             f"{plain_s:.1f} ms, mxu {plain_m:.1f} ms")
     sass = sass_job["read"](["leaf_mxu_kernel", "lanegather_kernelILi2E"])
-    hmma = {k: v.get("HMMA", 0) for k, v in sass.items() if k.startswith("leaf_mxu")}
-    if not hmma.get("leaf_mxu_kernel<1>"):
-        raise SystemExit(f"S4: no HMMA in mxu's SASS ({hmma})")
+    mma = {k: {op: v.get(op, 0) for op in ("HGMMA", "HMMA")} for k, v in sass.items()
+           if k.startswith("leaf_mxu")}
+    if not all(mma.get(f"leaf_mxu_kernel<{f}>", {}).get("HGMMA") for f in (0, 1)):
+        raise SystemExit(f"S4: no HGMMA (wgmma) in mxu's SASS ({mma})")
     res["sass"] = {k: dict(v.most_common(8)) for k, v in sass.items()}
-    log(f"[15] SASS: HMMA per kernel {hmma}; the S3 select chains: " + "; ".join(
+    log(f"[15] SASS: HGMMA and HMMA per kernel {mma}; the S3 select chains: " + "; ".join(
         f"{k} {dict(v.most_common(4))}" for k, v in sass.items() if k.startswith("lanegather")))
+    parent = parent_lib()
+    if parent is not None:
+        res["parent"] = ab_s4(mx, parent, dev)
     rows_ref, launches = counted_entry(mk, mx.LAUNCHES, "mxuleaf", lambda: mx.main([]))
     rows_card = mx.main(["--rows", str(CARD_LANES // 128)])
     inp = mx.make_inputs(0, mx.ROWS, mx.NLEAF, dev)
@@ -1750,7 +1934,8 @@ def s4_entry(s4: dict) -> dict:
     forms = s4["reference"]["forms"]
     held = s4["hold_reference"]
     pick = ("ms", "ns_per_leaf", "ns_per_prim_lane", "bound_ms", "bound_by")
-    return {"name": "mxuleaf (S4 mxu, 3xTF32 mma.sync, 4,096 rays x 2,000 leaves)",
+    parent = s4.get("parent", {})
+    return {"name": "mxuleaf (S4 mxu, 3xTF32 wgmma, 4,096 rays x 2,000 leaves)",
             "route": "cuda", "source": "cuda_pt_torch/csrc/mxuleaf.cu",
             "replaces": "scripts/exp_r5_mxuleaf.py:176", "launches": s4["launches"],
             "max_abs_err": held["max_abs_err"], "ms": forms["mxu"]["ms"],
@@ -1760,9 +1945,14 @@ def s4_entry(s4: dict) -> dict:
                       for label in ("reference", "card_scale")},
             "parity": held["parity_plain"], "parity_scalar": held["parity_scalar"],
             "parity_1xtf32": held["parity_1xtf32"], "plain_scalar_ms": held["plain_scalar_ms"],
-            "note": "library_ms: the batched torch.matmul (2000, 32, 16) x (16, 4096) in f32 "
-                    "(allow_tf32 False), product only, no epilogue; max_abs_err: mxu against "
-                    "the plain product on lanes finite in both"}
+            "parent_ms": parent.get("reference", {}).get("mxu", {}).get("parent_ms"),
+            "parent": parent,
+            "note": "launches: wrapper calls, each two kernel launches (the split prologue, "
+                    "then the product), both inside ms; library_ms: the batched torch.matmul "
+                    "(2000, 32, 16) x (16, 4096) in f32 (allow_tf32 False), product only, no "
+                    "epilogue; max_abs_err: mxu against the plain product on lanes finite in "
+                    "both; parent: the parent tree's mxu on the same inputs, in turns "
+                    "(--parent)"}
 
 
 def whole_path_pass(mk, r, md):
@@ -1823,6 +2013,9 @@ def main():
     ap.add_argument("--kitchen-spp", type=int, default=16, help="phase-6 samples per pixel")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few main-path passes (torch.profiler)")
+    ap.add_argument("--parent", default=None,
+                    help="another checkout (git archive of the parent commit) whose K5 and S4 "
+                         "mxu are timed against this tree's on the same inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
@@ -1831,6 +2024,7 @@ def main():
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     build = phase_build(cb)
+    start_parent(cb, args)
     sass_job = start_sass(cb)
     try:
         return run_phases(args, build, sass_job)
@@ -1881,7 +2075,7 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
         pool.shutdown(wait=True, cancel_futures=True)
     log(f"[9] kitchen forests (chunks of {FOREST_CHUNK} prims) built in worker processes: "
         f"{forest_s['f32']:.1f} s (f32 rows), {forest_s['bf16']:.1f} s (bf16 rows)")
-    k1 = phase_k1(tk, tts, dev, kscene, kcam, forests, T)
+    k1 = phase_k1(tk, tts, dev, kscene, kcam, forests, T, mk, rk._pack)
     k1_wf, rw = phase_wavefront(mk, tk, dev, kscene, kcam, forests["f32"],
                                 k5_kitchen["image_mean"], MaxDepthParams, RendererType,
                                 RenderingConfig, ParsedScene, Renderer)
@@ -1902,6 +2096,11 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
+    # registers and spills of K5's instantiations on the main paths (phase 1)
+    regs = {name: {"registers": r_, "spill_stores": st_, "spill_loads": ld_}
+            for name, r_, st_, ld_ in build["ptxas"]}
+    k5_kitchen.update(regs.get("seg_kernel<1,1,0,0,0,0,1>", {}))
+    k5_vpt.update(regs.get("seg_kernel<0,1,1,0,0,0,1>", {}))
     kernels = [
         k2, k3, k4,
         {"name": "trace_megakernel_seg (K5, kitchen_stress: SEG+K3+ALL+CPT, t9 prims, bf16 "

@@ -8,11 +8,59 @@
 //                   the first n lanes; writes the instantiation it launched
 //                   to *variant (bits: K3 1, ALL 2, MED 4, SEG 8, SHADE 16,
 //                   GRID 32, BIN 64, CPT 128)
-// It takes the pack's table formats as fmt (FMT_* bits, csrc/common.cuh)
-// and a binary tree's node count as n_nodes, and returns cudaGetLastError()
+//   mk_closest_hit_sorted
+//                -> (t, prim, b1, b2) of the sorted-lane walk of
+//                   csrc/walk.cuh alone (w8 packs only) and, per ray, the
+//                   most entries its stack held
+// Both take the pack's table formats as fmt (FMT_* bits, csrc/common.cuh)
+// and a binary tree's node count as n_nodes, and return cudaGetLastError()
 // right after the launch.
 
 #include "seg.cuh"
+
+template <bool CPT>
+__global__ void __launch_bounds__(SW_THREADS) sorted_hit_kernel(Pack pk,
+                                                                const float* __restrict__ ray_o,
+                                                                const float* __restrict__ ray_d,
+                                                                float* __restrict__ out_t,
+                                                                int* __restrict__ out_prim,
+                                                                float* __restrict__ out_b1,
+                                                                float* __restrict__ out_b2,
+                                                                int* __restrict__ depth, int B) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    unsigned mask = __ballot_sync(0xffffffffu, i < B);
+    if (i >= B) return;
+    WalkStats st{0, 0};
+    ClosestHit h = walk_sw<false, true, CPT, true>(pk, load3(ray_o + 3 * (size_t)i),
+                                                   load3(ray_d + 3 * (size_t)i), INFINITY, mask,
+                                                   st, depth + i);
+    out_t[i] = h.t;
+    out_prim[i] = h.prim;
+    out_b1[i] = h.b1;
+    out_b2[i] = h.b2;
+}
+
+extern "C" int mk_closest_hit_sorted(const void* const* tables, const float* ray_o,
+                                     const float* ray_d, float* out_t, int* out_prim,
+                                     float* out_b1, float* out_b2, int* depth, int B,
+                                     int max_leaf, int tri_only, int fmt, int n_nodes,
+                                     void* stream) {
+    if ((fmt & FMT_BIN) != 0) return (int)cudaErrorInvalidValue;
+    Pack pk = make_pack_view(tables, max_leaf, tri_only, fmt, n_nodes, 0, 0, 0);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (B > 0) {
+        int threads = SW_THREADS;
+        int blocks = (B + threads - 1) / threads;
+        if (fmt & FMT_COMPACT) {
+            sorted_hit_kernel<true><<<blocks, threads, 0, st>>>(pk, ray_o, ray_d, out_t, out_prim,
+                                                                out_b1, out_b2, depth, B);
+        } else {
+            sorted_hit_kernel<false><<<blocks, threads, 0, st>>>(pk, ray_o, ray_d, out_t, out_prim,
+                                                                 out_b1, out_b2, depth, B);
+        }
+    }
+    return (int)cudaGetLastError();
+}
 
 extern "C" int mk_trace_seg(const void* const* tables, int* state, int stride, int n, int bounce,
                             const float* hit, const float* flight, int* stats, int max_leaf,

@@ -287,3 +287,183 @@ __device__ __forceinline__ bool walk_anyhit(const Pack& pk, V3 o, V3 d, float t_
         return walk_anyhit_w8<CPT>(pk, o, d, t_lim, st);
     }
 }
+
+// ---------------------------------------------------------------------------
+// The walk for sorted lanes, written for kernel K5 (csrc/seg.cuh), whose
+// driver sorts the lanes so that neighbouring threads walk the same
+// subtrees. Walked first with the ray alone live, and with the shared
+// short stack in the shadow and interface walks too, it made K5 slower on
+// the H100 than the w8 walk (PERF.md), so no kernel of a render path takes
+// it: mk_closest_hit_sorted (megakernel_seg.cu) runs it alone, for a
+// later kernel to measure against. The same visit order and closest-hit
+// rule as walk_closest_w8 / walk_anyhit_w8 (children pushed far to near by
+// entry t, as w8_expand pushes them; strict t < t_best in leaves), so the
+// hits are theirs, ties in t included; three things differ:
+//   - the top SW_SS entries of a thread's stack live in shared memory (a
+//     ring in the thread's column of the block's array sw_stack, words of
+//     neighbouring threads neighbouring: no bank conflicts), older ones
+//     spill to a local array, so a walk of the usual depth touches no local
+//     memory; the array is indexed directly (32-bit shared addresses, not
+//     a generic pointer);
+//   - a node's 8 children are read as 18 128-bit read-only loads (two
+//     halves of 4 children);
+//   - with VOTE, a warp's lanes run one phase at a time (while-while): inner
+//     nodes until no lane of the group holds one (__any_sync), then leaves
+//     until none holds a leaf; a lane that holds the other kind waits, and
+//     takes its own entries in its own order. Vote only where the warp is
+//     converged and its group is a ballot; walks inside divergent code run
+//     per thread.
+#define SW_SS 16        // stack entries a thread keeps in shared memory (a power of two)
+#define SW_THREADS 128  // threads per block of the kernels that walk so (the column stride)
+
+// The block's short stacks: thread t's ring slot k at sw_stack[k * SW_THREADS
+// + t]. Allocated in the kernels whose code reaches it (walk_sw). It and the
+// functions that index it are static: each translation unit has its own.
+static __shared__ int sw_stack[SW_SS * SW_THREADS];
+
+// A thread's traversal stack: entries [lo, sp) in its shared ring (entry j
+// in slot j % SW_SS), [0, lo) in loc.
+struct ShortStack {
+    int sp, lo;
+    int loc[MK_MAX_STACK];
+};
+
+static __device__ __forceinline__ void ss_push(ShortStack& s, int e) {
+    if (s.sp - s.lo == SW_SS) {  // the ring is full: its oldest entry goes to local memory
+        s.loc[s.lo] = sw_stack[(s.lo & (SW_SS - 1)) * SW_THREADS + threadIdx.x];
+        ++s.lo;
+    }
+    sw_stack[(s.sp & (SW_SS - 1)) * SW_THREADS + threadIdx.x] = e;
+    ++s.sp;
+}
+
+static __device__ __forceinline__ int ss_pop(ShortStack& s) {
+    --s.sp;
+    if (s.sp < s.lo) {
+        s.lo = s.sp;
+        return s.loc[s.sp];
+    }
+    return sw_stack[(s.sp & (SW_SS - 1)) * SW_THREADS + threadIdx.x];
+}
+
+// w8_expand with 128-bit loads: children 0-3 are floats 0-35 of the row and
+// 4-7 floats 36-71, each nine float4; the same slab test, keys and sorting
+// network, the hit children pushed far to near.
+static __device__ __forceinline__ void sw_expand(const Pack& pk, int w, V3 o, V3 inv,
+                                                 float t_gate, ShortStack& s) {
+    const float4* row = reinterpret_cast<const float4*>(pk.nodes + (size_t)w * W8_ROW);
+    float key[8];
+    int ent[8];
+    int nk = 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        float f[36];
+#pragma unroll
+        for (int q = 0; q < 9; ++q) {
+            float4 v = __ldg(row + 9 * half + q);
+            f[4 * q] = v.x;
+            f[4 * q + 1] = v.y;
+            f[4 * q + 2] = v.z;
+            f[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+            const float* ch = f + c4 * 9;
+            const int c = 4 * half + c4;
+            float tx0 = (ch[0] - o.x) * inv.x;
+            float tx1 = (ch[3] - o.x) * inv.x;
+            float ty0 = (ch[1] - o.y) * inv.y;
+            float ty1 = (ch[4] - o.y) * inv.y;
+            float tz0 = (ch[2] - o.z) * inv.z;
+            float tz1 = (ch[5] - o.z) * inv.z;
+            float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+            float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+            float enc = ch[6];
+            bool keep = (tn <= tf) && (tf > HIT_EPS) && (tn < t_gate) && (enc > -1.5f);
+            key[c] = keep ? tn : -INFINITY;
+            ent[c] = enc >= -0.5f ? (int)enc : -((int)ch[7] * 16 + (int)ch[8]) - 1;
+            nk += keep ? 1 : 0;
+        }
+    }
+    cmp_swap(key, ent, 0, 1); cmp_swap(key, ent, 2, 3); cmp_swap(key, ent, 4, 5);
+    cmp_swap(key, ent, 6, 7); cmp_swap(key, ent, 0, 2); cmp_swap(key, ent, 1, 3);
+    cmp_swap(key, ent, 4, 6); cmp_swap(key, ent, 5, 7); cmp_swap(key, ent, 1, 2);
+    cmp_swap(key, ent, 5, 6); cmp_swap(key, ent, 0, 4); cmp_swap(key, ent, 3, 7);
+    cmp_swap(key, ent, 1, 5); cmp_swap(key, ent, 2, 6); cmp_swap(key, ent, 1, 4);
+    cmp_swap(key, ent, 3, 6); cmp_swap(key, ent, 2, 4); cmp_swap(key, ent, 3, 5);
+    cmp_swap(key, ent, 3, 4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        if (i < nk) ss_push(s, ent[i]);
+    }
+}
+
+template <bool VOTE>
+__device__ __forceinline__ bool sw_any(unsigned mask, bool p) {
+    if constexpr (VOTE) {
+        return __any_sync(mask, p);
+    } else {
+        return p;
+    }
+}
+
+// The walk: ANY, the any hit before t_gate (h.prim >= 0: occluded, the
+// first occluder's slot), else the closest hit (t_gate unused); VOTE, the
+// lanes of mask (all of which call it) vote on the phase; DEPTH, *depth =
+// the most entries the stack held. Kernels that call it run SW_THREADS
+// threads a block.
+template <bool ANY, bool VOTE, bool CPT, bool DEPTH>
+static __device__ ClosestHit walk_sw(const Pack& pk, V3 o, V3 d, float t_gate, unsigned mask,
+                                     WalkStats& st, int* depth) {
+    V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
+    ShortStack s;
+    s.sp = 0;
+    s.lo = 0;
+    ClosestHit h{INFINITY, -1, 0.0f, 0.0f};
+    int cur = 0;  // the entry in hand: the root wide node
+    bool have = true;
+    int dmax = 1;
+    while (sw_any<VOTE>(mask, have)) {
+        // inner nodes until no lane of the group holds one
+        while (sw_any<VOTE>(mask, have && cur >= 0)) {
+            if (have && cur >= 0) {
+                st.nodes += 1;
+                sw_expand(pk, cur, o, inv, ANY ? t_gate : h.t, s);
+                if (DEPTH) dmax = max(dmax, s.sp);
+                have = s.sp > 0;
+                if (have) cur = ss_pop(s);
+            }
+        }
+        // then leaves until no lane holds one
+        while (sw_any<VOTE>(mask, have && cur < 0)) {
+            if (have && cur < 0) {
+                int v = -cur - 1;
+                int base = v >> 4;
+                int cnt = v & 15;
+                bool found = false;
+                for (int k = 0; k < cnt; ++k) {
+                    int pid = base + k;
+                    float t, b1, b2;
+                    st.prims += 1;
+                    bool ok = intersect_prim<CPT>(pk, pid, o, d, t, b1, b2);
+                    if (ANY) {
+                        if (ok && t < t_gate) {
+                            h.prim = pid;
+                            found = true;
+                            break;
+                        }
+                    } else if (ok && t < h.t) {
+                        h.t = t;
+                        h.prim = prim_gid<CPT>(pk, pid);
+                        h.b1 = b1;
+                        h.b2 = b2;
+                    }
+                }
+                have = !found && s.sp > 0;
+                if (have) cur = ss_pop(s);
+            }
+        }
+    }
+    if (DEPTH) *depth = dmax;
+    return h;
+}

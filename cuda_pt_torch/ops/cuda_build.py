@@ -16,6 +16,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,14 +42,18 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mk_trace": [_P] * 6 + [_I] * 17 + [_P, _P],
     "mk_closest_hit": [_P] * 7 + [_I] * 5 + [_P],
+    "mk_closest_hit_sorted": [_P] * 8 + [_I] * 5 + [_P],
     "mk_trace_seg": [_P, _P, _I, _I, _I, _P, _P, _P] + [_I] * 17 + [_P, _P],
     "mk_traverse": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     "k1_traverse": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_P] * 7,
     "s1_node_bench": [_P, _I, _I, _P, _P, _P, _I, _P],
     "s2_extract_ab": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     "s3_lanegather": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
-    "s4_mxuleaf": [_I, _P, _I, _P, _P, _P, _I, _P],
+    "s4_mxuleaf": [_I, _P, _I, _P, _P, _P, _I, _P, _P],
+    "s4_mxuleaf_scratch": [_I],
 }
+# entry points that return another type than int
+_RESTYPES = {"s4_mxuleaf_scratch": ctypes.c_longlong}
 
 _lib = None  # the CDLL, built from the sources as they were at first load
 
@@ -231,17 +236,44 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def use_library(path: str):
-    """Make the wrappers launch the library at path (a tuning variant)."""
+def use_library(lib):
+    """Make the wrappers launch lib, the path of a built library (a tuning
+    variant, or another checkout's from start_tree_build) or a library
+    that use_library returned, and return the one they launched before
+    (None: load() builds this tree's at the next launch)."""
     global _lib
-    _lib = open_library(path)
+    prev, _lib = _lib, open_library(lib) if isinstance(lib, str) else lib
+    return prev
+
+
+def start_tree_build(tree: str) -> subprocess.Popen:
+    """Build the library of another checkout of the repository (unpacked
+    with git archive; its own sources, flags and build directory) in a
+    process of its own; finish_tree_build waits for it."""
+    code = ("from cuda_pt_torch.ops import cuda_build as cb; "
+            "print(cb.finish_build(*cb.start_build()))")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    return subprocess.Popen([sys.executable, "-c", code], cwd=tree, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_tree_build(proc: subprocess.Popen) -> str:
+    """The library path of a start_tree_build (its build log beside it)."""
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"the other tree's build failed:\n{out[-4000:]}")
+    return out.strip().splitlines()[-1]
 
 
 def open_library(path: str) -> ctypes.CDLL:
-    """Load a built library and declare its entry points' C signatures."""
+    """Load a built library and declare the C signatures of its entry
+    points. Another checkout's library may lack some of this tree's entry
+    points, or take other arguments at one; its caller declares that one."""
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib

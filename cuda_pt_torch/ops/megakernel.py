@@ -36,6 +36,10 @@ Kernels:
   Plain version: brute force up to path_tracer.BRUTE_FORCE_MAX_PRIMS
   prims, the skip walk of accel/traverse.py above. It exists so a walk
   bug shows as wrong prim ids, not as a noisy image.
+- ``closest_hit_sorted``: the sorted-lane walk (csrc/walk.cuh, written
+  for K5's sorted lanes; no render path runs it) alone on w8 packs ->
+  (t, prim, b1, b2, the most entries each ray's stack held). Plain
+  version: closest_hit_plain (no stack depth: None).
 - ``trace_megakernel_seg`` (K5, csrc/seg.cuh): one bounce of the same path
   code on the carried state planes of the first n lanes, in place. Plain
   version ``seg_step_reference``: one ``seg`` bounce of the path tracer
@@ -124,8 +128,8 @@ FMT_BIN, FMT_NODE_BF16, FMT_PRIM_T9, FMT_ATTR_BF16 = 1, 2, 4, 8
 # launches per wrapper: one dict with K1's (ops/traverse_kernel.py owns it;
 # this module imports that one, not the other way round)
 LAUNCHES = tk.LAUNCHES
-LAUNCHES.update({"trace_megakernel": 0, "closest_hit_w8": 0, "trace_megakernel_seg": 0,
-                 "traverse_closest": 0})
+LAUNCHES.update({"trace_megakernel": 0, "closest_hit_w8": 0, "closest_hit_sorted": 0,
+                 "trace_megakernel_seg": 0, "traverse_closest": 0})
 INSTANTIATION_LAUNCHES = {}
 
 
@@ -926,6 +930,36 @@ def closest_hit_w8(pack: MKPack, o: torch.Tensor, d: torch.Tensor):
         raise RuntimeError(f"mk_closest_hit launch failed: cudaError {rc}")
     LAUNCHES["closest_hit_w8"] += 1
     return t, prim.long(), b1, b2
+
+
+def closest_hit_sorted(pack: MKPack, o: torch.Tensor, d: torch.Tensor):
+    """Closest hit of (B, 3) rays by the sorted-lane walk (w8 packs) ->
+    (t, prim (int64, -1 = miss), b1, b2, depth: the most entries each ray's
+    stack held, int32). CPU tensors run closest_hit_plain (depth None); CUDA
+    tensors launch the walk."""
+    if pack.node_fmt != "w8":
+        raise ValueError("the sorted-lane walk takes w8 packs")
+    if o.device.type == "cpu":
+        h = closest_hit_plain(pack.scene, o, d)
+        return h["t"], h["prim"], h["b1"], h["b2"], None
+    if o.dtype != torch.float32 or o.shape != d.shape or o.dim() != 2 or o.shape[1] != 3:
+        raise ValueError("expected o, d (B, 3) float32")
+    _check_rays(pack, o, d)
+    lib = cuda_build.load()
+    B = o.shape[0]
+    t = torch.empty(B, dtype=torch.float32, device=o.device)
+    prim = torch.empty(B, dtype=torch.int32, device=o.device)
+    depth = torch.empty(B, dtype=torch.int32, device=o.device)
+    b1 = torch.empty_like(t)
+    b2 = torch.empty_like(t)
+    rc = lib.mk_closest_hit_sorted(_tables(pack), o.data_ptr(), d.data_ptr(), t.data_ptr(),
+                                   prim.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+                                   depth.data_ptr(), B, *walk_args(pack),
+                                   torch.cuda.current_stream(o.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mk_closest_hit_sorted launch failed: cudaError {rc}")
+    LAUNCHES["closest_hit_sorted"] += 1
+    return t, prim.long(), b1, b2, depth
 
 
 # ---------------------------------------------------------------------------

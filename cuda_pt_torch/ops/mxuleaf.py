@@ -9,9 +9,10 @@ t_num of a leaf's 8 triangles are one (32, 16) x (16, rays) product (the
 coefficient rows 4 k + j: det, u, v, t of triangle k). Forms:
   scalar       per-triangle Moller-Trumbore from the leaf's row (9 fields x
                8: a, e1, e2); the kernel is bit-equal to the plain version
-  mxu          the product on the tensor cores (mma.sync TF32 in 3xTF32,
+  mxu          the product on the tensor cores (wgmma TF32 in 3xTF32,
                which keeps f32's accuracy, as the reference's
-               Precision.HIGHEST does), then the script's epilogue
+               Precision.HIGHEST does), then a divide-free filter and the
+               script's epilogue on what passes it
   mxu_1xtf32   the product in one TF32 pass: an A/B of the split's cost,
                not a port of kern_mxu
 
@@ -163,6 +164,36 @@ def mxu_reference(coef: torch.Tensor, o: torch.Tensor, d: torch.Tensor) -> torch
     return t_best
 
 
+def tf32_split(x: torch.Tensor) -> tuple:
+    """The kernel's split of f32 x into TF32 hi and lo (hi + lo = x to about
+    f32's precision): hi = x rounded to a 10-bit significand, to nearest
+    with ties away from zero (cvt.rna's rounding), lo = the same rounding
+    of x - hi; both f32 with the 13 low bits clear."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def filter_pass(det, u_n, v_n, t_n, tgate):
+    """The mxu kernel's divide-free filter (s4_pass, csrc/mxuleaf.cu), in the
+    kernel's f32 operations: False only where _epilogue's test rejects the
+    triangle at a least t of t_best, tgate = t_best * (1 + 2^-20) (the
+    proof is beside s4_pass)."""
+    a = det.abs()
+    sg = det.view(torch.int32) & torch.iinfo(torch.int32).min
+
+    def fold(x):
+        return (x.contiguous().view(torch.int32) ^ sg).view(torch.float32)
+
+    su, sv, st = fold(u_n), fold(v_n), fold(t_n)
+    m = a * 2.0 ** -20
+    tmin = torch.tensor(1e-4, dtype=torch.float32) * (1.0 - 2.0 ** -20)
+    keep = (su >= -m) & (sv >= -m) & (su + sv <= a + m) & (st > a * tmin) & (st < a * tgate)
+    return (a > 1e-12) & ((a > 2.0 ** 125) | keep)
+
+
 def leaf_min_t(form: str, table: torch.Tensor, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """The least hit t per ray over every leaf of table -> (n,) float32
     (inf: no hit): for scalar, table is the leaf rows (nleaf, 128); for mxu
@@ -174,9 +205,14 @@ def leaf_min_t(form: str, table: torch.Tensor, o: torch.Tensor, d: torch.Tensor)
         return scalar_reference(table, o, d) if form == "scalar" else mxu_reference(table, o, d)
     cuda_build.check_inputs(o, d, table)
     out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
-    rc = cuda_build.load().s4_mxuleaf(
+    lib = cuda_build.load()
+    split = None
+    if form != "scalar":  # the coefficients split into TF32 hi and lo, sized by the kernel
+        split = torch.empty(lib.s4_mxuleaf_scratch(nleaf), dtype=torch.float32, device=o.device)
+    rc = lib.s4_mxuleaf(
         FORMS.index(form), table.data_ptr(), nleaf, o.data_ptr(), d.data_ptr(), out.data_ptr(),
-        o.shape[0], torch.cuda.current_stream(o.device).cuda_stream)
+        o.shape[0], None if split is None else split.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"s4_mxuleaf launch failed: cudaError {rc}")
     LAUNCHES["mxuleaf"] += 1

@@ -151,6 +151,38 @@ def test_walk_matches_brute_force(cuda):
     assert torch.equal(t_walk_prim[differ], h["t"][differ])
 
 
+@pytest.mark.parametrize("fmts", [dict(), dict(prim_fmt="t9", attr_fmt="bf16")])
+def test_sorted_walk_matches_w8_walk(cuda, fmts):
+    """The sorted-lane walk alone (closest_hit_sorted) on small kitchen,
+    rays sorted by direction octant and origin as the driver sorts lanes and
+    in random order: t, prim ids and barycentrics bit-equal to the w8 walk
+    (the same visit order); the stack's most entries within the pack's
+    walk stack; a binary pack raises."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, device=cuda)
+    pack = t_mk.make_pack(scene, node_fmt="w8", **fmts)
+    rs = np.random.default_rng(8)
+    B = 8192
+    lo, hi = scene.bvh.node_min[0].cpu().numpy(), scene.bvh.node_max[0].cpu().numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (B, 3)).astype(np.float32), device=cuda)
+    d = torch.nn.functional.normalize(
+        torch.as_tensor(rs.normal(size=(B, 3)).astype(np.float32), device=cuda), dim=1)
+    key = ((d > 0).long() * torch.tensor([4, 2, 1], device=cuda)).sum(1) * B + \
+        torch.argsort(o[:, 0]).argsort()
+    for order in (torch.argsort(key), torch.arange(B, device=cuda)):
+        oo, dd = o[order].contiguous(), d[order].contiguous()
+        t_mk.reset_launches()
+        t, prim, b1, b2, depth = t_mk.closest_hit_sorted(pack, oo, dd)
+        ref = t_mk.closest_hit_w8(pack, oo, dd)
+        torch.cuda.synchronize()
+        assert t_mk.LAUNCHES["closest_hit_sorted"] == 1
+        for a, b in zip((t, prim, b1, b2), ref):
+            assert torch.equal(a, b)
+        assert 0.2 < float((prim >= 0).float().mean()) < 1.0
+        assert int(depth.min()) >= 1 and int(depth.max()) <= pack.max_stack
+    with pytest.raises(ValueError, match="w8"):
+        t_mk.closest_hit_sorted(t_mk.make_pack(scene, node_fmt="f32"), o, d)
+
+
 def test_renderer_cuda_matches_cpu(cuda):
     scene, cam, _ = t_ts.cornell_box(32, 24)
     parsed = ParsedScene(scene, cam, RenderingConfig(width=32, height=24,
@@ -633,6 +665,9 @@ def test_microkernel_launch_error_raises(cuda, monkeypatch):
 
         def s4_mxuleaf(self, form, *args):
             return real.s4_mxuleaf(3, *args)
+
+        def s4_mxuleaf_scratch(self, nleaf):
+            return real.s4_mxuleaf_scratch(nleaf)
 
     scene, _, _ = t_ts.cornell_box(8, 8)
     nodes = torch.as_tensor(t_tk.pack_nodes(scene.bvh), device=cuda)

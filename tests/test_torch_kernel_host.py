@@ -64,6 +64,14 @@ enum { cudaErrorInvalidValue = 1 };
 // the tile vote of K1's packet form, which runs on a card only: the host
 // loop runs a block's threads one after another
 inline int __syncthreads_or(int p) { return p; }
+// the warp votes and shared memory of the sorted-lane walk (csrc/walk.cuh),
+// and a warp's shuffle and barrier, on a warp of one thread: a block's static __shared__ array is one array that the host
+// loop's threads index one after another
+#define __shared__
+inline int __any_sync(unsigned, int p) { return p; }
+inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+template <class T> inline T __shfl_sync(unsigned, T v, int, int = 32) { return v; }
+inline void __syncwarp(unsigned = 0xffffffffu) {}
 struct HostDim { int x; };
 static HostDim blockIdx, blockDim, threadIdx;
 using std::isfinite; using std::min; using std::max;
@@ -117,8 +125,9 @@ def host_lib(tmp_path_factory):
                        f"{m.group(1)}({m.group(2)}); }}"), src, flags=re.S)
         launches += n
         (d / (name[:-3] + "_host.cpp" if name.endswith(".cu") else name)).write_text(src)
-    # the trace, closest-hit, segment, traverse, K1 and S1 launches
-    assert launches == 6
+    # the trace, closest-hit, segment, traverse, K1 and S1 launches, and the
+    # two of the sorted-lane walk's check entry (f32 and compact tables)
+    assert launches == 8
     defines = [f for f in cb._flags() if f.startswith("-D")]
     out = d / "libmegakernel_host.so"
     host_units = [str(d / (os.path.basename(u)[:-3] + "_host.cpp")) for u in cb.units()
@@ -222,6 +231,64 @@ def test_host_walk_matches_skip_walk(host_lib):
     np.testing.assert_array_equal(prim.long().numpy(), h["prim"].numpy())
     hit = h["hit"].numpy()
     np.testing.assert_allclose(t.numpy()[hit], h["t"].numpy()[hit], rtol=1e-6)
+
+
+@pytest.mark.parametrize("fmts", [dict(), dict(prim_fmt="t9", attr_fmt="bf16")])
+@pytest.mark.parametrize("kind", ["kitchen_small", "lights", "textured_floor"])
+def test_host_sorted_walk_matches_skip_walk(host_lib, kind, fmts):
+    """mk_closest_hit_sorted (the sorted-lane walk of csrc/walk.cuh alone:
+    the short stack, 128-bit node loads, the phase votes) against the skip
+    walk on rays from inside the scene's box: prim ids equal; t, prims and
+    barycentrics bit-equal to the w8 walk's (mk_closest_hit: the same visit
+    order); the stack's most entries within the pack's walk stack."""
+    scene, _, _ = SCENES[kind]()
+    pack = t_mk.make_pack(scene, node_fmt="w8", **fmts)
+    rs = np.random.default_rng(23)
+    B = 2048
+    lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (B, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(B, 3)).astype(np.float32)),
+                                      dim=1)
+    outs = {}
+    for entry in ("mk_closest_hit", "mk_closest_hit_sorted"):
+        t = torch.empty(B)
+        prim = torch.empty(B, dtype=torch.int32)
+        b1, b2 = torch.empty(B), torch.empty(B)
+        depth = torch.zeros(B, dtype=torch.int32)
+        extra = [depth.data_ptr()] if entry.endswith("sorted") else []
+        rc = getattr(host_lib, entry)(t_mk._tables(pack), o.data_ptr(), d.data_ptr(),
+                                      t.data_ptr(), prim.data_ptr(), b1.data_ptr(),
+                                      b2.data_ptr(), *extra, B, *t_mk.walk_args(pack), None)
+        assert rc == 0
+        outs[entry] = (t, prim, b1, b2, depth)
+    h = t_mk.closest_hit_plain(scene, o, d)
+    t, prim, b1, b2, depth = outs["mk_closest_hit_sorted"]
+    np.testing.assert_array_equal(prim.long().numpy(), h["prim"].numpy())
+    hit = h["hit"].numpy()
+    assert 0.2 < hit.mean() < 1.0
+    np.testing.assert_allclose(t.numpy()[hit], h["t"].numpy()[hit], rtol=1e-6)
+    for a, b in zip((t, prim, b1, b2), outs["mk_closest_hit"][:4]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(depth.min()) >= 1 and int(depth.max()) <= pack.max_stack
+
+
+def test_sorted_walk_wrapper_runs_plain_on_cpu():
+    """closest_hit_sorted on CPU tensors is closest_hit_plain (no stack
+    depth) and launches nothing; a binary pack raises."""
+    scene, _, _ = SCENES["kitchen_small"]()
+    pack = t_mk.make_pack(scene, node_fmt="w8")
+    rs = np.random.default_rng(29)
+    lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (512, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(512, 3)).astype(np.float32)),
+                                      dim=1)
+    t_mk.reset_launches()
+    t, prim, b1, b2, depth = t_mk.closest_hit_sorted(pack, o, d)
+    h = t_mk.closest_hit_plain(scene, o, d)
+    assert depth is None and t_mk.LAUNCHES["closest_hit_sorted"] == 0
+    assert torch.equal(prim, h["prim"]) and torch.equal(t, h["t"])
+    with pytest.raises(ValueError, match="w8"):
+        t_mk.closest_hit_sorted(t_mk.make_pack(scene, node_fmt="f32"), o, d)
 
 
 # ---------------------------------------------------------------------------
