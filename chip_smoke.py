@@ -32,13 +32,22 @@ Phases (any failure exits non-zero):
      envmap (the K3 x MED instantiation);
   5. the main path on cornell_box (fewer than 512 boxes: the whole-path
      kernel K2): api.Renderer at 1024x1024, 64 spp, default depth caps,
-     pcg, nee_candidates=1; the kernel's launch count must rise and the
-     image must be finite; then one spp of the main path's rays through
+     pcg, nee_candidates=1; the kernel's launch count must rise, every
+     launch must be the STAGE build (the pack's tables in shared memory)
+     and the image must be finite; then one spp of the main path's rays through
      the kernel and its plain version, held to the phase-4 contract; the
      same rays through the sorted-wavefront driver (kernel K5, auto_trace
-     bypassed) held to the whole-path kernel per lane; prints the kernel
+     bypassed) held to the whole-path kernel bit for bit on every lane;
+     the STAGE build against the plain build (the tables left in device
+     memory) on the same rays, in turns, L bit-equal (stage_turns);
+     the device launches (kernels and memsets) of one Renderer pass
+     (torch.profiler), the parent's too with --parent; prints the kernel
      time per spp (CUDA events), paths/s, the plain version's time on the
-     same rays and the bound;
+     same rays and the bound; with --parent, the parent tree's K2 (one
+     thread per path) against this tree's persistent grid on the same
+     rays (ab_k2: lanes whose L or walk work differ bit for bit, which
+     must be 0, then the ms in turns), as in phases 6 and 7 for K3 and K4
+     called directly and in phase 11 for K2+BIN;
   6. the main path on full-size kitchen_stress (envmap, textures,
      dispersion; 76,784 boxes: the sorted-wavefront driver, K5's
      SEG+K3+ALL instantiation): api.Renderer at 1024x1024, 16 spp, the
@@ -85,7 +94,12 @@ Phases (any failure exits non-zero):
      ids equal to the f32 rows'; the packet form (count_iters) on 16,384
      camera rays: tile_iters and prim ids equal to the plain packet walk;
      K1's time per 1M camera rays, closest and any hit (CUDA events), with
-     its walk work (stats), bound and share; the sorted-lane walk alone
+     its walk work (stats), bound and share, and per 32-lane group of
+     the launch the largest and the mean node fetches per lane (the lane
+     use a warp that waits for its longest walk reaches); with --parent,
+     the parent tree's K1 against this tree's on the camera rays (ab_k1:
+     rays whose hit or occlusion differ bit for bit, which must be 0, then
+     the ms in turns); the sorted-lane walk alone
      (closest_hit_sorted, written for K5, which keeps the w8 walk) on the
      Renderer's kitchen pack against K1 on the camera rays (prim ids equal
      but on exact ties, counted) and bit-equal to the w8 walk, its stack
@@ -96,7 +110,10 @@ Phases (any failure exits non-zero):
      other kernel launched, at most two launches per bounce, a finite
      image (its mean printed beside phase 6's K5 route's as a note: the
      two estimators agree in the mean only on textured scenes); K1's
-     summed time, walk work and bound over one spp of the main path; a
+     summed time, walk work, bound and per-group figures (as in phase 9)
+     over one spp of the main path, and with --parent the same K1 calls
+     replayed on the parent tree's K1 and on this one's (ab_k1_calls: rays
+     differing bit for bit, which must be 0, then the ms in turns); a
      65,536-lane Z-order block of a pass's rays through the wavefront loop
      on K1 and on its plain walk, held to the phase-4 contract;
   4 (routes). the composed routes, SMALL x SMALL x 1 spp: the Renderer with
@@ -148,8 +165,10 @@ at VPT_SPP and GRID_SPP samples per pixel and hold BLOCK lanes.
 ``--profile`` adds a torch.profiler breakdown of a few main-path passes
 of each scene, of kitchen_stress and medium_cbox through the whole-path
 kernel too, and of the wavefront main path. ``--parent TREE`` (a git
-archive of the parent commit unpacked under the git-ignored build/) times
-the parent's K5 and S4 mxu against this tree's in phases 6, 7 and 15.
+archive of the parent commit unpacked under the git-ignored build/) holds
+the parent's K2-K4 and K1 to this tree's bit for bit and times them in
+turns (phases 5-7, 9-11), and times the parent's K5 and S4 mxu against
+this tree's in phases 6, 7 and 15.
 """
 
 from __future__ import annotations
@@ -293,14 +312,14 @@ def start_parent(cb, args) -> None:
 
 def parent_lib() -> str | None:
     """The library path of start_parent's build (None without --parent),
-    waited for at the first call; prints its K5 SEG and S4 instantiations'
-    registers and spills."""
+    waited for at the first call; prints its K2-K5, K1 and S4
+    instantiations' registers and spills."""
     from cuda_pt_torch.ops import cuda_build as cb
 
     if _PARENT["job"] is not None and _PARENT["lib"] is None:
         _PARENT["lib"] = cb.finish_tree_build(_PARENT["job"])
         for kname, regs, st, ld in cb.ptxas_report(cb.build_log(_PARENT["lib"])):
-            if kname.startswith(("seg_kernel", "leaf_mxu")):
+            if kname.startswith(("seg_kernel", "leaf_mxu", "trace_kernel", "k1_kernel")):
                 log(f"    [parent] {kname}: {regs} registers, spill stores {st} B, "
                     f"spill loads {ld} B")
     return _PARENT["lib"]
@@ -507,7 +526,8 @@ def phase_kernel_media(mk, tts, dev, MaxDepthParams, T):
     for name, make in variants.items():
         scene, cam, _ = make()
         pack = mk.make_pack(scene, node_fmt="w8", vpt=True)
-        want = "K3+ALL+MED" if pack.has_env else "ALL+MED"
+        want = ("K3+ALL+MED" if pack.has_env else "ALL+MED") + (
+            "+STAGE" if mk.stages(pack) else "")
         perm, _ = mk.tile_swizzle(cam.width, cam.height, dev)
         worst, means_k, means_p = 0.0, [], []
         for i in range(4):
@@ -549,12 +569,16 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(mk.LAUNCHES)
+    inst = dict(mk.INSTANTIATION_LAUNCHES)
     if launches["trace_megakernel"] <= 0:
         raise SystemExit("main path did not launch the megakernel")
+    want_inst = "K2+STAGE" if mk.stages(r._pack) else "K2"
+    if inst != {want_inst: launches["trace_megakernel"]}:
+        raise SystemExit(f"main path launched {inst}, not {want_inst} alone")
     if img.shape != (size, size, 3) or not np.isfinite(img).all():
         raise SystemExit("main path image is not finite / has the wrong shape")
     mean = float(img.mean())
-    log(f"[5] Renderer {size}x{size}x{spp}spp: {wall:.2f} s wall, launches {launches}, "
+    log(f"[5] Renderer {size}x{size}x{spp}spp: {wall:.2f} s wall, launches {launches} {inst}, "
         f"image mean {mean:.6f} (256x256 plain mean {ref_mean:.6f})")
     if abs(mean - ref_mean) > 0.02 * ref_mean:
         raise SystemExit("main path image mean disagrees with the plain version's")
@@ -583,6 +607,20 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
     frac_s, dmean_s = check_contract("cornell rays, K5 vs the whole-path kernel", L_s, L_k)
     log(f"[5] K5 (driver, key pos_dir) vs K2 on the same {B} rays: {frac_s:.7f} lanes differ, "
         f"{int((L_s != L_k).any(dim=-1).sum())} not bit-equal, means differ by {dmean_s:.3g}")
+    if (L_s != L_k).any():
+        raise SystemExit("cornell rays: K5 and the whole-path kernel differ bit for bit")
+    # the second lever on its own: the same launch with the tables left in
+    # device memory (the plain build), in turns with the STAGE build
+    stage_ab = stage_turns(mk, pack, md, o, d, rng_bits, L_k)
+    # device launches of one pass (the work counter resets in the kernel:
+    # no memset beside the trace launch)
+    launches_pass = {"this": device_launches(r.render_raw)}
+    ab = None
+    if parent_lib() is not None:
+        launches_pass["parent"] = with_parent(lambda: device_launches(r.render_raw))
+        ab = ab_k2(mk, pack, md, o, d, rng, "5", "K2 cornell (w8, f32 tables)")
+    log(f"[5] device launches (kernels and memsets) per Renderer pass: {launches_pass} "
+        f"(trace_megakernel {launches['trace_megakernel'] / spp:g} per pass)")
     log(f"[5] kernel {k_ms:.3f} ms/spp, {B / (k_ms * 1e-3):.4g} paths/s; plain version "
         f"{plain_ms:.1f} ms on the same rays ({frac:.7f} lanes differ, means differ by "
         f"{dmean:.3g}); bound {bound_ms:.4f} ms ({bound_by}: {nodes} wide nodes, "
@@ -595,7 +633,9 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
         "library_ms": None, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
         "mean_differ": dmean,
         "wide_nodes": nodes, "prim_tests": prims, "wall_ms_per_spp": wall * 1e3 / spp,
-        "k5_vs_k2_lanes_differ": frac_s,
+        "k5_vs_k2_lanes_differ": frac_s, "device_launches_per_pass": launches_pass,
+        "instantiations": inst, "stage": stage_ab,
+        **({"parent": ab, "parent_ms": ab["parent_ms"]} if ab else {}),
     }, r
 
 
@@ -788,6 +828,211 @@ def ab_k5(mk, pack, md, o, d, rng, L, phase: str, label: str) -> dict:
     return row
 
 
+def with_parent(fn):
+    """fn() with the wrappers launching the parent tree's library."""
+    from cuda_pt_torch.ops import cuda_build as cb
+
+    prev = cb.use_library(parent_lib())
+    try:
+        return fn()
+    finally:
+        cb.use_library(prev)
+
+
+def bit_lanes(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Lanes (rows) of two same-shaped outputs that differ in any bit."""
+    a = a.view(torch.int32) if a.dtype == torch.float32 else a
+    b = b.view(torch.int32) if b.dtype == torch.float32 else b
+    return int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+
+
+def in_turns(run, phase: str, label: str, unit: str = "ms per launch") -> dict:
+    """run() (-> device ms) on the parent tree's library and on this one's in
+    turns (parent, this, this, parent): the mean of each and the runs."""
+    ms = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        ms[who].append(with_parent(run) if who == "parent" else run())
+    row = {"parent_ms": float(np.mean(ms["parent"])), "this_ms": float(np.mean(ms["this"])),
+           "runs_ms": ms}
+    log(f"[{phase}] {label}: the parent {row['parent_ms']:.4f} against this tree's "
+        f"{row['this_ms']:.4f} {unit}, in turns on the same inputs (this / parent "
+        f"{row['this_ms'] / row['parent_ms']:.4f}; runs {ms})")
+    return row
+
+
+def ab_k2(mk, pack, md, o, d, rng, phase: str, label: str) -> dict:
+    """The parent tree's whole-path kernel (parent_lib: one thread per path)
+    against this tree's persistent grid on the same rays: the lanes whose L
+    or walk work (count_stats) differ bit for bit (must be 0), then the ms
+    per launch in turns (events_ms, 5 launches a turn)."""
+    rng_bits = mk.rng_bits(rng)
+
+    def outs():
+        out = mk.trace_megakernel(pack, md, o, d, rng_bits, count_stats=True)
+        torch.cuda.synchronize()
+        return out
+
+    L_t, st_t = outs()
+    L_p, st_p = with_parent(outs)
+    differ = bit_lanes(L_t, L_p)
+    stats_differ = bit_lanes(st_t, st_p)
+    row = in_turns(lambda: events_ms(lambda: mk.trace_megakernel(pack, md, o, d, rng_bits), 5),
+                   phase, f"{label}, {o.shape[0]} paths")
+    row.update({"lanes_differ": differ, "stats_lanes_differ": stats_differ})
+    log(f"[{phase}] {label}: lanes whose L differs from the parent's bit for bit: {differ}; "
+        f"whose walk work differs: {stats_differ}")
+    if differ or stats_differ:
+        raise SystemExit(f"{label}: the persistent grid's output differs from the parent's")
+    return row
+
+
+@contextlib.contextmanager
+def no_stage(mk):
+    """The whole-path kernel's plain build on any pack while the block runs:
+    the table sizes its STAGE rule reads (ops/megakernel._tables, the last
+    len(STAGE_KEYS) entries) are withheld."""
+    real = mk._tables
+
+    def unsized(pack):
+        t = real(pack)
+        for k in range(len(t) - len(mk.STAGE_KEYS), len(t)):
+            t[k] = 0
+        return t
+
+    mk._tables = unsized
+    try:
+        yield
+    finally:
+        mk._tables = real
+
+
+def stage_turns(mk, pack, md, o, d, rng_bits, L) -> dict:
+    """The STAGE build (the pack's tables in shared memory) against the
+    plain build on the same rays, in turns (stage, plain, plain, stage;
+    events_ms, 10 launches a turn): ms of each, and the lanes whose L
+    differs bit for bit (must be 0)."""
+    def run():
+        return mk.trace_megakernel(pack, md, o, d, rng_bits)
+
+    with no_stage(mk):
+        differ = bit_lanes(run(), L)
+    ms = {"stage": [], "plain": []}
+    for who in ("stage", "plain", "plain", "stage"):
+        if who == "plain":
+            with no_stage(mk):
+                ms[who].append(events_ms(run, 10))
+        else:
+            ms[who].append(events_ms(run, 10))
+    row = {"stage_ms": float(np.mean(ms["stage"])), "plain_ms": float(np.mean(ms["plain"])),
+           "runs_ms": ms, "lanes_differ": differ, "staged": mk.stages(pack),
+           "stage_bytes": sum(pack[k].numel() * pack[k].element_size() for k in mk.STAGE_KEYS)}
+    log(f"[5] K2's tables in shared memory ({row['stage_bytes']} bytes, staged: {row['staged']}) "
+        f"{row['stage_ms']:.4f} ms against {row['plain_ms']:.4f} ms left in device memory, in "
+        f"turns (runs {ms}); lanes whose L differs: {differ}")
+    if differ:
+        raise SystemExit("K2: the STAGE build's L differs from the plain build's")
+    return row
+
+
+def ab_k1(tk, forest, o, d, t_far, phase: str, label: str) -> dict:
+    """The parent tree's K1 (one thread per ray) against this tree's
+    persistent grid on the same rays, closest and any hit: the rays whose
+    t, prim, b1, b2 or occlusion differ bit for bit (must be 0), then the ms
+    per launch of each in turns (events_ms, 10 launches a turn)."""
+    def outs():
+        k = tk.traverse_forest(forest, o, d)
+        occ = tk.traverse_forest(forest, o, d, t_far, occlusion=True)["occluded"]
+        torch.cuda.synchronize()
+        return torch.stack([k["t"].view(torch.int32), k["prim"].int(), k["b1"].view(torch.int32),
+                            k["b2"].view(torch.int32), occ.int()], 1)
+
+    differ = bit_lanes(outs(), with_parent(outs))
+    row = {"closest": in_turns(lambda: events_ms(lambda: tk.traverse_forest(forest, o, d), 10),
+                               phase, f"K1 closest, {label}"),
+           "anyhit": in_turns(lambda: events_ms(lambda: tk.traverse_forest(
+               forest, o, d, t_far, occlusion=True), 10), phase, f"K1 any hit, {label}"),
+           "rays_differ": differ}
+    log(f"[{phase}] K1 {label}: rays whose hit or occlusion differs from the parent's bit for "
+        f"bit: {differ}")
+    if differ:
+        raise SystemExit(f"K1 {label}: the persistent grid's hits differ from the parent's")
+    return row
+
+
+def replay_k1(tk, calls: list) -> float:
+    """Summed device ms of recorded K1 calls (k1_calls' "args"), each
+    launched after a device sleep that covers the host's launch latency."""
+    evs = []
+    for forest, o, d, t_far, occlusion, max_leaf in (c["args"] for c in calls):
+        torch.cuda._sleep(SETTLE_CYCLES)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        tk.traverse_forest(forest, o, d, t_far, max_leaf, occlusion)
+        ev[1].record()
+        evs.append(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs)
+
+
+def ab_k1_calls(tk, calls: list, phase: str, label: str) -> dict:
+    """The recorded K1 calls of a main-path pass (k1_calls with record) on
+    the parent tree's K1 and on this tree's: the rays whose outputs differ
+    bit for bit (must be 0), then the summed ms in turns (replay_k1)."""
+    def outs():
+        res = []
+        for forest, o, d, t_far, occlusion, max_leaf in (c["args"] for c in calls):
+            r = tk.traverse_forest(forest, o, d, t_far, max_leaf, occlusion)
+            res.append(r["occluded"][:, None].int() if occlusion else torch.stack(
+                [r["t"].view(torch.int32), r["prim"].int(), r["b1"].view(torch.int32),
+                 r["b2"].view(torch.int32)], 1))
+        torch.cuda.synchronize()
+        return res
+
+    differ = sum(bit_lanes(a, b) for a, b in zip(outs(), with_parent(outs)))
+    row = in_turns(lambda: replay_k1(tk, calls), phase, f"K1 {label}, {len(calls)} calls",
+                   "ms summed")
+    row["rays_differ"] = differ
+    log(f"[{phase}] K1 {label}: rays whose outputs differ from the parent's bit for bit: "
+        f"{differ}")
+    if differ:
+        raise SystemExit(f"K1 {label}: the persistent grid's outputs differ from the parent's")
+    return row
+
+
+def warp_figures(stats: torch.Tensor) -> dict:
+    """Per 32-lane group of a launch (in launch order) of its stats plane's
+    node fetches per lane: the group's largest and mean summed over groups,
+    their ratio (the lane use of a warp that waits for its longest walk)
+    and the group count."""
+    f = stats[:, 0].double()
+    pad = (-f.numel()) % 32
+    g = torch.cat([f, f.new_zeros(pad)]).view(-1, 32)
+    n = torch.cat([torch.ones_like(f), f.new_zeros(pad)]).view(-1, 32).sum(1)
+    mx, mean = float(g.max(1).values.sum()), float((g.sum(1) / n).sum())
+    return {"warp_max_sum": mx, "warp_mean_sum": mean, "warps": g.shape[0],
+            "warp_max": mx / g.shape[0], "warp_mean": mean / g.shape[0], "lane_use": mean / mx}
+
+
+def log_warp_figures(phase: str, label: str, figs: dict) -> None:
+    log(f"[{phase}] {label}, node fetches per lane over {figs['warps']} 32-lane groups: "
+        f"largest {figs['warp_max']:.3f}, mean {figs['warp_mean']:.3f} on average; lane use "
+        f"{figs['lane_use']:.4f}")
+
+
+def device_launches(run) -> int:
+    """Device-side launches (kernels and memsets) of one run(), counted by
+    torch.profiler (CUPTI), after one warm-up profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):  # the first profile pays CUPTI's start-up; keep the second
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
 def hold_swf(mk, r, md, blk: int, phase: str, label: str, ab: bool = False) -> dict:
     """Kernel K5 (and K6 in the split form) under the sorted-wavefront
     driver on one spp of the main path's rays: a blk-lane block of the
@@ -892,7 +1137,8 @@ def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingC
         raise SystemExit(f"kitchen: the Renderer's pack is not in the reference's formats {want}")
     k5 = hold_swf(mk, r, md, BLOCK, "6", "kitchen", ab=True)
     k3 = hold_main_path(mk, r, md, BLOCK, "6", "kitchen",
-                        f"incl. {mk.pack_bytes(r._pack, mk.K3_KEYS)} of uvs, texels and K3 tables")
+                        f"incl. {mk.pack_bytes(r._pack, mk.K3_KEYS)} of uvs, texels and K3 tables",
+                        ab=True)
     dmean = abs(float(k5.pop("L").mean()) - float(k3.pop("L").mean()))
     log(f"[6] kitchen, one spp: K5 {k5['ms']:.3f} ms (driver wall {k5['swf_wall_ms']:.3f} ms) "
         f"against the whole-path kernel's {k3['ms']:.3f} ms on the same rays; image means "
@@ -916,12 +1162,14 @@ def phase_kitchen(mk, dev, args, scene, cam, build_s, MaxDepthParams, RenderingC
     }, r
 
 
-def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str = "") -> dict:
+def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str = "",
+                   ab: bool = False) -> dict:
     """The main path's rays of sample 0 through the kernel at the full grid;
     one blk-lane Z-order block of its output (the one holding the image
     centre) held to the phase-4 contract against the plain version on the
     same lanes (lanes are independent); the kernel's time per spp (CUDA
-    events) and on the block alone; its walk work and bound."""
+    events) and on the block alone; its walk work and bound; with ab and
+    --parent, the parent tree's kernel on the same rays (ab_k2)."""
     pack = r._pack
     o, d, rng, blk_sl = main_rays(mk, r, blk)
     B = o.shape[0]
@@ -951,12 +1199,16 @@ def hold_main_path(mk, r, md, blk: int, phase: str, label: str, bytes_note: str 
         f"block alone {block_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nodes} "
         f"{node_word(pack)}, {prims} prim tests, {nbytes} bytes {bytes_note}); "
         f"{bound_ms / k_ms:.4f} of bound; pack formats {pack_formats(pack)}")
-    return {"L": L_k, "max_abs_err": float((L_kb - L_p).abs().max()), "ms": k_ms,
-            "plain_ms": plain_ms,
-            "plain_lanes": blk, "block_kernel_ms": block_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
-            "mean_differ": dmean, "wide_nodes": nodes, "prim_tests": prims,
-            **pack_formats(pack)}
+    out = {"L": L_k, "max_abs_err": float((L_kb - L_p).abs().max()), "ms": k_ms,
+           "plain_ms": plain_ms,
+           "plain_lanes": blk, "block_kernel_ms": block_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
+           "mean_differ": dmean, "wide_nodes": nodes, "prim_tests": prims,
+           **pack_formats(pack)}
+    if ab and parent_lib() is not None:
+        out["parent"] = ab_k2(mk, pack, md, o, d, rng, phase, label)
+        out["parent_ms"] = out["parent"]["parent_ms"]
+    return out
 
 
 def pack_formats(pack) -> dict:
@@ -1029,7 +1281,7 @@ def phase_vpt(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, Parse
     k5 = hold_swf(mk, r, md, BLOCK, "7", "medium_cbox", ab=True)
     k4 = hold_main_path(mk, r, md, BLOCK, "7", "VPT",
                         f"incl. {mk.pack_bytes(r._pack, mk.MED_KEYS)} of the media row; the "
-                        f"walk work incl. the transmittance walks")
+                        f"walk work incl. the transmittance walks", ab=True)
     L_w, L_s = k4.pop("L"), k5.pop("L")
     frac_w, dmean_w = check_contract("medium_cbox, K5 vs the whole-path kernel K4", L_s, L_w)
     log(f"[7] medium_cbox, one spp: K5 {k5['ms']:.3f} ms (driver wall {k5['swf_wall_ms']:.3f} ms) "
@@ -1283,12 +1535,16 @@ def phase_k1(tk, tts, dev, kscene, kcam, forests: dict, T, mk=None, kpack=None) 
             bound_ms, bound_by, nbytes = k1_bound(forest, ray_b, nodes, prim_tests)
             key = mode if fmt == "f32" else f"{mode}_bf16"
             timing[key] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                           "nodes": nodes, "prim_tests": prim_tests, "bytes": nbytes}
+                           "nodes": nodes, "prim_tests": prim_tests, "bytes": nbytes,
+                           "warps": warp_figures(st)}
+            log_warp_figures("9", f"K1 {mode}, camera rays, {fmt} forest", timing[key]["warps"])
             log(f"[9] K1 {mode}, {B} camera rays, {fmt} forest: {ms:.4f} ms "
                 f"({B / (ms * 1e-3):.4g} rays/s); bound {bound_ms:.4f} ms ({bound_by}: {nodes} "
                 f"node fetches, {prim_tests} prim tests, {nbytes} bytes of which "
                 f"{nbytes - ray_b} forest); {bound_ms / ms:.4f} of bound")
     res["timing"] = timing
+    if parent_lib() is not None:
+        res["parent"] = ab_k1(tk, f32, o, d, tf_cam, "9", f"{B} camera rays, f32 forest")
     return res
 
 
@@ -1306,18 +1562,22 @@ def plain_walk(tk):
 
 
 @contextlib.contextmanager
-def k1_calls(tk, timing: bool = False, count: bool = False):
+def k1_calls(tk, timing: bool = False, count: bool = False, record: bool = False):
     """Each K1 call of the block recorded: its lanes, the bytes its rays
     move (k1_ray_bytes), and
     with timing its device time (CUDA events, the kernel started after a
     device sleep that covers the host's launch latency), with count its
-    walk work (a stats plane)."""
+    walk work (a stats plane), with record its inputs ("args": forest, o,
+    d, t_far, occlusion, max_leaf, copied) for replay_k1."""
     real = tk.traverse_forest
     calls = []
 
     def wrapped(forest, o, d, t_far=None, max_leaf=4, occlusion=False, **kw):
         row = {"lanes": o.shape[0], "bytes": o.shape[0] * k1_ray_bytes(t_far is not None,
                                                                        occlusion)}
+        if record:
+            row["args"] = (forest, o.clone(), d.clone(),
+                           None if t_far is None else t_far.clone(), occlusion, max_leaf)
         if count:
             kw["stats"] = torch.zeros((o.shape[0], 2), dtype=torch.int32, device=o.device)
         if timing:
@@ -1375,7 +1635,7 @@ def phase_wavefront(mk, tk, dev, kscene, kcam, f32, k5_mean: float, MaxDepthPara
     # Renderer's pass), once timed and once counted
     with k1_calls(tk, timing=True) as timed:
         wavefront.render_sample(r.scene, r.camera, md, 0, 0, compact=True)
-    with k1_calls(tk, count=True) as counted:
+    with k1_calls(tk, count=True, record=True) as counted:
         wavefront.render_sample(r.scene, r.camera, md, 0, 0, compact=True)
     timed = [c for c in timed if c["lanes"]]  # a call on no live lane launches nothing
     counted = [c for c in counted if c["lanes"]]
@@ -1388,6 +1648,14 @@ def phase_wavefront(mk, tk, dev, kscene, kcam, f32, k5_mean: float, MaxDepthPara
     log(f"[10] K1 on the main path, one spp: {len(timed)} launches (lanes {lanes}), "
         f"{k1_ms:.3f} ms summed; bound {bound_ms:.4f} ms ({bound_by}: {nodes} node fetches, "
         f"{prim_tests} prim tests, {nbytes} bytes); {bound_ms / k1_ms:.4f} of bound")
+    figs = [warp_figures(c["stats"]) for c in counted]
+    mx, mean = sum(f["warp_max_sum"] for f in figs), sum(f["warp_mean_sum"] for f in figs)
+    n_w = sum(f["warps"] for f in figs)
+    warps = {"warp_max_sum": mx, "warp_mean_sum": mean, "warps": n_w, "warp_max": mx / n_w,
+             "warp_mean": mean / n_w, "lane_use": mean / mx}
+    log_warp_figures("10", f"K1 over the {len(counted)} calls of one wavefront spp", warps)
+    ab = ab_k1_calls(tk, counted, "10", "one wavefront spp") if parent_lib() is not None \
+        else None
     # the block: the wavefront loop on K1 and on its plain version
     o, d, rng, sl = main_rays(mk, r, BLOCK)
     perm, _ = mk.tile_swizzle(kcam.width, kcam.height, dev)
@@ -1412,6 +1680,8 @@ def phase_wavefront(mk, tk, dev, kscene, kcam, f32, k5_mean: float, MaxDepthPara
     return {"launches": n_launch, "main_path_ms_per_spp": k1_ms, "main_path_bound_ms": bound_ms,
             "main_path_bound_by": bound_by, "main_path_nodes": nodes,
             "main_path_prim_tests": prim_tests, "main_path_lanes": lanes,
+            "main_path_warps": warps,
+            **({"main_path_parent": ab, "main_path_parent_ms": ab["parent_ms"]} if ab else {}),
             "wall_ms_per_spp": wall * 1e3 / WF_SPP, "image_mean": mean,
             "k5_route_mean": k5_mean, "block_lanes_differ": frac, "block_mean_differ": dmean,
             "block_max_abs_err": float((L_k - L_p).abs().max()),
@@ -1531,7 +1801,8 @@ def phase_render_megakernel(mk, tk, tts, dev, kscene, kcam, ref_mean: float,
                              "version's")
         view = types.SimpleNamespace(_pack=pack, camera=cam, device=dev)
         if label == "cornell":
-            row = hold_main_path(mk, view, md, BLOCK, "11", "render_megakernel cornell")
+            row = hold_main_path(mk, view, md, BLOCK, "11", "render_megakernel cornell",
+                                 ab=True)
         else:
             row = hold_swf(mk, view, md, BLOCK, "11", "render_megakernel kitchen")
             row.pop("runs", None)
@@ -2014,8 +2285,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few main-path passes (torch.profiler)")
     ap.add_argument("--parent", default=None,
-                    help="another checkout (git archive of the parent commit) whose K5 and S4 "
-                         "mxu are timed against this tree's on the same inputs")
+                    help="another checkout (git archive of the parent commit) whose K1-K5 and "
+                         "S4 mxu are held to and timed against this tree's on the same inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
@@ -2101,6 +2372,11 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
             for name, r_, st_, ld_ in build["ptxas"]}
     k5_kitchen.update(regs.get("seg_kernel<1,1,0,0,0,0,1>", {}))
     k5_vpt.update(regs.get("seg_kernel<0,1,1,0,0,0,1>", {}))
+    # and of K2 (STAGE), K3 (CPT), K4 (CPT), K2+BIN and K1's per-ray form
+    for row, inst in ((k2, "trace_kernel<0,0,0,0,0,1>"), (k3, "trace_kernel<1,1,0,0,1,0>"),
+                      (k4, "trace_kernel<0,1,1,0,1,0>"),
+                      (rm_cornell, "trace_kernel<0,0,0,1,1,0>"), (k1, "k1_kernel<0,0,0>")):
+        row.update(regs.get(inst, {}))
     kernels = [
         k2, k3, k4,
         {"name": "trace_megakernel_seg (K5, kitchen_stress: SEG+K3+ALL+CPT, t9 prims, bf16 "
@@ -2123,7 +2399,11 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          "anyhit_bound_ms": k1["timing"]["anyhit"]["bound_ms"],
          "bf16_ms": k1["timing"]["closest_bf16"]["ms"],
          "bf16_anyhit_ms": k1["timing"]["anyhit_bf16"]["ms"], "node_fetches": closest["nodes"],
-         "prim_tests": closest["prim_tests"], **k1_wf,
+         "prim_tests": closest["prim_tests"], "warps": closest["warps"],
+         **{k: k1[k] for k in ("registers", "spill_stores", "spill_loads") if k in k1},
+         **({"parent_ms": k1["parent"]["closest"]["parent_ms"],
+             "anyhit_parent_ms": k1["parent"]["anyhit"]["parent_ms"]} if "parent" in k1 else {}),
+         **k1_wf,
          "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
                  "rays of kitchen_stress; main_path_*: summed over one wavefront spp"},
         {"name": "trace_megakernel (K2+BIN: render_megakernel, cornell, binary f32 nodes)",

@@ -1,4 +1,5 @@
-// Whole-path megakernel: one thread traces one path through every bounce.
+// Whole-path megakernel: one thread traces a path through every bounce,
+// then the next path, on a persistent grid (csrc/persist.cuh).
 //
 // Replaces the TPU kernel ops/pallas/megakernel.py::_kernel (:500) in its
 // whole-path mode (trace_megakernel, :2963, pallas_call at :3083) for the
@@ -58,6 +59,20 @@
 // this version accepts; the caller orders lanes in Z-order screen blocks
 // so a warp starts coherent.
 //
+// A path lasts 2.6 bounces on average on cornell, while the longest of a
+// 32-lane warp lasts 6.5: launched one thread per path, a warp's lanes sat
+// idle for 0.6 of its bounces, waiting for its longest path. So the grid
+// is persistent: the launch holds as many blocks as the card keeps
+// resident (the occupancy query, once per instantiation), each lane runs
+// one bounce per pass of its loop, and a lane whose path has ended (the
+// `break` of csrc/bounce.inc, or the depth cap) writes L and stats at its
+// path's index and takes the next path from a work counter (a warp takes
+// together: csrc/persist.cuh) once fewer than K2_REFILL_BELOW lanes of its
+// warp hold a path. A path's arithmetic is the per-path kernel's, so L
+// and the walk work are the same bit for bit; the counter resets in the
+// kernel (no memset beside the launch). A refused occupancy query returns
+// its error, and mk_trace launches nothing.
+//
 // K4 adds up to MAX_CROSSINGS closest walks per NEE shadow ray and the
 // medium state to the same per-thread loop; it is bound by the same walk
 // operations.
@@ -77,16 +92,16 @@
 //   mk_closest_hit  -> (t, prim, b1, b2) of the same closest walk alone (the
 //                      pack's node format's)
 // Both take the pack's table formats as fmt (FMT_* bits, csrc/common.cuh)
-// and a binary tree's node count as n_nodes, and return cudaGetLastError()
-// right after the launch.
+// and a binary tree's node count as n_nodes, and return the error of a
+// refused occupancy query, else cudaGetLastError() right after the launch.
 
 #include "trace.cuh"
 
 // csrc/megakernel_med.cu: the MED instantiation for k3 (K3+ALL+MED) or not
 // (ALL+MED)
-void launch_trace_med(bool k3, const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
-                      const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
-                      const MedArgs& ma, cudaStream_t stream);
+int launch_trace_med(bool k3, const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
+                     const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
+                     const MedArgs& ma, const StageBytes& sb, cudaStream_t stream);
 
 template <bool BIN, bool CPT>
 __global__ void __launch_bounds__(128) closest_hit_kernel(Pack pk,
@@ -132,32 +147,40 @@ extern "C" int mk_trace(const void* const* tables, const float* ray_o, const flo
     bool all = all_families || has_media;  // MED is built with ALL only
     bool bin = (fmt & FMT_BIN) != 0;
     bool cpt = !bin && (fmt & FMT_COMPACT) != 0;
+    StageBytes sb = stage_bytes(tables);
+    bool stage = !bin && !cpt && stage_total(sb) > 0;
     // the instantiation launched: bit 0 K3, bit 1 ALL, bit 2 MED, bit 6 BIN,
-    // bit 7 CPT
+    // bit 7 CPT, bit 8 STAGE
     if (variant != nullptr) {
         *variant = (k3 ? 1 : 0) | (all ? 2 : 0) | (has_media ? 4 : 0) | (bin ? 64 : 0)
-                   | (cpt ? 128 : 0);
+                   | (cpt ? 128 : 0) | (stage ? 256 : 0);
     }
+    int rc = 0;
     if (B > 0) {
         if (bin) {
-            launch_trace_bin(k3, all, has_media, pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
-                             B, ma, st);
+            rc = launch_trace_bin(k3, all, has_media, pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                  stats, B, ma, st);
         } else if (cpt) {
-            launch_trace_cpt(k3, all, has_media, pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
-                             B, ma, st);
+            rc = launch_trace_cpt(k3, all, has_media, pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                  stats, B, ma, st);
         } else if (has_media) {
-            launch_trace_med(k3, pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, st);
+            rc = launch_trace_med(k3, pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, sb,
+                                  st);
         } else if (k3 && all_families) {
-            launch_trace<true, true, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, st);
+            rc = launch_trace<true, true, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B,
+                                                 ma, sb, st);
         } else if (k3) {
-            launch_trace<true, false, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, st);
+            rc = launch_trace<true, false, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                                                  B, ma, sb, st);
         } else if (all_families) {
-            launch_trace<false, true, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, st);
+            rc = launch_trace<false, true, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                                                  B, ma, sb, st);
         } else {
-            launch_trace<false, false, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, st);
+            rc = launch_trace<false, false, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
+                                                   B, ma, sb, st);
         }
     }
-    return (int)cudaGetLastError();
+    return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 extern "C" int mk_closest_hit(const void* const* tables, const float* ray_o, const float* ray_d,

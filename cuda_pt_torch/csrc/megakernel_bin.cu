@@ -7,9 +7,9 @@
 
 #include "trace.cuh"
 
-void launch_trace_bin(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
-                      const float* ray_o, const float* ray_d, const uint32_t* rng, float* out_L,
-                      int* stats, int B, const MedArgs& ma, cudaStream_t stream) {
-    launch_trace_fmt<true, true>(k3, all, med, pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B,
-                                 ma, stream);
+int launch_trace_bin(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
+                     const float* ray_o, const float* ray_d, const uint32_t* rng, float* out_L,
+                     int* stats, int B, const MedArgs& ma, cudaStream_t stream) {
+    return launch_trace_fmt<true, true>(k3, all, med, pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                        stats, B, ma, stream);
 }

@@ -4,12 +4,13 @@
 
 #include "trace.cuh"
 
-void launch_trace_med(bool k3, const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
-                      const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
-                      const MedArgs& ma, cudaStream_t stream) {
+int launch_trace_med(bool k3, const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
+                     const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
+                     const MedArgs& ma, const StageBytes& sb, cudaStream_t stream) {
     if (k3) {
-        launch_trace<true, true, true>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, stream);
-    } else {
-        launch_trace<false, true, true>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, stream);
+        return launch_trace<true, true, true>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B,
+                                              ma, sb, stream);
     }
+    return launch_trace<false, true, true>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma,
+                                           sb, stream);
 }

@@ -78,89 +78,261 @@ static Pack make_pack_view(const void* const* t, int max_leaf, int tri_only, int
 }
 
 #ifndef MK_SEG
-template <bool K3, bool ALL, bool MED, bool BIN, bool CPT>
+#include "persist.cuh"
+
+#ifndef MK_STAGE_BYTES
+#error "build with cuda_pt_torch/ops/cuda_build.py, which passes MK_STAGE_BYTES"
+#endif
+
+// The warp takes new paths once fewer than K2_REFILL_BELOW of its lanes
+// still hold one: 32, after every bounce that ended a path (probe calls
+// on an H100, tools/refill_probe.py: cornell 0.866 ms per spp at 32 against
+// 0.890 at 16, PERF.md).
+#ifndef K2_REFILL_BELOW
+#define K2_REFILL_BELOW 32
+#endif
+
+// The tables a STAGE build copies into shared memory, in order: nodes,
+// prims, attrs, brows, erow, eprims (the walks' and the shading's rows),
+// and their bytes (ops/megakernel._tables appends them after the table
+// pointers). A w8 pack with f32 tables stages where they take at most
+// MK_STAGE_BYTES (cuda_build.MK_STAGE_BYTES: eight resident blocks keep
+// most of the SM's L1 for the spills) in rows of 16-byte multiples; the
+// binary walk reads through __ldg and the CPT builds' packs are larger
+// than 2 MiB, so those builds never stage. The host build (the shim of
+// tests/test_torch_kernel_host.py defines MK_HOST_BUILD) has no shared
+// memory or bulk copy and never stages.
+#define STAGE_TABLES 6
+struct StageBytes {
+    unsigned n[STAGE_TABLES];
+};
+
+// the sizes follow the pack's 12 table pointers (make_pack_view, MedArgs)
+static StageBytes stage_bytes(const void* const* t) {
+    StageBytes sb;
+    for (int k = 0; k < STAGE_TABLES; ++k) sb.n[k] = (unsigned)(size_t)t[12 + k];
+    return sb;
+}
+
+// the bytes to stage, or 0 where the tables do not fit
+static unsigned stage_total(const StageBytes& sb) {
+#ifdef MK_HOST_BUILD
+    return 0;
+#else
+    unsigned total = 0;
+    for (int k = 0; k < STAGE_TABLES; ++k) {
+        if (sb.n[k] % 16) return 0;
+        total += sb.n[k];
+    }
+    return total <= MK_STAGE_BYTES ? total : 0;
+#endif
+}
+
+// the work counter of this unit's trace kernels (csrc/persist.cuh)
+static __device__ WorkCounter trace_work;
+
+// A persistent grid (csrc/persist.cuh): each lane runs one bounce per pass
+// of its loop and, once its path has ended (bounce.inc's `break`, or the
+// depth cap), writes L and stats at the path's index and takes the next
+// path, whose state starts as a fresh path's. STAGE: the block first
+// copies the tables of sb into shared memory (one cp.async.bulk each,
+// completing on one mbarrier) and walks and shades from there.
+template <bool K3, bool ALL, bool MED, bool BIN, bool CPT, bool STAGE>
 __global__ void __launch_bounds__(128, MK_MIN_BLOCKS) trace_kernel(Pack pk, DepthCaps md, int nee_m,
                                                     const float* __restrict__ ray_o,
                                                     const float* __restrict__ ray_d,
                                                     const uint32_t* __restrict__ rng,
                                                     float* __restrict__ out_L,
                                                     int* __restrict__ stats, int B,
-                                                    MedArgs ma) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    V3 o = load3(ray_o + 3 * (size_t)i);
-    V3 d = load3(ray_d + 3 * (size_t)i);
-    uint32_t sx = rng[2 * (size_t)i];
-    uint32_t sy = rng[2 * (size_t)i + 1];
-    V3 thp = v3(1.0f, 1.0f, 1.0f);
-    V3 L = v3(0.0f, 0.0f, 0.0f);
-    V3 texp = v3(1.0f, 1.0f, 1.0f);  // K3 textured: product of the diffuse texels so far
-    float wl = 0.0f;                 // K3 has_disp: locked wavelength (0 = unset)
-    float prev_pdf = 1.0f;
+                                                    MedArgs ma, int n_warps, StageBytes sb) {
+#ifdef __CUDA_ARCH__
+    if constexpr (STAGE) {
+        extern __shared__ __align__(128) unsigned char mk_stage[];
+        __shared__ __align__(8) unsigned long long mk_bar;
+        uint32_t bar = (uint32_t)__cvta_generic_to_shared(&mk_bar);
+        uint32_t dst = (uint32_t)__cvta_generic_to_shared(mk_stage);
+        const float* src[STAGE_TABLES] = {pk.nodes, pk.prims, pk.attrs,
+                                          pk.brows, pk.erow, pk.eprims};
+        unsigned off[STAGE_TABLES + 1] = {0};
+#pragma unroll
+        for (int k = 0; k < STAGE_TABLES; ++k) off[k + 1] = off[k] + sb.n[k];
+        if (threadIdx.x == 0) {
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+            asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                         :: "r"(bar), "r"(off[STAGE_TABLES]) : "memory");
+#pragma unroll
+            for (int k = 0; k < STAGE_TABLES; ++k) {
+                if (sb.n[k] == 0) continue;
+                asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                             "[%0], [%1], %2, [%3];"
+                             :: "r"(dst + off[k]), "l"(src[k]), "r"(sb.n[k]), "r"(bar)
+                             : "memory");
+            }
+        }
+        __syncthreads();  // the barrier is initialised
+        uint32_t ready = 0;
+        while (!ready) {
+            asm volatile("{\n.reg .pred p;\n"
+                         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                         "selp.u32 %0, 1, 0, p;\n}\n"
+                         : "=r"(ready) : "r"(bar) : "memory");
+        }
+        pk.nodes = (const float*)(mk_stage + off[0]);
+        pk.prims = (const float*)(mk_stage + off[1]);
+        pk.attrs = (const float*)(mk_stage + off[2]);
+        pk.brows = (const float*)(mk_stage + off[3]);
+        pk.erow = (const float*)(mk_stage + off[4]);
+        pk.eprims = (const float*)(mk_stage + off[5]);
+    }
+#endif
+    const int lane = persist_lane();
+    int i = B;          // the lane's path
+    bool live = false;  // it holds a path
+    bool dry = false;   // the counter has passed B (the same on every lane)
+    int bounce = 0;
+    V3 o = v3(0.0f, 0.0f, 0.0f), d = o, thp = o, L = o, texp = o;
+    uint32_t sx = 0, sy = 0;
+    float wl = 0.0f, prev_pdf = 1.0f;
     bool prev_delta = true;
     int n_diff = 0, n_spec = 0, n_trans = 0;
     WalkStats st{0, 0};
-    // K4: the medium stack (slots stk0..2, top index mtop, -1 = empty) and
-    // the medium events so far
     int stk0 = -1, stk1 = -1, stk2 = -1, mtop = -1, n_vol = 0;
-
-    for (int bounce = 0; bounce < md.max_depth; ++bounce) {
+    while (true) {
+        unsigned held = __ballot_sync(PERSIST_ALL, live);
+        if (!dry && __popc(held) < K2_REFILL_BELOW) {
+            int end;
+            int j = persist_take(&trace_work, ~held & PERSIST_ALL, lane, end);
+            dry = end >= B;
+            if (!live) {
+                i = j;
+                live = i < B;
+                if (live) {
+                    // a fresh path: every per-path variable as at bounce 0
+                    o = load3(ray_o + 3 * (size_t)i);
+                    d = load3(ray_d + 3 * (size_t)i);
+                    sx = rng[2 * (size_t)i];
+                    sy = rng[2 * (size_t)i + 1];
+                    thp = v3(1.0f, 1.0f, 1.0f);
+                    L = v3(0.0f, 0.0f, 0.0f);
+                    // K3 textured: the product of the diffuse texels so far;
+                    // has_disp: the locked wavelength (0 = unset)
+                    texp = v3(1.0f, 1.0f, 1.0f);
+                    wl = 0.0f;
+                    prev_pdf = 1.0f;
+                    prev_delta = true;
+                    n_diff = n_spec = n_trans = 0;
+                    st = WalkStats{0, 0};
+                    // K4: the medium stack (slots stk0..2, top index mtop, -1
+                    // = empty) and the medium events so far
+                    stk0 = stk1 = stk2 = mtop = -1;
+                    n_vol = 0;
+                    bounce = 0;
+                }
+            }
+        }
+        // the vote also brings the warp's lanes back together, so the
+        // fresh lanes and the others run the bounce as one (without it
+        // probe calls measured K2 at 1.71 against 0.87 ms: PERF.md)
+        if (!__any_sync(PERSIST_ALL, live)) break;
+        if (!live) continue;
+        // one pass of the bounce loop: its `continue` (the path goes on)
+        // and its end reach the increment, which sets on; its `break` does not
+        bool on = false;
+        if (bounce < md.max_depth) {
+            for (bool once = true; once; once = false, on = true) {
 #include "bounce.inc"
+            }
+            ++bounce;
+        }
+        if (!on || bounce >= md.max_depth) {
+            out_L[3 * (size_t)i + 0] = L.x;
+            out_L[3 * (size_t)i + 1] = L.y;
+            out_L[3 * (size_t)i + 2] = L.z;
+            if (stats != nullptr) {
+                stats[2 * (size_t)i] = st.nodes;
+                stats[2 * (size_t)i + 1] = st.prims;
+            }
+            live = false;
+        }
     }
-    out_L[3 * (size_t)i + 0] = L.x;
-    out_L[3 * (size_t)i + 1] = L.y;
-    out_L[3 * (size_t)i + 2] = L.z;
-    if (stats != nullptr) {
-        stats[2 * (size_t)i] = st.nodes;
-        stats[2 * (size_t)i + 1] = st.prims;
-    }
+    persist_finish(&trace_work, n_warps, lane);
 }
 
-template <bool K3, bool ALL, bool MED, bool BIN = false, bool CPT = false>
-static void launch_trace(const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
-                         const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
-                         const MedArgs& ma, cudaStream_t stream) {
+// The persistent launch of one instantiation: as many blocks as the card
+// keeps resident (queried once, with the most shared memory a STAGE build
+// takes), at most one per 128 paths; a refused query returns its error and
+// launches nothing.
+template <bool K3, bool ALL, bool MED, bool BIN, bool CPT, bool STAGE>
+static int launch_grid(const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
+                       const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
+                       const MedArgs& ma, const StageBytes& sb, unsigned smem,
+                       cudaStream_t stream) {
+    static int resident = 0;
     int threads = 128;
-    int blocks = (B + threads - 1) / threads;
-    trace_kernel<K3, ALL, MED, BIN, CPT><<<blocks, threads, 0, stream>>>(
-        pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma);
+    int blocks = 0;
+    int rc = persist_blocks(trace_kernel<K3, ALL, MED, BIN, CPT, STAGE>, threads, B, &resident,
+                            &blocks, STAGE ? MK_STAGE_BYTES : 0);
+    if (rc != 0) return rc;
+    int n_warps = blocks * (threads / PERSIST_WARP);
+    trace_kernel<K3, ALL, MED, BIN, CPT, STAGE><<<blocks, threads, smem, stream>>>(
+        pk, md, nee_m, ray_o, ray_d, rng, out_L, stats, B, ma, n_warps, sb);
+    return 0;
+}
+
+// The STAGE build where the tables fit (stage_total), else the plain one.
+template <bool K3, bool ALL, bool MED, bool BIN = false, bool CPT = false>
+static int launch_trace(const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
+                        const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
+                        const MedArgs& ma, const StageBytes& sb, cudaStream_t stream) {
+    if constexpr (!BIN && !CPT) {
+        unsigned smem = stage_total(sb);
+        if (smem > 0) {
+            return launch_grid<K3, ALL, MED, BIN, CPT, true>(pk, md, nee_m, ray_o, ray_d, rng,
+                                                             out_L, stats, B, ma, sb, smem,
+                                                             stream);
+        }
+    }
+    return launch_grid<K3, ALL, MED, BIN, CPT, false>(pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                                      stats, B, ma, sb, 0, stream);
 }
 
 // The six instantiations (surface and MED) of one table build: the one
 // that covers the pack's flags.
 template <bool BIN, bool CPT>
-static void launch_trace_fmt(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md,
-                             int nee_m, const float* ray_o, const float* ray_d,
-                             const uint32_t* rng, float* out_L, int* stats, int B,
-                             const MedArgs& ma, cudaStream_t stream) {
+static int launch_trace_fmt(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md,
+                            int nee_m, const float* ray_o, const float* ray_d,
+                            const uint32_t* rng, float* out_L, int* stats, int B,
+                            const MedArgs& ma, cudaStream_t stream) {
+    const StageBytes sb{};  // the BIN and CPT builds never stage
     if (med && k3) {
-        launch_trace<true, true, true, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
-                                                 B, ma, stream);
+        return launch_trace<true, true, true, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                                        stats, B, ma, sb, stream);
     } else if (med) {
-        launch_trace<false, true, true, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
-                                                  B, ma, stream);
+        return launch_trace<false, true, true, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                                         stats, B, ma, sb, stream);
     } else if (k3 && all) {
-        launch_trace<true, true, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
-                                                  B, ma, stream);
+        return launch_trace<true, true, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                                         stats, B, ma, sb, stream);
     } else if (k3) {
-        launch_trace<true, false, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
-                                                   B, ma, stream);
+        return launch_trace<true, false, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                                          stats, B, ma, sb, stream);
     } else if (all) {
-        launch_trace<false, true, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L, stats,
-                                                   B, ma, stream);
+        return launch_trace<false, true, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L,
+                                                          stats, B, ma, sb, stream);
     } else {
-        launch_trace<false, false, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng, out_L,
-                                                    stats, B, ma, stream);
+        return launch_trace<false, false, false, BIN, CPT>(pk, md, nee_m, ray_o, ray_d, rng,
+                                                           out_L, stats, B, ma, sb, stream);
     }
 }
 
 // The instantiations (surface and MED) of a pack with binary nodes
 // (megakernel_bin.cu: BIN, always with the Pack's prim and attr formats)
 // and of a w8 pack with t9 prims or bf16 attrs (megakernel_cpt.cu: CPT).
-void launch_trace_bin(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
-                      const float* ray_o, const float* ray_d, const uint32_t* rng, float* out_L,
-                      int* stats, int B, const MedArgs& ma, cudaStream_t stream);
-void launch_trace_cpt(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
-                      const float* ray_o, const float* ray_d, const uint32_t* rng, float* out_L,
-                      int* stats, int B, const MedArgs& ma, cudaStream_t stream);
+int launch_trace_bin(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
+                     const float* ray_o, const float* ray_d, const uint32_t* rng, float* out_L,
+                     int* stats, int B, const MedArgs& ma, cudaStream_t stream);
+int launch_trace_cpt(bool k3, bool all, bool med, const Pack& pk, const DepthCaps& md, int nee_m,
+                     const float* ray_o, const float* ray_d, const uint32_t* rng, float* out_L,
+                     int* stats, int B, const MedArgs& ma, cudaStream_t stream);
 #endif  // MK_SEG

@@ -32,6 +32,11 @@ MK_MAX_STACK = 64
 # memory traffic of the spills this causes (PERF.md; measured with
 # tools/kernel_variants.py).
 MK_MIN_BLOCKS = 8
+# The whole-path kernel stages a w8 pack's f32 node, prim, attr, material
+# and emitter tables in shared memory where they take at most this many
+# bytes (csrc/trace.cuh: cornell's 8 KB ran K2 14 % faster, PERF.md):
+# eight resident blocks then leave most of the SM's L1 to the spills.
+MK_STAGE_BYTES = 16384
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,7 +92,8 @@ def _defines(min_blocks: int) -> list:
             f"-DSHADOW_T_FACTOR={1.0 - isect.SHADOW_T_SCALE!r}f",
             f"-DSLOT_F={mk.SLOT_F}", f"-DMAX_EMITTERS={mk.MAX_EMITTERS}",
             f"-DT9_PER_ROW={mk.T9_PER_ROW}",
-            f"-DMK_MAX_STACK={MK_MAX_STACK}", f"-DMK_MIN_BLOCKS={min_blocks}", *spec]
+            f"-DMK_MAX_STACK={MK_MAX_STACK}", f"-DMK_MIN_BLOCKS={min_blocks}",
+            f"-DMK_STAGE_BYTES={MK_STAGE_BYTES}", *spec]
 
 
 def _flags(fmad: bool = False, min_blocks: int = MK_MIN_BLOCKS) -> list:

@@ -22,7 +22,10 @@ name of the template instantiation the C side reports it launched
 (``"K3+ALL+MED"``, ``"SEG+K3+ALL"``, ``"SEG+SHADE+ALL+MED+GRID"``, ...).
 
 Kernels:
-- ``trace_megakernel``: the whole path per ray -> L (B, 3). Plain version
+- ``trace_megakernel``: the whole path per ray -> L (B, 3), on a
+  persistent grid whose lanes take the next path as theirs ends (csrc/
+  persist.cuh; one launch, the work counter resets in the kernel), with a
+  small w8 pack's tables in shared memory (``stages``). Plain version
   ``trace_megakernel_reference``: the path tracer of models/path_tracer.py
   in its ``fused`` mode (the TPU kernel's estimator) on ``kernel_scene``;
   for a pack with ``has_media`` the volume path tracer of
@@ -142,10 +145,12 @@ def reset_launches():
 def instantiation_name(variant: int) -> str:
     """The instantiation bits the C side reports (K3 1, ALL 2, MED 4; the
     segment kernel K5: SEG 8, SHADE 16, GRID 32; the table builds: BIN 64
-    for binary nodes, CPT 128 for w8 nodes with t9 prims or bf16 attrs) as
-    a name, "K2" for the pruned surface build ("SEG+K2" in segment form)."""
+    for binary nodes, CPT 128 for w8 nodes with t9 prims or bf16 attrs;
+    STAGE 256 for the whole-path kernel with its tables in shared memory,
+    ``stages``) as a name, "K2" for the pruned surface build ("SEG+K2" in
+    segment form)."""
     bits = ((8, "SEG"), (16, "SHADE"), (1, "K3"), (2, "ALL"), (4, "MED"), (32, "GRID"),
-            (64, "BIN"), (128, "CPT"))
+            (64, "BIN"), (128, "CPT"), (256, "STAGE"))
     flags = [name for bit, name in bits if variant & bit]
     if not variant & 7:
         flags.insert(1 if variant & 8 else 0, "K2")
@@ -683,6 +688,9 @@ PACK_KEYS = ("nodes", "prims", "attrs", "erow", "eprims", "brows")
 K3_KEYS = ("uvs", "texels", "tinfo", "tdiff", "envrow")
 MED_KEYS = ("mrow",)
 SWF_KEYS = ("tlbox", "g_hit")
+# the tables the whole-path kernel's STAGE builds copy into shared memory
+# (csrc/trace.cuh), in its order
+STAGE_KEYS = ("nodes", "prims", "attrs", "brows", "erow", "eprims")
 
 
 def make_pack(scene: T.Scene, node_fmt: str | None = None, attr_fmt: str | None = None,
@@ -821,7 +829,22 @@ def _tables(pack: MKPack):
     """Host array of the pack's table pointers (csrc/megakernel.cu
     make_pack_view order)."""
     ptrs = [pack[k].data_ptr() for k in PACK_KEYS + K3_KEYS + MED_KEYS]
+    ptrs += [_nbytes(pack[k]) for k in STAGE_KEYS]  # what a STAGE build copies
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def stages(pack: MKPack) -> bool:
+    """Whether the whole-path kernel runs its STAGE build on the pack (the
+    rule of csrc/trace.cuh): w8 nodes with f32 prims and attrs whose
+    STAGE_KEYS tables, each a multiple of 16 bytes, take at most
+    cuda_build.MK_STAGE_BYTES."""
+    sizes = [_nbytes(pack[k]) for k in STAGE_KEYS]
+    return (pack.node_fmt, pack.prim_fmt, pack.attr_fmt) == ("w8", "f32", "f32") \
+        and all(n % 16 == 0 for n in sizes) and sum(sizes) <= cuda_build.MK_STAGE_BYTES
 
 
 def _check_rays(pack: MKPack, *tensors):

@@ -78,6 +78,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def _stage(pack) -> str:
+    """The name suffix of the whole-path kernel's STAGE build where the
+    pack's tables fit in shared memory (ops/megakernel.stages)."""
+    return "+STAGE" if t_mk.stages(pack) else ""
+
+
 def _lanes_differing(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((~torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=-1)).float().mean())
 
@@ -207,7 +213,7 @@ def test_k4_matches_plain(cuda, kind):
     t_mk.reset_launches()
     Lk = t_mk.trace_megakernel(pack, md, o, d, rng)
     torch.cuda.synchronize()
-    name = "K3+ALL+MED" if kind == "medium_box_env" else "ALL+MED"
+    name = ("K3+ALL+MED" if kind == "medium_box_env" else "ALL+MED") + _stage(pack)
     assert t_mk.LAUNCHES["trace_megakernel"] == 1 and t_mk.INSTANTIATION_LAUNCHES == {name: 1}
     Lp = t_mk.trace_megakernel_reference(pack, md, o, d, rng)
     assert torch.isfinite(Lk).all() and float(Lp.mean()) > 0.01
@@ -224,7 +230,8 @@ def test_vpt_renderer_cuda_matches_cpu(cuda):
     r = Renderer(parsed, renderer=RendererType.VOLUME_PT)  # device=None -> cuda
     t_mk.reset_launches()
     img_k = r.render(2)
-    assert t_mk.INSTANTIATION_LAUNCHES == {"ALL+MED": 2} and r.info()["has_media"]
+    assert t_mk.INSTANTIATION_LAUNCHES == {"ALL+MED" + _stage(r._pack): 2}
+    assert r.info()["has_media"]
     img_p = Renderer(parsed, renderer=RendererType.VOLUME_PT, device="cpu").render(2)
     assert np.isfinite(img_k).all()
     assert np.isclose(img_k, img_p, rtol=1e-4, atol=1e-5).mean() > 0.98
@@ -247,7 +254,8 @@ def test_wrapper_branches_agree_on_media_scene(cuda):
         o, d, rng = t_cam.generate_rays(cam, perm, rng)
         t_mk.reset_launches()
         out[dev.type] = t_mk.trace_megakernel(pack, md, o, d, rng).cpu()
-        assert t_mk.INSTANTIATION_LAUNCHES == ({"ALL+MED": 1} if dev.type == "cuda" else {})
+        assert t_mk.INSTANTIATION_LAUNCHES == (
+            {"ALL+MED" + _stage(pack): 1} if dev.type == "cuda" else {})
     assert torch.isfinite(out["cuda"]).all() and float(out["cpu"].mean()) > 0.01
     assert _lanes_differing(out["cuda"], out["cpu"]) <= 0.02
     assert abs(float(out["cuda"].mean()) - float(out["cpu"].mean())) < 5e-3
@@ -688,3 +696,113 @@ def test_microkernel_launch_error_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(t_lg.lanegather("g1", x, row, idx, 4),
                        t_lg.lanegather_reference("g1", x, row, idx, 4))
+
+
+# ---------------------------------------------------------------------------
+# the persistent grid of K2 (csrc/persist.cuh): the work counter resets
+# between launches; batches below a warp or not a multiple of 32; the STAGE
+# build against the plain one. K1 alike (its per-ray form)
+# ---------------------------------------------------------------------------
+
+
+def _cornell_rays(cuda, seed: int):
+    scene, cam, _ = t_ts.cornell_box(64, 64, tall_box_bsdf=SPECS["glass"], device=cuda)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
+    perm, _ = t_mk.tile_swizzle(64, 64, cuda)
+    o, d, rng = t_cam.generate_rays(cam, perm, t_qmc.make_state("pcg", seed, perm, 0))
+    return pack, o, d, rng
+
+
+def test_k2_persistent_relaunch_bit_equal(cuda):
+    """Two launches back to back, with and without the stats plane: L and
+    stats bit-equal (the counter reset itself), L within the contract of
+    the plain version."""
+    pack, o, d, rng = _cornell_rays(cuda, 41)
+    md = MaxDepthParams()
+    L1, s1 = t_mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
+    L2, s2 = t_mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
+    L3 = t_mk.trace_megakernel(pack, md, o, d, rng)
+    torch.cuda.synchronize()
+    assert torch.equal(L1.view(torch.int32), L2.view(torch.int32)) and torch.equal(s1, s2)
+    assert torch.equal(L1.view(torch.int32), L3.view(torch.int32))
+    assert _lanes_differing(L1, t_mk.trace_megakernel_reference(pack, md, o, d, rng)) <= 0.02
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 77, 1000])
+def test_k2_persistent_small_batches(cuda, n):
+    """A batch smaller than a warp or not a multiple of 32: each lane's L
+    bit-equal to the same path in the full 4,096-path launch (paths are
+    independent), and within the contract of the plain version (with one
+    lane of slack: 2 % of a batch under 50 lanes is less than a lane)."""
+    pack, o, d, rng = _cornell_rays(cuda, 43)
+    md = MaxDepthParams()
+    full = t_mk.trace_megakernel(pack, md, o, d, rng)
+    part = t_mk.trace_megakernel(pack, md, o[:n].contiguous(), d[:n].contiguous(),
+                                 rng[:n].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(part.view(torch.int32), full[:n].view(torch.int32))
+    Lp = t_mk.trace_megakernel_reference(pack, md, o[:n], d[:n], rng[:n])
+    assert _lanes_differing(part, Lp) <= 0.02 + 1.0 / n
+
+
+def test_k2_stage_matches_unstaged(cuda, monkeypatch):
+    """cornell's w8 pack (8.8 KB) runs the STAGE build, its tables in shared
+    memory; the same launch with the table sizes withheld runs the plain
+    build: L and walk work bit-equal, each instantiation reported."""
+    pack, o, d, rng = _cornell_rays(cuda, 47)
+    md = MaxDepthParams()
+    assert t_mk.stages(pack)
+    t_mk.reset_launches()
+    L1, s1 = t_mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
+    real = t_mk._tables
+
+    def unsized(p):
+        t = real(p)
+        for k in range(len(t) - len(t_mk.STAGE_KEYS), len(t)):
+            t[k] = 0
+        return t
+
+    monkeypatch.setattr(t_mk, "_tables", unsized)
+    L2, s2 = t_mk.trace_megakernel(pack, md, o, d, rng, count_stats=True)
+    torch.cuda.synchronize()
+    assert t_mk.INSTANTIATION_LAUNCHES == {"K2+STAGE": 1, "K2": 1}
+    assert torch.equal(L1.view(torch.int32), L2.view(torch.int32)) and torch.equal(s1, s2)
+
+
+def test_k1_relaunch_bit_equal(cuda):
+    """K1's per-ray form twice back to back, closest hit with the stats
+    plane and any hit: every output bit-equal, the stats counted once per
+    launch, prim ids equal to the plain version's."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, forest_chunk=64, device=cuda)
+    o, d, t_far = _forest_rays(scene, 8192, 7, cuda)
+    runs = []
+    for _ in range(2):
+        stats = torch.zeros((8192, 2), dtype=torch.int32, device=cuda)
+        k = t_tk.traverse_forest(scene.forest, o, d, stats=stats)
+        occ = t_tk.traverse_forest(scene.forest, o, d, t_far, occlusion=True)["occluded"]
+        runs.append((k, stats, occ))
+    torch.cuda.synchronize()
+    (k1, st1, occ1), (k2, st2, occ2) = runs
+    for key in ("prim", "t", "b1", "b2"):
+        assert torch.equal(k1[key], k2[key]), key
+    assert torch.equal(st1, st2) and torch.equal(occ1, occ2) and bool((st1[:, 0] > 0).all())
+    assert torch.equal(k1["prim"], t_tk.traverse_forest_reference(scene.forest, o, d)["prim"])
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 77, 1000])
+def test_k1_small_batches(cuda, n):
+    """K1 closest and any hit on a batch smaller than a warp or not a
+    multiple of 32: prim ids, t and occlusion equal to the plain version's
+    and to the same rays in a 4,096-ray launch."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, forest_chunk=64, device=cuda)
+    o, d, t_far = _forest_rays(scene, 4096, 8, cuda)
+    full = t_tk.traverse_forest(scene.forest, o, d)
+    full_occ = t_tk.traverse_forest(scene.forest, o, d, t_far, occlusion=True)["occluded"]
+    on, dn, tn = (x[:n].contiguous() for x in (o, d, t_far))
+    k = t_tk.traverse_forest(scene.forest, on, dn)
+    occ = t_tk.traverse_forest(scene.forest, on, dn, tn, occlusion=True)["occluded"]
+    p = t_tk.traverse_forest_reference(scene.forest, on, dn)
+    p_occ = t_tk.traverse_forest_reference(scene.forest, on, dn, tn, occlusion=True)["occluded"]
+    for key in ("prim", "t"):
+        assert torch.equal(k[key], p[key]) and torch.equal(k[key], full[key][:n]), key
+    assert torch.equal(occ, p_occ) and torch.equal(occ, full_occ[:n])

@@ -61,6 +61,24 @@ inline int __float_as_int(float f) { int x; std::memcpy(&x, &f, 4); return x; }
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 enum { cudaErrorInvalidValue = 1 };
+// the persistent grid (csrc/persist.cuh) on a warp of one thread: a card of
+// one SM that holds one block, the work counter's atomics as plain updates
+#define PERSIST_WARP 1
+#define MK_HOST_BUILD  // no shared memory or bulk copy: no STAGE build
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9, cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return cudaSuccess; }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+    *n = 1;
+    return cudaSuccess;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int atomicAdd(int* p, int v) { int old = *p; *p += v; return old; }
+inline int atomicExch(int* p, int v) { int old = *p; *p = v; return old; }
+inline void __threadfence() {}
 // the tile vote of K1's packet form, which runs on a card only: the host
 // loop runs a block's threads one after another
 inline int __syncthreads_or(int p) { return p; }
@@ -456,6 +474,95 @@ def test_host_k1_matches_plain(host_lib, node_fmt):
     ref_occ = tk.traverse_forest_reference(forest, o, d, t_far, occlusion=True)["occluded"]
     np.testing.assert_array_equal((occ >= 0).numpy(), ref_occ.numpy())
     assert 0.05 < ref_occ.float().mean() < 0.95
+
+
+# ---------------------------------------------------------------------------
+# the persistent grid of K2-K4 (csrc/persist.cuh): on the host shim a launch
+# is one block of 128 threads run one after another, so its first thread
+# takes every path in turn, each starting from the state the last one left
+# behind; and K1's per-ray form, batch against single rays
+# ---------------------------------------------------------------------------
+
+
+def _host_trace_stats(lib, pack, md, o, d, rng):
+    L = torch.empty_like(o)
+    stats = torch.full((o.shape[0], 2), -1, dtype=torch.int32)
+    rng32 = t_mk.rng_bits(rng)
+    rc = lib.mk_trace(t_mk._tables(pack), o.data_ptr(), d.data_ptr(), rng32.data_ptr(),
+                      L.data_ptr(), stats.data_ptr(), o.shape[0], *t_mk.walk_args(pack),
+                      int(pack.has_env), int(pack.textured), int(pack.has_disp),
+                      int(pack.all_families), int(pack.has_media), pack.ambient_med,
+                      md.max_depth, md.max_diffuse, md.max_specular, md.max_transmit,
+                      md.max_volume, 1, None, None)
+    assert rc == 0
+    return L, stats
+
+
+REGEN_SCENES = {
+    "cornell": (SCENES["cornell"], False),
+    "glass": (SCENES["glass"], False),
+    "gold": (SCENES["gold"], False),
+    "kitchen_small": (SCENES["kitchen_small"], False),
+    "medium_box": (MEDIA_SCENES["medium_box"], True),
+}
+
+
+@pytest.mark.parametrize("kind", list(REGEN_SCENES))
+def test_host_persistent_kernel_regenerates_paths(host_lib, kind):
+    """One launch of 256 paths, all traced by one host thread after one
+    another, against each path launched alone: L and the stats plane (node
+    fetches, prim tests) bit-equal per lane, so no per-path variable
+    survives into the next path; L against the plain version under the
+    phase-4 contract."""
+    make, vpt = REGEN_SCENES[kind]
+    scene, cam, _ = make()
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=vpt)
+    perm, _ = t_mk.tile_swizzle(cam.width, cam.height)
+    rng = t_qmc.make_state("pcg", 31, perm, 0)
+    o, d, rng = t_cam.generate_rays(cam, perm, rng)
+    md = MaxDepthParams()
+    L, stats = _host_trace_stats(host_lib, pack, md, o, d, rng)
+    assert o.shape[0] == 256 and bool((stats[:, 0] > 0).all())
+    for k in range(o.shape[0]):
+        Lk, sk = _host_trace_stats(host_lib, pack, md, o[k:k + 1], d[k:k + 1], rng[k:k + 1])
+        assert torch.equal(Lk.view(torch.int32), L[k:k + 1].view(torch.int32)), (kind, k)
+        assert torch.equal(sk, stats[k:k + 1]), (kind, k)
+    _hold(L, t_mk.trace_megakernel_reference(pack, md, o, d, rng), kind)
+
+
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_host_k1_batch_matches_single_rays(host_lib, occlusion):
+    """K1's per-ray form on a four-chunk forest of small kitchen: one launch
+    of 512 rays against each ray launched alone: t, prim, b1, b2 and the
+    stats plane bit-equal per ray; prim ids (closest) or occlusion (any
+    hit) equal to the plain version."""
+    from cuda_pt_torch.ops import traverse_kernel as tk
+
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, forest_chunk=64)
+    forest = scene.forest
+    rs = np.random.default_rng(37)
+    n = 512
+    lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (n, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32)),
+                                      dim=1)
+    t_far = torch.as_tensor(rs.uniform(0.05, 6.0, n).astype(np.float32)) if occlusion else None
+    batch = _host_k1(host_lib, forest, o, d, t_far, occlusion)
+    for k in range(n):
+        one = _host_k1(host_lib, forest, o[k:k + 1], d[k:k + 1],
+                       t_far[k:k + 1] if occlusion else None, occlusion)
+        fields = (1, 4) if occlusion else range(5)
+        for f in fields:
+            assert torch.equal(one[f].view(torch.int32) if one[f].is_floating_point() else one[f],
+                               batch[f][k:k + 1].view(torch.int32)
+                               if batch[f].is_floating_point() else batch[f][k:k + 1]), (k, f)
+    ref = tk.traverse_forest_reference(forest, o, d, t_far, occlusion=occlusion)
+    if occlusion:
+        np.testing.assert_array_equal((batch[1] >= 0).numpy(), ref["occluded"].numpy())
+        assert 0.05 < float(ref["occluded"].float().mean()) < 0.95
+    else:
+        np.testing.assert_array_equal(batch[1].numpy(), ref["prim"].numpy())
+        assert 0.2 < float(ref["hit"].float().mean()) < 1.0
 
 
 # ---------------------------------------------------------------------------
