@@ -15,7 +15,11 @@ Phases (any failure exits non-zero):
      cornell box, and against the skip walk (accel/traverse.py) on 16384
      random rays in full-size kitchen_stress (98,790 triangles): prim ids
      equal except on exact ties; on the same kitchen rays, with every
-     fifth lane dead, the traverse kernel K6 against its plain version;
+     fifth lane dead, the traverse kernel K6 (the walk and the hit resolve)
+     against its plain version (check_k6: prim ids equal, the hit planes
+     bit-equal to resolve_hit of its own walk and within the per-lane
+     contract of resolve_hit(traverse_plain); with --parent bit-equal to
+     the parent's walk and resolve_hit);
   4. the megakernel against its plain PyTorch version (the fused kernel's
      estimator), 256x256, 4 spp, default depth caps, per-lane
      allclose(rtol=1e-4, atol=1e-5) on >= 98% of lanes and the image means
@@ -81,9 +85,18 @@ Phases (any failure exits non-zero):
      spp (cut: spp, so that the phase's 64-step tracking loops stay under
      about a minute), default depth caps, through the split driver (K6 and
      K5's SEG+SHADE+ALL+MED+GRID); the launch counts and a finite image;
-     the driver held to its plain version on a 65,536-lane block; K6's prim
-     ids against the plain walk on the first bounce of the main path's
-     rays; the timings of K5's shade phase and of K6;
+     the driver held to its plain version on a 65,536-lane block; K6
+     (check_k6) on the first bounce of the main path's 1,048,576 rays and
+     on a 65,536-lane block of them, every fifth lane dead; the timings of
+     K5's shade phase and of K6 (the walk and the resolve, its bound with
+     the g_hit columns read per hit lane and the hit planes written); K6
+     per spp on one spp's recorded split states with its tables staged
+     and left in device memory, in turns (ab_k6), and the device launches
+     of its steps per spp; with --parent the parent's split step (its K6
+     walk, then resolve_hit in PyTorch) on the same states, hit planes and
+     the driver's L bit-equal to this tree's, the launches of its steps
+     and of a whole driver pass of each tree, and its ms per spp and the
+     driver's wall per spp in turns;
   9. kernel K1 (csrc/traverse.cu): full-size kitchen_stress forests in f32
      and in bf16 rows (forest_chunk 65536: two chunks; built in two worker
      processes while phases 4-8 run) and cornell's single-chunk forest,
@@ -140,7 +153,11 @@ Phases (any failure exits non-zero):
   13. kernel S2 (csrc/extract_ab.cu) on kitchen_stress's binary f32 rows:
      every tag bit-equal to its plain version on a tile of the reference's
      equal rays and a tile of random rays (8,192 lanes each, S2_HOLD_ITERS
-     steps), v0 = v1 = v2 per lane, v0 on the equal rays = S1; the entry
+     steps; each tile a cluster of blocks) and on 128 tiles
+     (S2_CARD_HOLD_ITERS steps; a block per tile), with --parent to the
+     parent's kernel too, v0 = v1 = v2 per lane, v0 on the equal rays =
+     S1; with --parent each tag's c_node at 1 and 128 tiles in turns with
+     the parent's kernel; the entry
      (extract_ab.main, launches counted from 0) on one tile over kitchen's
      and cornell's rows at 30,000 and 15,000 steps (the reference's shape),
      and over CARD_LANES lanes on kitchen's; c_node per tag and its bound;
@@ -166,15 +183,17 @@ at VPT_SPP and GRID_SPP samples per pixel and hold BLOCK lanes.
 of each scene, of kitchen_stress and medium_cbox through the whole-path
 kernel too, and of the wavefront main path. ``--parent TREE`` (a git
 archive of the parent commit unpacked under the git-ignored build/) holds
-the parent's K2-K4 and K1 to this tree's bit for bit and times them in
-turns (phases 5-7, 9-11), and times the parent's K5 and S4 mxu against
-this tree's in phases 6, 7 and 15.
+the parent's K2-K4, K1, K6 (its walk and resolve_hit) and S2 to this
+tree's bit for bit and times them in turns (phases 3, 5-11, 13), and
+times the parent's K5 and S4 mxu against this tree's in phases 6, 7 and
+15.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import multiprocessing
 import os
@@ -221,10 +240,12 @@ RM_KITCHEN_SPP = 2
 S1_RAYS = 1 << 20
 S1_ITERS = 1024
 # kernels S2-S4 (phases 13-15): lanes of the card's scale, S2's hold steps
-# (S1's), S4's hold leaves at the card's scale (the plain version's chunks
-# shrink with the rays)
+# (S1's; fewer at the card's scale, for the plain version's time), S4's
+# hold leaves at the card's scale (the plain version's chunks shrink with
+# the rays)
 CARD_LANES = 1 << 20
 S2_HOLD_ITERS = 1024
+S2_CARD_HOLD_ITERS = 256
 S4_CARD_HOLD_LEAVES = 16
 PEAK_TF32_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 # f32 operations per lane and step of each S2 form (the slab test: OPS_SLAB)
@@ -319,7 +340,8 @@ def parent_lib() -> str | None:
     if _PARENT["job"] is not None and _PARENT["lib"] is None:
         _PARENT["lib"] = cb.finish_tree_build(_PARENT["job"])
         for kname, regs, st, ld in cb.ptxas_report(cb.build_log(_PARENT["lib"])):
-            if kname.startswith(("seg_kernel", "leaf_mxu", "trace_kernel", "k1_kernel")):
+            if kname.startswith(("seg_kernel", "leaf_mxu", "trace_kernel", "k1_kernel",
+                                 "traverse_kernel", "extract_ab_kernel")):
                 log(f"    [parent] {kname}: {regs} registers, spill stores {st} B, "
                     f"spill loads {ld} B")
     return _PARENT["lib"]
@@ -420,30 +442,103 @@ def phase_walk_kitchen(mk, tts, dev):
         f"{ties} on exact ties, {bad} otherwise; hits {int((prim_k >= 0).sum())}")
     if bad:
         raise SystemExit(f"kitchen walk check failed: {bad} prim ids differ off exact ties")
-    k6 = check_k6(mk, pack, o_t, d_t, "kitchen_stress random rays")
+    k6 = check_k6(mk, pack, k6_state(mk, pack, o_t, d_t), B, "kitchen_stress random rays")
     return {"rays": B, "differ": int(differ.sum()), "exact_ties": ties, "k6": k6}, scene, cam, \
         build_s
 
 
-def check_k6(mk, pack, o, d, label: str) -> dict:
-    """Kernel K6 (the traverse kernel) on rays (B, 3) with every fifth lane
-    dead, against its plain version: prim ids equal on every ray, dead
-    lanes without a hit."""
-    n = o.shape[0]
-    st = mk.seg_init(pack, o, d, torch.zeros((n, 2), dtype=torch.int64, device=o.device))
+def k6_state(mk, pack, o, d):
+    """State planes of rays (B, 3) with every fifth lane dead."""
+    st = mk.seg_init(pack, o, d, torch.zeros((o.shape[0], 2), dtype=torch.int64, device=o.device))
     st.view(torch.float32)[mk.S_ACT, ::5] = 0.0
-    out = mk.traverse_closest(pack, st, n)
+    return st
+
+
+# the parent tree's K6 entry (--parent): tables, state, stride, n, out,
+# stats, max_leaf, tri_only, fmt, n_nodes, stream
+PARENT_K6 = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + \
+    [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def parent_walk(mk, pack, st, n, stats=None):
+    """The parent tree's K6 walk (inside with_parent; its C entry
+    mk_traverse) -> its (t, gid, u, v) planes (4, n)."""
+    from cuda_pt_torch.ops import cuda_build as cb
+
+    lib = cb.load()
+    lib.mk_traverse.argtypes = PARENT_K6
+    lib.mk_traverse.restype = ctypes.c_int
+    out = torch.empty((4, n), dtype=torch.float32, device=st.device)
+    rc = lib.mk_traverse(mk._tables(pack), st.data_ptr(), st.shape[1], n, out.data_ptr(),
+                         stats.data_ptr() if stats is not None else None, *mk.walk_args(pack),
+                         torch.cuda.current_stream(st.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the parent's mk_traverse: cudaError {rc}")
+    return out
+
+
+def parent_k6(mk, pack, st, n, trav=None, stats=None):
+    """The parent tree's split step (inside with_parent): its K6 walk
+    (parent_walk), then resolve_hit's row gather in PyTorch; the arguments
+    and result of mk.traverse_resolve."""
+    out = parent_walk(mk, pack, st, n, stats)
+    if trav is not None:
+        trav.copy_(out)
+    return mk.resolve_hit(pack, out)
+
+
+@contextlib.contextmanager
+def parent_split(mk):
+    """The parent tree's library while the block runs, and the split
+    driver's K6 step its form (parent_k6)."""
+    from cuda_pt_torch.ops import cuda_build as cb
+
+    real = mk.traverse_resolve
+    mk.traverse_resolve = lambda pack, st, n, trav=None, stats=None: parent_k6(
+        mk, pack, st, n, trav, stats)
+    prev = cb.use_library(parent_lib())
+    try:
+        yield
+    finally:
+        cb.use_library(prev)
+        mk.traverse_resolve = real
+
+
+def check_k6(mk, pack, st, n: int, label: str) -> dict:
+    """Kernel K6 (the walk and the hit resolve) on the first n lanes of the
+    state planes st (every fifth dead): prim ids equal to the plain walk's
+    on every lane, dead lanes without a hit; the hit planes bit-equal to
+    resolve_hit of the same launch's (t, gid, u, v) output and within the
+    per-lane contract of resolve_hit(traverse_plain); with --parent, bit-
+    equal to the parent's resolve_hit(traverse_closest) on every lane."""
+    trav = torch.empty((4, n), dtype=torch.float32, device=st.device)
+    hit = mk.traverse_resolve(pack, st, n, trav)
     ref = mk.traverse_plain(pack, st, n)
+    want = mk.resolve_hit(pack, ref)
     torch.cuda.synchronize()
-    differ = int((out[1] != ref[1]).sum())
-    hits = int((out[1] >= 0).sum())
-    both = (out[1] >= 0) & (ref[1] >= 0)
-    err = float((out[0][both] - ref[0][both]).abs().max()) if bool(both.any()) else 0.0
-    log(f"[K6] traverse kernel vs plain walk on {n} {label} (every fifth dead): {differ} prim "
-        f"ids differ; hits {hits}")
-    if differ or not bool((out[1, ::5] == -1).all()):
-        raise SystemExit(f"K6 walk check failed on {label}: {differ} prim ids differ")
-    return {"rays": n, "differ": differ, "hits": hits, "max_abs_err_t": err}
+    differ = int((trav[1] != ref[1]).sum())
+    hits = int((trav[1] >= 0).sum())
+    both = (trav[1] >= 0) & (ref[1] >= 0)
+    err = float((trav[0][both] - ref[0][both]).abs().max()) if bool(both.any()) else 0.0
+    own = bit_lanes(hit.T, mk.resolve_hit(pack, trav).T)
+    frac = lane_mismatch(hit.T, want.T)
+    plane_err = float(torch.where(hit == want, 0.0, (hit - want).abs()).max())
+    row = {"rays": n, "differ": differ, "hits": hits, "max_abs_err_t": err,
+           "planes": hit.shape[0], "planes_lanes_differ_own": own,
+           "planes_lanes_outside_contract": frac, "planes_max_abs_err": plane_err}
+    if parent_lib() is not None:
+        with parent_split(mk):
+            p_hit = mk.traverse_resolve(pack, st, n)
+        row["planes_lanes_differ_parent"] = bit_lanes(hit.T, p_hit.T)
+    log(f"[K6] walk + resolve vs the plain walk on {n} {label} (every fifth dead): {differ} prim "
+        f"ids differ; hits {hits}; {hit.shape[0]} hit planes: lanes not bit-equal to resolve_hit "
+        f"of its own walk {own}, outside the contract against resolve_hit(traverse_plain) "
+        f"{frac:.7f}" + (f", not bit-equal to the parent's {row['planes_lanes_differ_parent']}"
+                         if "planes_lanes_differ_parent" in row else ""))
+    if differ or not bool((trav[1, ::5] == -1).all()) or own or frac > MAX_LANE_FRAC \
+            or row.get("planes_lanes_differ_parent", 0):
+        raise SystemExit(f"K6 check failed on {label}: {row}")
+    return row
 
 
 def phase_kernel(mk, tts, dev, MaxDepthParams, BSDFSpec, T):
@@ -714,15 +809,15 @@ def swf_loop(mk, pack, md, o, d, rng, timing: bool = False, count: bool = False)
     kernels, key "pos_dir") run here piece by piece, so that the package
     carries no measurement code. timing: CUDA events around each phase,
     summed per phase into "ms": "seg" (the K5 launches) and "traverse"
-    (K6), each kernel alone (it starts after a device sleep of
-    SETTLE_CYCLES that covers the host's launch latency; the sleep belongs
-    to no phase), "sort" (key, argsort, state gather, live count) and
-    "glue" (hit resolve, grid passes, texels, the envmap epilogue, the
-    un-permute), each from its first to its last operation, gaps while
-    the device waits for the host included. count: the walk work of K5 and
-    K6 per slot ("stats", "stats_t") and, per launch, the lanes whose
-    envmap miss record K5 wrote ("misses"). Returns those, L and the live
-    lanes of each launch."""
+    (K6: the walk and the hit resolve), each kernel alone (it starts after
+    a device sleep of SETTLE_CYCLES that covers the host's launch latency;
+    the sleep belongs to no phase), "sort" (key, argsort, state gather, live count) and
+    "glue" (grid passes, texels, the envmap epilogue, the un-permute),
+    each from its first to its last operation, gaps while the device waits
+    for the host included. count: the walk work of K5 and K6 per slot
+    ("stats", "stats_t") and, per launch, the lanes whose envmap miss
+    record K5 wrote ("misses") and K6's lanes with a hit ("hits"). Returns
+    those, L and the live lanes of each launch."""
     dev = o.device
     B = o.shape[0]
     ms, open_ = {}, [None]
@@ -745,7 +840,7 @@ def swf_loop(mk, pack, md, o, d, rng, timing: bool = False, count: bool = False)
     env = mk.seg_layout(pack).env
     st = mk.seg_init(pack, o, d, rng)
     pix = torch.arange(B, device=dev)
-    lanes, misses = [], []
+    lanes, misses, hits = [], [], []
     for bounce in range(md.max_depth):
         mark("sort")
         st, pix, n = mk.swf_sort(st, pix, "pos_dir")
@@ -755,9 +850,10 @@ def swf_loop(mk, pack, md, o, d, rng, timing: bool = False, count: bool = False)
         hit = flight = None
         if pack.has_grid:
             mark("traverse", settle=True)
-            trav = mk.traverse_closest(pack, st, n, stats_t)
+            hit = mk.traverse_resolve(pack, st, n, stats=stats_t)
             mark("glue")
-            hit = mk.resolve_hit(pack, trav)
+            if count:
+                hits.append(int((hit[1] > 0.5).sum()))
             flight = mk.grid_flight(pack, st, n, hit[0]).contiguous()
         env0 = st[env:env + 6, :n].clone() if count and env >= 0 else None
         mark("seg", settle=True)
@@ -770,8 +866,25 @@ def swf_loop(mk, pack, md, o, d, rng, timing: bool = False, count: bool = False)
     L = mk.swf_result(pack, st, pix)
     mark(None)
     torch.cuda.synchronize()
-    return {"L": L, "live_lanes": lanes, "misses": misses, "stats": stats, "stats_t": stats_t,
+    return {"L": L, "live_lanes": lanes, "misses": misses, "hits": hits, "stats": stats,
+            "stats_t": stats_t,
             "ms": {k: sum(a.elapsed_time(b) for a, b in v) for k, v in ms.items()}}
+
+
+def k6_bytes(mk, pack, lanes: list, hits: list) -> tuple:
+    """(bytes, per live lane, per hit lane) that K6 moves over the launches
+    of a driver run: per live lane the state planes it reads (act, o, d)
+    and the hit planes it writes; per hit lane the g_hit columns the
+    resolve reads (the normals, the geometric normal, eid, bid, inv_area,
+    the sphere's centre and flag unless tri_only, the uvs if textured, the
+    medium planes with media); a miss reads row 0, counted once, as are
+    the nodes and prims."""
+    cols = 9 + 3 + 3 + (0 if pack.tri_only else 4) + (6 if pack.textured else 0) \
+        + (2 if pack.has_media else 0)
+    per_lane = 7 * 4 + mk.hit_planes(pack) * 4
+    nbytes = sum(lanes) * per_lane + sum(hits) * cols * 4 + 32 * 4 \
+        + mk.pack_bytes(pack, ("nodes", "prims"))
+    return nbytes, per_lane, cols * 4
 
 
 def k5_bytes(pack, lanes: list, misses: list) -> tuple:
@@ -1101,12 +1214,17 @@ def hold_swf(mk, r, md, blk: int, phase: str, label: str, ab: bool = False) -> d
     if split:
         t_nodes = int(cnt["stats_t"][:, 0].sum(dtype=torch.int64))
         t_prims = int(cnt["stats_t"][:, 1].sum(dtype=torch.int64))
-        t_bytes = sum(lanes) * (7 + 4) * 4 + mk.pack_bytes(pack, ("nodes", "prims"))
+        t_bytes, t_per_lane, t_per_hit = k6_bytes(mk, pack, lanes, cnt["hits"])
         t_bound, t_by = bound(t_bytes, t_nodes, t_prims)
         out["k6"] = {"ms": mean["traverse"], "bound_ms": t_bound, "bound_by": t_by,
-                     "wide_nodes": t_nodes, "prim_tests": t_prims, "bytes": t_bytes}
-        log(f"[{phase}] K6 {label}: {mean['traverse']:.3f} ms per spp, bound {t_bound:.4f} ms "
-            f"({t_by}: {t_nodes} wide nodes, {t_prims} prim tests, {t_bytes} bytes); "
+                     "wide_nodes": t_nodes, "prim_tests": t_prims, "bytes": t_bytes,
+                     "bytes_per_lane": t_per_lane, "g_hit_bytes_per_hit": t_per_hit,
+                     "hit_lanes": sum(cnt["hits"]), "staged": mk.k6_stages(pack)}
+        log(f"[{phase}] K6 {label} (walk + hit resolve; nodes, prims and g_hit staged: "
+            f"{mk.k6_stages(pack)}): "
+            f"{mean['traverse']:.3f} ms per spp, bound {t_bound:.4f} ms ({t_by}: {t_nodes} wide "
+            f"nodes, {t_prims} prim tests, {t_bytes} bytes: {t_per_lane} B per live lane, "
+            f"{t_per_hit} B of g_hit per hit lane over {sum(cnt['hits'])} hits); "
             f"{t_bound / max(mean['traverse'], 1e-9):.4f} of bound")
     return out
 
@@ -1317,34 +1435,150 @@ def phase_grid(mk, tts, dev, MaxDepthParams, RendererType, RenderingConfig, Pars
     if info["driver"] != "swf_split" or not info["has_grid"]:
         raise SystemExit(f"grid_smoke: not the split driver: {info}")
     wall, launches, inst, mean = render_main_path(
-        mk, r, GRID_SPP, "grid", {"launches": ["trace_megakernel_seg", "traverse_closest"],
+        mk, r, GRID_SPP, "grid", {"launches": ["trace_megakernel_seg", "traverse_resolve"],
                                   "instantiations": ["SEG+SHADE+ALL+MED+GRID"]})
     grid_mib = r._pack["gr_density"].numel() * 4 / 2 ** 20
     log(f"[8] grid_smoke (a {GRID_N}^3 density grid, {grid_mib:.0f} MiB; scene built in "
         f"{build_s:.1f} s): Renderer VOLUME_PT {cam.width}x{cam.height}x{GRID_SPP}spp: "
         f"{wall:.2f} s wall ({wall * 1e3 / GRID_SPP:.2f} ms per spp), launches {launches} {inst}, "
         f"image mean {mean:.6f}")
-    o, d, _, _ = main_rays(mk, r, BLOCK)
-    k6_check = check_k6(mk, r._pack, o.contiguous(), d.contiguous(), "grid_smoke camera rays")
+    pack = r._pack
+    o, d, rng, _ = main_rays(mk, r, BLOCK)
+    o, d = o.contiguous(), d.contiguous()
+    B = o.shape[0]
+    k6_check = check_k6(mk, pack, k6_state(mk, pack, o, d), B, "grid_smoke camera rays")
+    o_b, d_b = o[:BLOCK].contiguous(), d[:BLOCK].contiguous()
+    st = k6_state(mk, pack, o_b, d_b)
+    k6_block_check = check_k6(mk, pack, st, BLOCK, "grid_smoke camera rays, the first block")
     k5 = hold_swf(mk, r, md, BLOCK, "8", "grid_smoke")
-    k5.pop("L")
+    L = k5.pop("L")
     k6 = k5.pop("k6")
-    o_b = o[:BLOCK].contiguous()
-    st = mk.seg_init(r._pack, o_b, d[:BLOCK].contiguous(),
-                     torch.zeros((BLOCK, 2), dtype=torch.int64, device=dev))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mk.traverse_plain(r._pack, st, BLOCK)
-    torch.cuda.synchronize()
-    k6_plain = (time.perf_counter() - t0) * 1e3
-    k6_block = events_ms(lambda: mk.traverse_closest(r._pack, st, BLOCK), 10)
+    ab = ab_k6(mk, pack, md, o, d, rng, L)
+    _, k6_plain = host_ms(lambda: mk.resolve_hit(pack, mk.traverse_plain(pack, st, BLOCK)))
+    k6_block = events_ms(lambda: mk.traverse_resolve(pack, st, BLOCK), 10)
     k5.update({"wall_ms_per_spp": wall * 1e3 / GRID_SPP,
                "launches": launches["trace_megakernel_seg"], "instantiations": inst})
-    k6.update({"launches": launches["traverse_closest"], "plain_ms": k6_plain,
+    k6.update({"launches": launches["traverse_resolve"], "plain_ms": k6_plain,
                "plain_lanes": BLOCK, "block_kernel_ms": k6_block, "walk_check": k6_check,
-               "max_abs_err": k6_check["max_abs_err_t"]})
-    log(f"[8] K6 on the {BLOCK}-lane block: kernel {k6_block:.4f} ms, plain walk {k6_plain:.1f} ms")
+               "block_check": k6_block_check,
+               "max_abs_err": max(k6_check["max_abs_err_t"], k6_check["planes_max_abs_err"]),
+               "ab": ab, **({"parent_ms": ab["parent"]["parent_ms"]} if "parent" in ab else {})})
+    log(f"[8] K6 on the {BLOCK}-lane block: kernel {k6_block:.4f} ms, plain walk and "
+        f"resolve_hit {k6_plain:.1f} ms")
     return k5, k6
+
+
+def split_states(mk, pack, md, o, d, rng) -> list:
+    """The split driver's loop on the kernels (key "pos_dir"): each bounce's
+    live state planes (n_state, n) as its K6 step reads them."""
+    st = mk.seg_init(pack, o, d, rng)
+    pix = torch.arange(o.shape[0], device=o.device)
+    states = []
+    for bounce in range(md.max_depth):
+        st, pix, n = mk.swf_sort(st, pix, "pos_dir")
+        if n == 0:
+            break
+        states.append(st[:, :n].contiguous())
+        hit = mk.traverse_resolve(pack, st, n)
+        flight = mk.grid_flight(pack, st, n, hit[0]).contiguous()
+        mk.trace_megakernel_seg(pack, md, st, n, bounce, 1, hit, flight)
+        mk.swf_resolve(pack, st, n)
+    torch.cuda.synchronize()
+    return states
+
+
+def k6_spp_ms(mk, pack, states: list) -> float:
+    """Summed device ms of the split step mk.traverse_resolve (this tree's
+    K6, or under parent_split the parent's K6 and resolve_hit) over the
+    recorded bounces, each after a device sleep of SETTLE_CYCLES, between
+    CUDA events: the median of 3 passes."""
+    passes = []
+    for _ in range(3):
+        evs = []
+        for st in states:
+            torch.cuda._sleep(SETTLE_CYCLES)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            mk.traverse_resolve(pack, st, st.shape[1])
+            ev[1].record()
+            evs.append(ev)
+        torch.cuda.synchronize()
+        passes.append(sum(a.elapsed_time(b) for a, b in evs))
+    return float(np.median(passes))
+
+
+def ab_k6(mk, pack, md, o, d, rng, L) -> dict:
+    """K6 per spp on one spp's recorded split states (split_states): the
+    kernel with its tables staged against the same launches with the table
+    sizes withheld (no_stage), in turns, hit planes bit-equal; the device
+    launches of the split steps over the spp (profiler); with --parent,
+    the parent's split step (its K6 walk, then resolve_hit in PyTorch:
+    parent_split) on the same states, hit planes bit-equal on every lane,
+    the driver's L bit-equal to this tree's L, the device launches of its
+    split steps and of a whole driver pass of each tree (about 300,000,
+    minutes under the profiler: --parent only), and the ms per spp and the
+    driver's wall per spp in turns (parent, this, this, parent)."""
+    states = split_states(mk, pack, md, o, d, rng)
+    hits = [mk.traverse_resolve(pack, st, st.shape[1]) for st in states]
+    with no_stage(mk):
+        differ_stage = sum(bit_lanes(h.T, mk.traverse_resolve(pack, st, st.shape[1]).T)
+                           for h, st in zip(hits, states))
+    ms = {"stage": [], "plain": []}
+    for who in ("stage", "plain", "plain", "stage"):
+        if who == "plain":
+            with no_stage(mk):
+                ms[who].append(k6_spp_ms(mk, pack, states))
+        else:
+            ms[who].append(k6_spp_ms(mk, pack, states))
+
+    def driver():
+        mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+
+    def split_steps():
+        for st in states:
+            mk.traverse_resolve(pack, st, st.shape[1])
+
+    row = {"live_lanes": [st.shape[1] for st in states], "stage_ms": float(np.mean(ms["stage"])),
+           "unstaged_ms": float(np.mean(ms["plain"])), "stage_runs_ms": ms,
+           "stage_lanes_differ": differ_stage, "staged": mk.k6_stages(pack),
+           "device_launches_per_spp": {"this": device_launches(split_steps)}}
+    log(f"[8] K6 per spp on the recorded split states (live lanes {row['live_lanes']}): nodes, "
+        f"prims and g_hit staged ({row['staged']}) {row['stage_ms']:.4f} ms against {row['unstaged_ms']:.4f} ms "
+        f"left in device memory, in turns (runs {ms}); lanes differing {differ_stage}")
+    if differ_stage:
+        raise SystemExit("K6: the staged build's planes differ from the unstaged build's")
+    if parent_lib() is not None:
+        with parent_split(mk):
+            p_hits = [mk.traverse_resolve(pack, st, st.shape[1]) for st in states]
+            L_p = mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
+            torch.cuda.synchronize()
+            row["device_launches_per_spp"]["parent"] = device_launches(split_steps)
+            row["device_launches_per_pass"] = {"parent": device_launches(driver)}
+        row["device_launches_per_pass"]["this"] = device_launches(driver)
+        planes_differ = sum(bit_lanes(h.T, p.T) for h, p in zip(hits, p_hits))
+        l_differ = bit_lanes(L, L_p)
+        runs = {"parent": [], "this": []}
+        walls = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            with parent_split(mk) if who == "parent" else contextlib.nullcontext():
+                runs[who].append(k6_spp_ms(mk, pack, states))
+                walls[who].append(host_ms(driver)[1])
+        row["parent"] = {"parent_ms": float(np.mean(runs["parent"])),
+                         "this_ms": float(np.mean(runs["this"])), "runs_ms": runs,
+                         "driver_wall_ms": walls, "planes_lanes_differ": planes_differ,
+                         "L_lanes_differ": l_differ}
+        log(f"[8] K6 + resolve per spp: the parent's walk and resolve_hit "
+            f"{row['parent']['parent_ms']:.4f} ms against this tree's "
+            f"{row['parent']['this_ms']:.4f} ms, in turns on the same states (runs {runs}); the "
+            f"split driver's wall per spp (host clock, 1,048,576 rays) in the same turns {walls}; "
+            f"hit planes differing {planes_differ}, driver L differing {l_differ} of "
+            f"{L.shape[0]}")
+        if planes_differ or l_differ:
+            raise SystemExit("K6: this tree's split step differs from the parent's")
+    log(f"[8] device launches of the split step (K6, the parent's K6 and resolve_hit) per spp: "
+        f"{row['device_launches_per_spp']}; per split driver pass (1,048,576 rays, with "
+        f"--parent): {row.get('device_launches_per_pass')}")
+    return row
 
 
 def _forest_job(geom, fmt: str):
@@ -1919,14 +2153,10 @@ def phase_s2(mk, ab, nb, tk, dev, kscene, cscene) -> dict:
     nodes = {name: torch.as_tensor(tk.pack_nodes(sc.bvh), device=dev)
              for name, sc in (("kitchen", kscene), ("cornell", cscene))}
     nk = nodes["kitchen"]
-    o_eq, d_eq = nb.reference_rays(ab.TILE, dev)
-    rs = np.random.default_rng(31)
     lo = kscene.bvh.node_min[0].cpu().numpy() - 1.0
     hi = kscene.bvh.node_max[0].cpu().numpy() + 1.0
-    o_r = torch.as_tensor(rs.uniform(lo, hi, (ab.TILE, 3)).astype(np.float32), device=dev)
-    d_r = torch.nn.functional.normalize(torch.as_tensor(
-        rs.normal(size=(ab.TILE, 3)).astype(np.float32), device=dev), dim=1)
-    o, d = torch.cat([o_eq, o_r]).contiguous(), torch.cat([d_eq, d_r]).contiguous()
+    o, d = s2_rays(nb, ab.TILE, ab.TILE, lo, hi, 31, dev)
+    o_eq, d_eq = o[:ab.TILE], d[:ab.TILE]
     outs, plain, err = {}, {}, 0.0
     for tag in ab.TAGS:
         outs[tag] = ab.extract_ab(tag, nk, o, d, S2_HOLD_ITERS)
@@ -1942,16 +2172,47 @@ def phase_s2(mk, ab, nb, tk, dev, kscene, cscene) -> dict:
         raise SystemExit("S2: v0 on equal rays differs from S1")
     hits = int((outs["v0"][ab.TILE:] != 0).sum())
     hold_ms = launch_ms(lambda: ab.extract_ab("v0", nk, o, d, S2_HOLD_ITERS), 3)
+    # 128 tiles (one block per tile): a tile of equal rays, then random ones
+    o_c, d_c = s2_rays(nb, ab.TILE, CARD_LANES - ab.TILE, lo, hi, 37, dev)
+    sizes = {2: ab.cluster_size(2), CARD_LANES // ab.TILE: ab.cluster_size(CARD_LANES // ab.TILE)}
+    parent_differ = {}
+    for tag in ab.TAGS:
+        out_c = ab.extract_ab(tag, nk, o_c, d_c, S2_CARD_HOLD_ITERS)
+        ref_c = ab.extract_ab_reference(tag, nk, o_c, d_c, S2_CARD_HOLD_ITERS)
+        if bit_differ(out_c, ref_c):
+            raise SystemExit(f"S2 {tag}, {CARD_LANES // ab.TILE} tiles: {bit_differ(out_c, ref_c)} "
+                             "lanes differ from the plain version")
+        if parent_lib() is not None:
+            p2 = with_parent(lambda: ab.extract_ab(tag, nk, o, d, S2_HOLD_ITERS))
+            pc = with_parent(lambda: ab.extract_ab(tag, nk, o_c, d_c, S2_CARD_HOLD_ITERS))
+            parent_differ[tag] = bit_differ(outs[tag], p2) + bit_differ(out_c, pc)
     log(f"[13] S2 on kitchen's {nk.shape[0]} f32 node rows, 2 tiles x {ab.TILE} lanes x "
-        f"{S2_HOLD_ITERS} steps: all {len(ab.TAGS)} tags bit-equal to the plain version "
-        f"(random tile: {hits} lanes with box hits); v0 = v1 = v2 per lane; v0 = S1 on the "
-        f"equal rays; v0 {hold_ms:.3f} ms, plain {plain['v0']:.1f} ms")
+        f"{S2_HOLD_ITERS} steps (a cluster of {sizes[2]} blocks per tile): all {len(ab.TAGS)} tags "
+        f"bit-equal to the plain version (random tile: {hits} lanes with box hits); v0 = v1 = v2 "
+        f"per lane; v0 = S1 on the equal rays; v0 {hold_ms:.3f} ms, plain {plain['v0']:.1f} ms; "
+        f"{CARD_LANES // ab.TILE} tiles x {S2_CARD_HOLD_ITERS} steps (cluster size "
+        f"{sizes[CARD_LANES // ab.TILE]}): every tag bit-equal to the plain version"
+        + (f"; lanes differing from the parent's kernel, both shapes: {parent_differ}"
+           if parent_differ else ""))
+    if any(parent_differ.values()):
+        raise SystemExit(f"S2: lanes differ from the parent's kernel: {parent_differ}")
+    turns = {}
+    if parent_lib() is not None:
+        for tiles in (1, CARD_LANES // ab.TILE):
+            o_t, d_t = nb.reference_rays(tiles * ab.TILE, dev)
+            for tag in ab.MAIN_TAGS:
+                turns.setdefault(str(tiles), {})[tag] = in_turns(
+                    lambda: s2_c_node(ab, tag, nk, o_t, d_t), "13",
+                    f"S2 {tag}, {tiles} tile(s) of equal rays, c_node", "ns per step")
     rows, launches = counted_entry(mk, ab.LAUNCHES, "extract_ab", lambda: ab.main(
         ["--tiles", "1", "--reps", "3"], nodes=nodes))
     card = ab.main(["--tiles", str(CARD_LANES // ab.TILE), "--reps", "3", "--scene", "kitchen"],
                    nodes=nodes)
     res = {"launches": launches, "max_abs_err": err, "hold_plain_ms": plain, "hold_ms": hold_ms,
-           "hold_lanes": 2 * ab.TILE, "hold_iters": S2_HOLD_ITERS, "random_tile_hit_lanes": hits}
+           "hold_lanes": 2 * ab.TILE, "hold_iters": S2_HOLD_ITERS, "random_tile_hit_lanes": hits,
+           "card_hold_iters": S2_CARD_HOLD_ITERS, "cluster_sizes": sizes,
+           "parent_lanes_differ": parent_differ, "turns": turns}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, rs_ in (("reference", rows), ("card_scale", card)):
         lanes = ab.TILE * (1 if label == "reference" else CARD_LANES // ab.TILE)
         for r in rs_:
@@ -1964,7 +2225,35 @@ def phase_s2(mk, ab, nb, tk, dev, kscene, cscene) -> dict:
         for sc, tags in res[label].items():
             log(f"[13] S2 {label} ({lanes} lanes, {ab.ITERS} steps), {sc}: " + ", ".join(
                 f"{t} {r['c_node_ns']:.1f} ns/step" for t, r in tags.items()))
+    # worked out, not measured: one tile's operations at the card's peak on
+    # one SM (a tile in one block) and on the SMs of its cluster
+    for t, r in res["reference"]["kitchen"].items():
+        one_sm = ab.ITERS * ab.TILE * OPS_S2[t] / (PEAK_F32_S / sms) * 1e3
+        log(f"[13] S2 {t}, one tile: floor {one_sm:.4f} ms on one SM, {one_sm / r['cluster']:.4f} "
+            f"ms on its cluster of {r['cluster']}, whole-card bound {r['bound_ms']:.4f} ms")
     return res
+
+
+def s2_rays(nb, n_equal: int, n_random: int, lo, hi, seed: int, dev):
+    """n_equal of the reference's equal rays, then n_random random rays with
+    origins in [lo, hi] -> (o, d)."""
+    o_eq, d_eq = nb.reference_rays(n_equal, dev)
+    rs = np.random.default_rng(seed)
+    o_r = torch.as_tensor(rs.uniform(lo, hi, (n_random, 3)).astype(np.float32), device=dev)
+    d_r = torch.nn.functional.normalize(torch.as_tensor(
+        rs.normal(size=(n_random, 3)).astype(np.float32), device=dev), dim=1)
+    return torch.cat([o_eq, o_r]).contiguous(), torch.cat([d_eq, d_r]).contiguous()
+
+
+def s2_c_node(ab, tag: str, nodes, o, d) -> float:
+    """c_node of one S2 tag as its entry measures it: the launch at ab.ITERS
+    steps less the launch at half of them, per step, in ns
+    (utils/timing.events_ms, the median of 3 launches each)."""
+    from cuda_pt_torch.utils.timing import events_ms as launch_ms
+
+    t_n = launch_ms(lambda: ab.extract_ab(tag, nodes, o, d, ab.ITERS), 3)
+    t_h = launch_ms(lambda: ab.extract_ab(tag, nodes, o, d, ab.ITERS // 2), 3)
+    return (t_n - t_h) / (ab.ITERS - ab.ITERS // 2) * 1e6
 
 
 def phase_s3(mk, lg, dev) -> dict:
@@ -2165,19 +2454,27 @@ def s2_entry(s2: dict) -> dict:
     """The results line's S2 entry: v0 on kitchen's rows, one tile at the
     reference's steps; every tag and the card's scale beside it."""
     v0 = s2["reference"]["kitchen"]["v0"]
-    pick = ("c_node_ns", "ms", "bound_ms", "checksum")
+    pick = ("c_node_ns", "ms", "bound_ms", "cluster", "checksum")
+    turns = {tiles: {tag: {k: r[k] for k in ("parent_ms", "this_ms")} for tag, r in tags.items()}
+             for tiles, tags in s2["turns"].items()}
+    v0_turns = s2["turns"].get("1", {}).get("v0")
     return {"name": "extract_ab (S2 v0, kitchen_stress f32 rows, one 8,192-lane tile)",
             "route": "cuda", "source": "cuda_pt_torch/csrc/extract_ab.cu",
             "replaces": "scripts/exp_extract_ab.py:232", "launches": s2["launches"],
             "max_abs_err": s2["max_abs_err"], "ms": v0["ms"], "plain_ms": s2["hold_plain_ms"]["v0"],
             "bound_ms": v0["bound_ms"], "bound_by": v0["bound_by"], "library_ms": None,
-            "c_node_ns": v0["c_node_ns"], "hold_ms": s2["hold_ms"],
+            "c_node_ns": v0["c_node_ns"], "hold_ms": s2["hold_ms"], "cluster": v0["cluster"],
+            **({"parent_c_node_ns": v0_turns["parent_ms"], "this_c_node_ns": v0_turns["this_ms"]}
+               if v0_turns else {}),
             "variants": {label: {sc: {t: {k: r[k] for k in pick} for t, r in tags.items()}
                                  for sc, tags in s2[label].items()}
                          for label in ("reference", "card_scale")},
+            "turns_c_node_ns": turns, "cluster_sizes": s2["cluster_sizes"],
             "note": "ms: a launch of 30,000 steps; plain_ms and hold_ms: the plain version and "
                     "the kernel on the hold's 2 tiles x S2_HOLD_ITERS steps; launches: the "
-                    "entry at the reference's shape"}
+                    "entry at the reference's shape; cluster: the blocks per tile the launch "
+                    "took; turns_c_node_ns: ns per step of each tag, the parent's kernel and "
+                    "this one in turns (--parent)"}
 
 
 def s3_entry(s3: dict) -> dict:
@@ -2285,8 +2582,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few main-path passes (torch.profiler)")
     ap.add_argument("--parent", default=None,
-                    help="another checkout (git archive of the parent commit) whose K1-K5 and "
-                         "S4 mxu are held to and timed against this tree's on the same inputs")
+                    help="another checkout (git archive of the parent commit) whose K1-K6, S2 "
+                         "and S4 mxu are held to and timed against this tree's on the same inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
@@ -2386,9 +2683,12 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          **seg, "source": "cuda_pt_torch/csrc/megakernel_seg_cpt.cu", **k5_vpt},
         {"name": "trace_megakernel_seg (K5 shade, grid_smoke: SEG+SHADE+ALL+MED+GRID)", **seg,
          **k5_grid},
-        {"name": "traverse_closest (K6, grid_smoke)", "route": "cuda",
+        {"name": "traverse_resolve (K6, grid_smoke: walk and hit resolve)", "route": "cuda",
          "source": "cuda_pt_torch/csrc/megakernel_split.cu",
-         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3390", "library_ms": None, **k6},
+         "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3390", "library_ms": None, **k6,
+         "note": "ms: per spp summed over the driver's K6 launches, each timed alone; "
+                 "plain_ms: resolve_hit(traverse_plain) on the block; parent_ms: the parent's "
+                 "K6 walk and resolve_hit per spp on the same states, in turns"},
         {"name": "traverse_forest (K1, kitchen_stress forest)", "route": "cuda",
          "source": "cuda_pt_torch/csrc/traverse.cu",
          "replaces": "cuda_pt_tpu/ops/pallas/traverse_kernel.py:561",

@@ -148,7 +148,7 @@ extern "C" int mk_trace(const void* const* tables, const float* ray_o, const flo
     bool bin = (fmt & FMT_BIN) != 0;
     bool cpt = !bin && (fmt & FMT_COMPACT) != 0;
     StageBytes sb = stage_bytes(tables);
-    bool stage = !bin && !cpt && stage_total(sb) > 0;
+    bool stage = !bin && !cpt && stage_fit(sb.n, STAGE_TABLES) > 0;
     // the instantiation launched: bit 0 K3, bit 1 ALL, bit 2 MED, bit 6 BIN,
     // bit 7 CPT, bit 8 STAGE
     if (variant != nullptr) {

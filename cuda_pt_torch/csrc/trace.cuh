@@ -14,6 +14,7 @@
 #include "media.cuh"
 #include "nee.cuh"
 #include "pcg.cuh"
+#include "stage.cuh"
 #include "tex.cuh"
 #include "walk.cuh"
 
@@ -80,10 +81,6 @@ static Pack make_pack_view(const void* const* t, int max_leaf, int tri_only, int
 #ifndef MK_SEG
 #include "persist.cuh"
 
-#ifndef MK_STAGE_BYTES
-#error "build with cuda_pt_torch/ops/cuda_build.py, which passes MK_STAGE_BYTES"
-#endif
-
 // The warp takes new paths once fewer than K2_REFILL_BELOW of its lanes
 // still hold one: 32, after every bounce that ended a path (probe calls
 // on an H100, tools/refill_probe.py: cornell 0.866 ms per spp at 32 against
@@ -92,16 +89,12 @@ static Pack make_pack_view(const void* const* t, int max_leaf, int tri_only, int
 #define K2_REFILL_BELOW 32
 #endif
 
-// The tables a STAGE build copies into shared memory, in order: nodes,
-// prims, attrs, brows, erow, eprims (the walks' and the shading's rows),
-// and their bytes (ops/megakernel._tables appends them after the table
-// pointers). A w8 pack with f32 tables stages where they take at most
-// MK_STAGE_BYTES (cuda_build.MK_STAGE_BYTES: eight resident blocks keep
-// most of the SM's L1 for the spills) in rows of 16-byte multiples; the
-// binary walk reads through __ldg and the CPT builds' packs are larger
-// than 2 MiB, so those builds never stage. The host build (the shim of
-// tests/test_torch_kernel_host.py defines MK_HOST_BUILD) has no shared
-// memory or bulk copy and never stages.
+// The tables a STAGE build copies into shared memory (csrc/stage.cuh), in
+// order: nodes, prims, attrs, brows, erow, eprims (the walks' and the
+// shading's rows), and their bytes (ops/megakernel._tables appends them
+// after the table pointers). A w8 pack with f32 tables stages where they
+// fit (stage_fit); the binary walk reads through __ldg and the CPT builds'
+// packs are larger than 2 MiB, so those builds never stage.
 #define STAGE_TABLES 6
 struct StageBytes {
     unsigned n[STAGE_TABLES];
@@ -112,20 +105,6 @@ static StageBytes stage_bytes(const void* const* t) {
     StageBytes sb;
     for (int k = 0; k < STAGE_TABLES; ++k) sb.n[k] = (unsigned)(size_t)t[12 + k];
     return sb;
-}
-
-// the bytes to stage, or 0 where the tables do not fit
-static unsigned stage_total(const StageBytes& sb) {
-#ifdef MK_HOST_BUILD
-    return 0;
-#else
-    unsigned total = 0;
-    for (int k = 0; k < STAGE_TABLES; ++k) {
-        if (sb.n[k] % 16) return 0;
-        total += sb.n[k];
-    }
-    return total <= MK_STAGE_BYTES ? total : 0;
-#endif
 }
 
 // the work counter of this unit's trace kernels (csrc/persist.cuh)
@@ -148,36 +127,10 @@ __global__ void __launch_bounds__(128, MK_MIN_BLOCKS) trace_kernel(Pack pk, Dept
 #ifdef __CUDA_ARCH__
     if constexpr (STAGE) {
         extern __shared__ __align__(128) unsigned char mk_stage[];
-        __shared__ __align__(8) unsigned long long mk_bar;
-        uint32_t bar = (uint32_t)__cvta_generic_to_shared(&mk_bar);
-        uint32_t dst = (uint32_t)__cvta_generic_to_shared(mk_stage);
-        const float* src[STAGE_TABLES] = {pk.nodes, pk.prims, pk.attrs,
-                                          pk.brows, pk.erow, pk.eprims};
-        unsigned off[STAGE_TABLES + 1] = {0};
-#pragma unroll
-        for (int k = 0; k < STAGE_TABLES; ++k) off[k + 1] = off[k] + sb.n[k];
-        if (threadIdx.x == 0) {
-            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
-            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-            asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                         :: "r"(bar), "r"(off[STAGE_TABLES]) : "memory");
-#pragma unroll
-            for (int k = 0; k < STAGE_TABLES; ++k) {
-                if (sb.n[k] == 0) continue;
-                asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                             "[%0], [%1], %2, [%3];"
-                             :: "r"(dst + off[k]), "l"(src[k]), "r"(sb.n[k]), "r"(bar)
-                             : "memory");
-            }
-        }
-        __syncthreads();  // the barrier is initialised
-        uint32_t ready = 0;
-        while (!ready) {
-            asm volatile("{\n.reg .pred p;\n"
-                         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-                         "selp.u32 %0, 1, 0, p;\n}\n"
-                         : "=r"(ready) : "r"(bar) : "memory");
-        }
+        const float* const src[STAGE_TABLES] = {pk.nodes, pk.prims, pk.attrs,
+                                                pk.brows, pk.erow, pk.eprims};
+        unsigned off[STAGE_TABLES + 1];
+        stage_tables<STAGE_TABLES>(mk_stage, src, sb.n, off);
         pk.nodes = (const float*)(mk_stage + off[0]);
         pk.prims = (const float*)(mk_stage + off[1]);
         pk.attrs = (const float*)(mk_stage + off[2]);
@@ -280,13 +233,13 @@ static int launch_grid(const Pack& pk, const DepthCaps& md, int nee_m, const flo
     return 0;
 }
 
-// The STAGE build where the tables fit (stage_total), else the plain one.
+// The STAGE build where the tables fit (stage_fit), else the plain one.
 template <bool K3, bool ALL, bool MED, bool BIN = false, bool CPT = false>
 static int launch_trace(const Pack& pk, const DepthCaps& md, int nee_m, const float* ray_o,
                         const float* ray_d, const uint32_t* rng, float* out_L, int* stats, int B,
                         const MedArgs& ma, const StageBytes& sb, cudaStream_t stream) {
     if constexpr (!BIN && !CPT) {
-        unsigned smem = stage_total(sb);
+        unsigned smem = stage_fit(sb.n, STAGE_TABLES);
         if (smem > 0) {
             return launch_grid<K3, ALL, MED, BIN, CPT, true>(pk, md, nee_m, ray_o, ray_d, rng,
                                                              out_L, stats, B, ma, sb, smem,

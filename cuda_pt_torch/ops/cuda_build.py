@@ -49,10 +49,11 @@ _SIGNATURES = {
     "mk_closest_hit": [_P] * 7 + [_I] * 5 + [_P],
     "mk_closest_hit_sorted": [_P] * 8 + [_I] * 5 + [_P],
     "mk_trace_seg": [_P, _P, _I, _I, _I, _P, _P, _P] + [_I] * 17 + [_P, _P],
-    "mk_traverse": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
+    "mk_traverse_resolve": [_P, _P, _I, _P, _I, _I, _P, _P, _P] + [_I] * 6 + [_P],
     "k1_traverse": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_P] * 7,
     "s1_node_bench": [_P, _I, _I, _P, _P, _P, _I, _P],
     "s2_extract_ab": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    "s2_cluster_size": [_I, _I],
     "s3_lanegather": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
     "s4_mxuleaf": [_I, _P, _I, _P, _P, _P, _I, _P, _P],
     "s4_mxuleaf_scratch": [_I],

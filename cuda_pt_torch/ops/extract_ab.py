@@ -20,7 +20,10 @@ hits. Tags (the reference's, plus v1, which its main() does not time):
                    2 or 4 pointers per iteration, starting at 7 k and
                    sharing acc, stepped in k order
 Timed at N and N / 2 steps, (t(N) - t(N / 2)) / (N - N / 2) is the cost of
-one step of the launch (c_node).
+one step of the launch (c_node). On the card a tile is one block, or, where
+the tiles times the cluster size fit the SMs, one thread-block cluster of
+up to 8 blocks (``cluster_size``; the reference's one tile spreads over
+8); the output is the same either way.
 
 On CUDA tensors ``extract_ab`` launches the kernel (csrc/extract_ab.cu) or
 raises; on CPU tensors it runs the plain version, and only there. Each
@@ -30,8 +33,9 @@ dict, ops/traverse_kernel.LAUNCHES).
     python -m cuda_pt_torch.ops.extract_ab [--device cpu] [--scene cornell]
         [--tiles 128] [--iters N]
 
-prints the reference's rows (c_node_ns, checksum, match_v0 per tag) on the
-reference's equal rays (ops/node_bench.REF_O, REF_D) over kitchen_stress's
+prints the reference's rows (c_node_ns, checksum, match_v0 per tag, and
+the cluster size the launches took) on the reference's equal rays
+(ops/node_bench.REF_O, REF_D) over kitchen_stress's
 and cornell's rows (the reference read bunny.xml, which the repository does
 not hold); the times are the card's (CUDA events), None on the CPU.
 """
@@ -175,6 +179,15 @@ def extract_ab(tag: str, nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor, 
     return out
 
 
+def cluster_size(tiles: int, tile: int = TILE) -> int:
+    """The blocks of the thread-block cluster that walks one tile in a
+    launch of tiles tiles on the current card (1: a block per tile)."""
+    size = cuda_build.load().s2_cluster_size(int(tiles), int(tile))
+    if size < 1:
+        raise RuntimeError("s2_cluster_size: the card's SM count could not be read")
+    return size
+
+
 def checksum(out: torch.Tensor) -> float:
     """The reference's checksum, the sum of |out|, taken in f64: a walk that
     runs into the rows' padding slots counts their inverted boxes (the slab
@@ -214,6 +227,7 @@ def main(argv=None, nodes: dict | None = None) -> list:
     emit({"event": "device", "device": args.device, "card": timing.card(dev),
           "tiles": args.tiles, "lanes": args.tiles * TILE, "iters": args.iters})
     o, d = nb.reference_rays(args.tiles * TILE, dev)
+    cluster = cluster_size(args.tiles) if dev.type == "cuda" else None
     given = nodes or {}
     for name in args.scene or list(given) or ["kitchen", "cornell"]:
         rows_ = given[name] if name in given else scene_nodes(name, dev)
@@ -228,7 +242,7 @@ def main(argv=None, nodes: dict | None = None) -> list:
                                        args.reps)
                 per = (t_n - t_h) / (args.iters - args.iters // 2) * 1e6
             row = {"scene": name, "tile": TILE, "variant": tag, "c_node_ns": per,
-                   "checksum": chk, "ms": t_n, "half_ms": t_h}
+                   "checksum": chk, "ms": t_n, "half_ms": t_h, "cluster": cluster}
             if TAGS[tag][1] == 1:
                 if tag == "v0":
                     base_sum = chk

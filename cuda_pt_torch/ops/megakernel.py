@@ -48,9 +48,11 @@ Kernels:
   version ``seg_step_reference``: one ``seg`` bounce of the path tracer
   (models/path_tracer.py) or of the volume path tracer
   (models/volume_pt.py) on the pack's kernel scene.
-- ``traverse_closest`` (K6, csrc/megakernel_split.cu): the closest walk
-  of the live lanes of the state planes -> (t, gid, u, v) planes. Plain
-  version: closest_hit_plain on the live lanes.
+- ``traverse_resolve`` (K6, csrc/megakernel_split.cu): the closest walk
+  of the live lanes of the state planes and its hit resolve -> the SHADE
+  form's hit planes (and, on request, the walk's (t, gid, u, v) planes).
+  Plain version: resolve_hit of traverse_plain (closest_hit_plain on the
+  live lanes).
 
 ``trace_megakernel_swf`` is the sorted-wavefront driver (K5 per bounce,
 with the lanes re-sorted between bounces; for a grid pack its split form
@@ -132,7 +134,7 @@ FMT_BIN, FMT_NODE_BF16, FMT_PRIM_T9, FMT_ATTR_BF16 = 1, 2, 4, 8
 # this module imports that one, not the other way round)
 LAUNCHES = tk.LAUNCHES
 LAUNCHES.update({"trace_megakernel": 0, "closest_hit_w8": 0, "closest_hit_sorted": 0,
-                 "trace_megakernel_seg": 0, "traverse_closest": 0})
+                 "trace_megakernel_seg": 0, "traverse_resolve": 0})
 INSTANTIATION_LAUNCHES = {}
 
 
@@ -689,8 +691,10 @@ K3_KEYS = ("uvs", "texels", "tinfo", "tdiff", "envrow")
 MED_KEYS = ("mrow",)
 SWF_KEYS = ("tlbox", "g_hit")
 # the tables the whole-path kernel's STAGE builds copy into shared memory
-# (csrc/trace.cuh), in its order
+# (csrc/trace.cuh), in its order; K6's (csrc/megakernel_split.cu): the walk
+# tables and g_hit, all three or none
 STAGE_KEYS = ("nodes", "prims", "attrs", "brows", "erow", "eprims")
+K6_STAGE_KEYS = ("nodes", "prims", "g_hit")
 
 
 def make_pack(scene: T.Scene, node_fmt: str | None = None, attr_fmt: str | None = None,
@@ -837,14 +841,27 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _fits(pack: MKPack, keys) -> bool:
+    """csrc/stage.cuh's rule: each table a multiple of 16 bytes, together at
+    most cuda_build.MK_STAGE_BYTES."""
+    sizes = [_nbytes(pack[k]) for k in keys]
+    return all(n % 16 == 0 for n in sizes) and sum(sizes) <= cuda_build.MK_STAGE_BYTES
+
+
 def stages(pack: MKPack) -> bool:
     """Whether the whole-path kernel runs its STAGE build on the pack (the
     rule of csrc/trace.cuh): w8 nodes with f32 prims and attrs whose
-    STAGE_KEYS tables, each a multiple of 16 bytes, take at most
-    cuda_build.MK_STAGE_BYTES."""
-    sizes = [_nbytes(pack[k]) for k in STAGE_KEYS]
+    STAGE_KEYS tables fit (_fits)."""
     return (pack.node_fmt, pack.prim_fmt, pack.attr_fmt) == ("w8", "f32", "f32") \
-        and all(n % 16 == 0 for n in sizes) and sum(sizes) <= cuda_build.MK_STAGE_BYTES
+        and _fits(pack, STAGE_KEYS)
+
+
+def k6_stages(pack: MKPack) -> bool:
+    """Whether the traverse kernel runs its STAGE build on the pack
+    (csrc/megakernel_split.cu k6_stage): w8 nodes with f32 prims and attrs
+    whose K6_STAGE_KEYS tables fit together (_fits)."""
+    return (pack.node_fmt, pack.prim_fmt, pack.attr_fmt) == ("w8", "f32", "f32") \
+        and _fits(pack, K6_STAGE_KEYS)
 
 
 def _check_rays(pack: MKPack, *tensors):
@@ -1208,28 +1225,49 @@ def traverse_plain(pack: MKPack, st: torch.Tensor, n: int, stats=None) -> torch.
                         torch.where(ok, h["b1"], 0.0), torch.where(ok, h["b2"], 0.0)])
 
 
-def traverse_closest(pack: MKPack, st: torch.Tensor, n: int,
+def hit_planes(pack: MKPack) -> int:
+    """The number of hit planes resolve_hit stacks for the pack."""
+    return 11 + (0 if pack.tri_only else 1) + (2 if pack.textured else 0) \
+        + (2 if pack.has_media else 0)
+
+
+def traverse_resolve(pack: MKPack, st: torch.Tensor, n: int, trav: torch.Tensor | None = None,
                      stats: torch.Tensor | None = None) -> torch.Tensor:
     """The closest hit of the live lanes among the first n of the state
-    planes -> (4, n) float32 planes t, gid, u, v (kernel K6). CPU tensors
-    run traverse_plain; CUDA tensors launch the kernel."""
+    planes, resolved from the pack's g_hit -> the SHADE form's hit planes
+    (hit_planes(pack), n) float32, as resolve_hit lays them out (kernel K6).
+    trav ((4, n) float32): the walk's (t, gid, u, v) planes are written
+    there too (gid -1, t inf, u = v = 0 on a miss or a dead lane). stats
+    (CUDA only; (B, 2) int32) accumulates the walk work per lane. CPU
+    tensors run the plain version, resolve_hit of traverse_plain; CUDA
+    tensors launch the kernel."""
+    if "g_hit" not in pack.arrays:
+        raise ValueError("split traversal needs a w8 pack (g_hit matrix)")
     if st.device.type == "cpu":
-        return traverse_plain(pack, st, n)
-    _check_state(pack, st, n)
-    out = torch.empty((4, n), dtype=torch.float32, device=st.device)
-    rc = cuda_build.load().mk_traverse(
-        _tables(pack), st.data_ptr(), st.shape[1], n, out.data_ptr(),
-        stats.data_ptr() if stats is not None else None, *walk_args(pack),
-        torch.cuda.current_stream(st.device).cuda_stream)
+        walk = traverse_plain(pack, st, n)
+        if trav is not None:
+            trav.copy_(walk)
+        return resolve_hit(pack, walk)
+    _check_state(pack, st, n, trav)
+    if trav is not None and trav.shape[0] != 4:
+        raise ValueError("trav must be (4, n) float32")
+    out = torch.empty((hit_planes(pack), n), dtype=torch.float32, device=st.device)
+    ghit = pack["g_hit"]
+    rc = cuda_build.load().mk_traverse_resolve(
+        _tables(pack), ghit.data_ptr(), _nbytes(ghit), st.data_ptr(), st.shape[1], n,
+        out.data_ptr(), trav.data_ptr() if trav is not None else None,
+        stats.data_ptr() if stats is not None else None, *walk_args(pack), int(pack.textured),
+        int(pack.has_media), torch.cuda.current_stream(st.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"mk_traverse launch failed: cudaError {rc}")
-    LAUNCHES["traverse_closest"] += 1
+        raise RuntimeError(f"mk_traverse_resolve launch failed: cudaError {rc}")
+    LAUNCHES["traverse_resolve"] += 1
     return out
 
 
 def resolve_hit(pack: MKPack, trav: torch.Tensor) -> torch.Tensor:
-    """K6's (t, gid, u, v) -> the SHADE kernel's hit planes by one row
-    gather from the pack's g_hit (the reference's resolve_hit, :3404): t,
+    """(t, gid, u, v) planes -> the SHADE kernel's hit planes by one row
+    gather from the pack's g_hit (the reference's resolve_hit, :3404; on
+    the card K6 does it in the kernel, traverse_resolve): t,
     hit, interpolated ns(3), raw ng(3) (a sphere's centre for both), eid,
     inv_area, [sphere flag], bid, [uv(2)], [medium_in, is_null]."""
     t, gidf, u, v = trav[0], trav[1], trav[2], trav[3]
@@ -1454,10 +1492,10 @@ def trace_megakernel_swf(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng
     launch on the live prefix the sort leaves (dead lanes sort last;
     unsorted, every lane), then swf_resolve; until no lane is live or
     max_depth is reached; then swf_result. A grid pack takes the split
-    form (as the reference forces it, :3332): each bounce first walks with
-    K6, resolves the hit by a row gather (resolve_hit) and delta-tracks the
-    flight through the grid (grid_flight); the shade form of the segment
-    kernel takes both.
+    form (as the reference forces it, :3332): each bounce first walks and
+    resolves the hit with K6 (traverse_resolve; the reference's walk and
+    row gather, resolve_hit) and delta-tracks the flight through the grid
+    (grid_flight); the shade form of the segment kernel takes both.
 
     plain (default: CPU tensors) runs the plain versions of K5 and K6 on
     any device."""
@@ -1478,7 +1516,6 @@ def trace_megakernel_swf(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng
         _check_rays(pack, o.contiguous())
     tlbox = pack["tlbox"] if key_mode.startswith("tl") else None
     step = seg_step_reference if plain else trace_megakernel_seg
-    walk = traverse_plain if plain else traverse_closest
     st = seg_init(pack, o, d, rng)
     pix = torch.arange(o.shape[0], device=o.device)
     for bounce in range(md.max_depth):
@@ -1487,7 +1524,8 @@ def trace_megakernel_swf(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng
             break
         hit = flight = None
         if pack.has_grid:
-            hit = resolve_hit(pack, walk(pack, st, n))
+            hit = resolve_hit(pack, traverse_plain(pack, st, n)) if plain \
+                else traverse_resolve(pack, st, n)
             flight = grid_flight(pack, st, n, hit[0]).contiguous()
         step(pack, md, st, n, bounce, nee_candidates, hit, flight)
         swf_resolve(pack, st, n)

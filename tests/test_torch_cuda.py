@@ -292,7 +292,7 @@ def test_k5_matches_plain(cuda, kind):
     Lk = t_mk.trace_megakernel_swf(pack, md, o, d, rng, key_mode="pos_dir")
     torch.cuda.synchronize()
     assert set(t_mk.INSTANTIATION_LAUNCHES) == {name}
-    assert (t_mk.LAUNCHES["traverse_closest"] > 0) == pack.has_grid
+    assert (t_mk.LAUNCHES["traverse_resolve"] > 0) == pack.has_grid
     assert t_mk.LAUNCHES["trace_megakernel"] == 0
     Lp = t_mk.trace_megakernel_swf_reference(pack, md, o, d, rng, key_mode="pos_dir")
     assert torch.isfinite(Lk).all() and float(Lp.mean()) > 0.01
@@ -322,19 +322,69 @@ def test_k6_matches_plain_walk(cuda):
     rays with every fifth lane dead (no hit there)."""
     scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=16, nt=12, device=cuda)
     pack = t_mk.make_pack(scene, node_fmt="w8")
-    rs = np.random.default_rng(6)
-    n = 16384
-    lo, hi = scene.bvh.node_min[0].cpu().numpy(), scene.bvh.node_max[0].cpu().numpy()
-    o = torch.as_tensor(rs.uniform(lo, hi, (n, 3)).astype(np.float32), device=cuda)
-    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32),
-                                                      device=cuda), dim=1)
-    st = t_mk.seg_init(pack, o, d, torch.zeros((n, 2), dtype=torch.int64, device=cuda))
-    st.view(torch.float32)[t_mk.S_ACT, ::5] = 0.0
+    st, n = _k6_state(pack, scene, 16384, 6, cuda)
     t_mk.reset_launches()
-    out = t_mk.traverse_closest(pack, st, n)
-    assert t_mk.LAUNCHES["traverse_closest"] == 1
+    out = torch.empty((4, n), device=cuda)
+    t_mk.traverse_resolve(pack, st, n, out)
+    assert t_mk.LAUNCHES["traverse_resolve"] == 1
     ref = t_mk.traverse_plain(pack, st, n)
     assert torch.equal(out[1], ref[1]) and bool((out[1, ::5] == -1).all())
+
+
+def _k6_state(pack, scene, n: int, seed: int, dev):
+    """State planes of n random rays from inside the scene's bounds, every
+    fifth lane dead -> (planes, n)."""
+    rs = np.random.default_rng(seed)
+    lo, hi = scene.bvh.node_min[0].cpu().numpy(), scene.bvh.node_max[0].cpu().numpy()
+    o = torch.as_tensor(rs.uniform(lo, hi, (n, 3)).astype(np.float32), device=dev)
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32),
+                                                      device=dev), dim=1)
+    st = t_mk.seg_init(pack, o, d, torch.zeros((n, 2), dtype=torch.int64, device=dev))
+    st.view(torch.float32)[t_mk.S_ACT, ::5] = 0.0
+    return st, n
+
+
+K6_SCENES = {
+    # name: (scene, vpt pack, whether the kernel stages the tables)
+    "grid_smoke": (lambda dev: t_ts.grid_smoke(16, 16, n=16, device=dev), True, True),
+    "furnace": (lambda dev: t_ts.furnace(16, 16, device=dev), False, True),
+    "kitchen_small": (lambda dev: t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4, device=dev),
+                      False, False),
+}
+
+
+@pytest.mark.parametrize("kind", list(K6_SCENES))
+def test_k6_resolve_matches_resolve_hit(cuda, kind, monkeypatch):
+    """K6 with the hit resolve in the kernel: its hit planes bit-equal to
+    resolve_hit of its own (t, gid, u, v) output and to the same launch
+    with the tables left in device memory (the table sizes withheld);
+    prim ids equal to the plain walk's; the planes within the per-lane
+    contract of resolve_hit(traverse_plain); the tables staged where
+    k6_stages says."""
+    make, vpt, staged = K6_SCENES[kind]
+    scene = make(cuda)[0]
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=vpt)
+    assert t_mk.k6_stages(pack) == staged
+    st, n = _k6_state(pack, scene, 20000, 41, cuda)
+    trav = torch.empty((4, n), device=cuda)
+    hit = t_mk.traverse_resolve(pack, st, n, trav)
+    torch.cuda.synchronize()
+    assert torch.equal(hit.view(torch.int32), t_mk.resolve_hit(pack, trav).view(torch.int32))
+    ref = t_mk.traverse_plain(pack, st, n)
+    assert torch.equal(trav[1], ref[1]) and bool((trav[1, ::5] == -1).all())
+    assert _lanes_differing(hit.T, t_mk.resolve_hit(pack, ref).T) <= 0.02
+    real = t_mk._tables
+
+    def unsized(p):
+        t = real(p)
+        for k in range(len(t) - len(t_mk.STAGE_KEYS), len(t)):
+            t[k] = 0
+        return t
+
+    monkeypatch.setattr(t_mk, "_tables", unsized)
+    again = t_mk.traverse_resolve(pack, st, n)
+    torch.cuda.synchronize()
+    assert torch.equal(again.view(torch.int32), hit.view(torch.int32))
 
 
 def test_renderer_routes_as_the_reference(cuda):
@@ -353,7 +403,7 @@ def test_renderer_routes_as_the_reference(cuda):
     r = Renderer(parsed, renderer=RendererType.VOLUME_PT)
     t_mk.reset_launches()
     img_k = r.render(2)
-    assert r.info()["driver"] == "swf_split" and t_mk.LAUNCHES["traverse_closest"] > 0
+    assert r.info()["driver"] == "swf_split" and t_mk.LAUNCHES["traverse_resolve"] > 0
     img_p = Renderer(parsed, renderer=RendererType.VOLUME_PT, device="cpu").render(2)
     assert np.isfinite(img_k).all() and img_k.mean() > 0.01
     assert np.isclose(img_k, img_p, rtol=1e-4, atol=1e-5).mean() > 0.98
@@ -606,6 +656,32 @@ def test_extract_ab_bit_equal(cuda):
     o, d = cases[256]
     s1 = t_nb.node_bench(nodes, o[:256], d[:256], 200)
     assert torch.equal(outs["v0", 256][:256], s1) and float(s1[0]) != 0.0
+
+
+def test_extract_ab_cluster_and_block_forms(cuda):
+    """Kernel S2 on 8,192-lane tiles in each form the launch can take: a
+    cluster of 8, 4 or 2 blocks per tile where the tiles times the size fit
+    the SMs, else one block per tile (8 lanes per thread): every form's
+    output bit-equal to the plain version, tags v0, v1, e3, w2 and
+    v0_ilp2, 64 steps."""
+    from cuda_pt_torch.ops import extract_ab as t_ab
+
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    nodes = torch.as_tensor(t_tk.pack_nodes(scene.bvh), device=cuda)
+    lo, hi = scene.bvh.node_min[0].numpy() - 1.0, scene.bvh.node_max[0].numpy() + 1.0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sizes = {}
+    for tiles in (2, sms // 4, sms // 2 + 1):
+        want = next((c for c in (8, 4, 2) if tiles * c <= sms), 1)
+        sizes[tiles] = t_ab.cluster_size(tiles)
+        assert sizes[tiles] == want, (tiles, sizes[tiles], want)
+        o, d = _s2_rays(64, tiles * t_ab.TILE - 64, lo, hi, tiles, cuda)
+        for tag in ("v0", "v1", "e3", "w2", "v0_ilp2"):
+            out = t_ab.extract_ab(tag, nodes, o, d, 64)
+            ref = t_ab.extract_ab_reference(tag, nodes, o, d, 64)
+            torch.cuda.synchronize()
+            assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), (tag, tiles)
+    assert set(sizes.values()) >= {8, 1}
 
 
 def test_lanegather_bit_equal(cuda):

@@ -317,8 +317,8 @@ def test_sorted_walk_wrapper_runs_plain_on_cpu():
 
 def _host_driver(monkeypatch, lib, launched: set):
     """Point trace_megakernel_swf's kernel route at the host library: its
-    segment and traverse steps call mk_trace_seg and mk_traverse on CPU
-    tensors, recording the instantiations launched."""
+    segment and traverse steps call mk_trace_seg and mk_traverse_resolve on
+    CPU tensors, recording the instantiations launched."""
 
     def seg(pack, md, st, n, bounce, nee_m=1, hit=None, flight=None, stats=None):
         variant = ctypes.c_int(-1)
@@ -332,16 +332,13 @@ def _host_driver(monkeypatch, lib, launched: set):
         assert rc == 0
         launched.add(t_mk.instantiation_name(variant.value))
 
-    def walk(pack, st, n, stats=None):
-        out = torch.empty((4, n))
-        rc = lib.mk_traverse(t_mk._tables(pack), st.data_ptr(), st.shape[1], n, out.data_ptr(),
-                             None, *t_mk.walk_args(pack), None)
-        assert rc == 0
+    def walk(pack, st, n, trav=None, stats=None):
+        out = _host_traverse_resolve(lib, pack, st, n, trav)
         launched.add("K6")
         return out
 
     monkeypatch.setattr(t_mk, "trace_megakernel_seg", seg)
-    monkeypatch.setattr(t_mk, "traverse_closest", walk)
+    monkeypatch.setattr(t_mk, "traverse_resolve", walk)
     monkeypatch.setattr(t_mk, "_check_rays", lambda *a: None)
 
 
@@ -396,28 +393,87 @@ def test_host_segment_kernel_matches_plain(host_lib, monkeypatch, kind):
     assert abs(float(Lk.mean()) - float(Lp.mean())) < 5e-3
 
 
-def test_host_traverse_matches_plain(host_lib):
-    """mk_traverse (K6) against traverse_plain on kitchen: prim ids equal, a
-    dead lane reports no hit."""
-    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
-    pack = t_mk.make_pack(scene, node_fmt="w8")
-    rs = np.random.default_rng(5)
-    n = 2048
+def _host_traverse_resolve(lib, pack, st, n, trav=None):
+    """mk_traverse_resolve (K6) of the host library on CPU tensors -> the
+    hit planes; trav ((4, n)): the walk's (t, gid, u, v) planes too."""
+    hit = torch.empty((t_mk.hit_planes(pack), n))
+    ghit = pack["g_hit"]
+    rc = lib.mk_traverse_resolve(t_mk._tables(pack), ghit.data_ptr(), t_mk._nbytes(ghit),
+                                 st.data_ptr(), st.shape[1], n, hit.data_ptr(),
+                                 trav.data_ptr() if trav is not None else None, None,
+                                 *t_mk.walk_args(pack), int(pack.textured), int(pack.has_media),
+                                 None)
+    assert rc == 0
+    return hit
+
+
+def _k6_state(pack, scene, n: int, seed: int):
+    """State planes of n random rays from inside the scene's bounds, every
+    fifth lane dead."""
+    rs = np.random.default_rng(seed)
     lo, hi = scene.bvh.node_min[0].numpy(), scene.bvh.node_max[0].numpy()
     o = torch.as_tensor(rs.uniform(lo, hi, (n, 3)).astype(np.float32))
     d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32)),
                                       dim=1)
     st = t_mk.seg_init(pack, o, d, torch.zeros((n, 2), dtype=torch.int64))
     st.view(torch.float32)[t_mk.S_ACT, ::5] = 0.0
+    return st
+
+
+def test_host_traverse_matches_plain(host_lib):
+    """mk_traverse_resolve's (t, gid, u, v) output (K6) against
+    traverse_plain on kitchen: prim ids equal, a dead lane reports no
+    hit."""
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    pack = t_mk.make_pack(scene, node_fmt="w8")
+    n = 2048
+    st = _k6_state(pack, scene, n, 5)
     out = torch.empty((4, n))
-    rc = host_lib.mk_traverse(t_mk._tables(pack), st.data_ptr(), n, n, out.data_ptr(), None,
-                              *t_mk.walk_args(pack), None)
-    assert rc == 0
+    _host_traverse_resolve(host_lib, pack, st, n, out)
     ref = t_mk.traverse_plain(pack, st, n)
     np.testing.assert_array_equal(out[1].numpy(), ref[1].numpy())
     assert (out[1, ::5] == -1).all() and (out[1] >= 0).float().mean() > 0.2
     hit = ref[1] >= 0
     np.testing.assert_allclose(out[0][hit].numpy(), ref[0][hit].numpy(), rtol=1e-6)
+
+
+K6_SCENES = {
+    # name: (scene, vpt pack, the optional hit planes it carries)
+    "grid_smoke": (lambda: t_ts.grid_smoke(16, 16, n=16), True, "medium"),
+    "kitchen_small": (lambda: t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4), False, "uv"),
+    "furnace": (lambda: t_ts.furnace(8, 8), False, "sphere"),
+}
+
+
+@pytest.mark.parametrize("kind", list(K6_SCENES))
+def test_host_traverse_resolve_matches_resolve_hit(host_lib, kind):
+    """K6 with the hit resolve in the kernel: its hit planes bit-equal to
+    resolve_hit of the same launch's (t, gid, u, v) output, on hits, misses
+    and dead lanes; prim ids equal to traverse_plain's, t within rtol
+    1e-6. grid_smoke carries the medium planes, small kitchen the uv
+    planes, furnace's sphere the sphere flag and the centre normal."""
+    make, vpt, extra = K6_SCENES[kind]
+    scene = make()[0]
+    pack = t_mk.make_pack(scene, node_fmt="w8", vpt=vpt)
+    assert (pack.has_media, pack.textured, not pack.tri_only) == (
+        extra == "medium", extra == "uv", extra == "sphere")
+    n = 1024
+    st = _k6_state(pack, scene, n, 23)
+    trav = torch.empty((4, n))
+    hit = _host_traverse_resolve(host_lib, pack, st, n, trav)
+    want = t_mk.resolve_hit(pack, trav)
+    assert hit.shape == want.shape == (t_mk.hit_planes(pack), n)
+    assert torch.equal(hit.view(torch.int32), want.view(torch.int32))
+    ref = t_mk.traverse_plain(pack, st, n)
+    assert torch.equal(trav[1], ref[1])
+    found = ref[1] >= 0
+    np.testing.assert_allclose(trav[0][found].numpy(), ref[0][found].numpy(), rtol=1e-6)
+    assert (trav[1, ::5] == -1).all() and 0.1 < float(found.float().mean()) < 0.79
+    if extra == "sphere":
+        sph = t_mk.hit_planes(pack) - 2  # the sphere flag, then bid
+        assert bool((hit[sph][found] > 0.5).any())
+    plain = t_mk.traverse_resolve(pack, st, n)  # CPU tensors: the plain version
+    assert torch.equal(plain.view(torch.int32), t_mk.resolve_hit(pack, ref).view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
