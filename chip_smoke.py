@@ -149,7 +149,8 @@ Phases (any failure exits non-zero):
      reference's) and on a block of random rays bit-equal to the plain
      version; c_node from its time at S1_ITERS and S1_ITERS / 2 steps, and
      S1's model share (node fetches x c_node over the measured time) of
-     phase 11's two kernels;
+     phase 11's two kernels; with --parent bit-equal to the parent's
+     kernel on both sets of rays, its time and c_node in turns with it;
   13. kernel S2 (csrc/extract_ab.cu) on kitchen_stress's binary f32 rows:
      every tag bit-equal to its plain version on a tile of the reference's
      equal rays and a tile of random rays (8,192 lanes each, S2_HOLD_ITERS
@@ -163,9 +164,13 @@ Phases (any failure exits non-zero):
      and over CARD_LANES lanes on kitchen's; c_node per tag and its bound;
   14. kernel S3 (csrc/lanegather.cu): every tag bit-equal to its plain
      version at (64, 128) x 512 and (8192, 128) x 16, the check gather equal
-     to torch.take_along_dim; the entry (lanegather.main, launches counted)
-     at (64, 128) and (8192, 128); per tag ns per iteration, per gather and
-     per select; the gather against torch.take_along_dim;
+     to torch.take_along_dim; the gather warm and cold (L2 flushed before
+     each launch) and an empty kernel on its grid (the launch floor) at
+     both sizes; with --parent every tag and the gather bit-equal to the
+     parent's kernel and the gather warm and cold in turns with it; the
+     entry (lanegather.main, launches counted) at (64, 128) and (8192,
+     128); per tag ns per iteration, per gather and per select; the
+     gather against torch.take_along_dim;
   15. kernel S4 (csrc/mxuleaf.cu): scalar bit-equal to its plain version,
      mxu (3xTF32 wgmma) within the script's parity contract (>= 0.999
      agree and hit mask) against the plain product and against scalar, the
@@ -183,8 +188,8 @@ at VPT_SPP and GRID_SPP samples per pixel and hold BLOCK lanes.
 of each scene, of kitchen_stress and medium_cbox through the whole-path
 kernel too, and of the wavefront main path. ``--parent TREE`` (a git
 archive of the parent commit unpacked under the git-ignored build/) holds
-the parent's K2-K4, K1, K6 (its walk and resolve_hit) and S2 to this
-tree's bit for bit and times them in turns (phases 3, 5-11, 13), and
+the parent's K2-K4, K1, K6 (its walk and resolve_hit), S1, S2 and S3 to
+this tree's bit for bit and times them in turns (phases 3, 5-14), and
 times the parent's K5 and S4 mxu against this tree's in phases 6, 7 and
 15.
 """
@@ -490,13 +495,16 @@ def parent_k6(mk, pack, st, n, trav=None, stats=None):
 @contextlib.contextmanager
 def parent_split(mk):
     """The parent tree's library while the block runs, and the split
-    driver's K6 step its form (parent_k6)."""
+    driver's K6 step its form: this tree's where the parent's library
+    exports mk_traverse_resolve (the walk and the resolve in the kernel),
+    else parent_k6."""
     from cuda_pt_torch.ops import cuda_build as cb
 
     real = mk.traverse_resolve
-    mk.traverse_resolve = lambda pack, st, n, trav=None, stats=None: parent_k6(
-        mk, pack, st, n, trav, stats)
     prev = cb.use_library(parent_lib())
+    if not hasattr(cb.load(), "mk_traverse_resolve"):
+        mk.traverse_resolve = lambda pack, st, n, trav=None, stats=None: parent_k6(
+            mk, pack, st, n, trav, stats)
     try:
         yield
     finally:
@@ -2083,6 +2091,20 @@ def phase_s1(mk, nb, tk, dev, scenes: dict) -> dict:
         err = float(torch.where(out == ref, 0.0, (out - ref).abs()).max())
         if differ or differ_r:
             raise SystemExit(f"S1 {label}: {differ} + {differ_r} rays differ from the plain version")
+        parent = {}
+        if parent_lib() is not None:
+            p_out = with_parent(lambda: nb.node_bench(nodes, o, d, S1_ITERS))
+            p_out_r = with_parent(lambda: nb.node_bench(nodes, o_r, d_r, S1_ITERS))
+            parent["rays_differ"] = bit_differ(out, p_out) + bit_differ(out_r, p_out_r)
+            log(f"[12] S1 {label}: rays whose output differs from the parent's kernel bit for "
+                f"bit: {parent['rays_differ']}")
+            if parent["rays_differ"]:
+                raise SystemExit(f"S1 {label}: rays differ from the parent's kernel")
+            parent["ms"] = in_turns(lambda: events_ms(
+                lambda: nb.node_bench(nodes, o, d, S1_ITERS), 5), "12",
+                f"S1 {label}, {S1_RAYS} rays x {S1_ITERS} steps")
+            parent["c_node_us"] = in_turns(lambda: s1_c_node(nb, nodes, o, d), "12",
+                                           f"S1 {label}, c_node", "us per step")
         t_n = events_ms(lambda: nb.node_bench(nodes, o, d, S1_ITERS), 5)
         t_h = events_ms(lambda: nb.node_bench(nodes, o, d, S1_ITERS // 2), 5)
         step_ms = (t_n - t_h) / (S1_ITERS - S1_ITERS // 2)
@@ -2092,7 +2114,7 @@ def phase_s1(mk, nb, tk, dev, scenes: dict) -> dict:
         res[label] = {"rows": nodes.shape[0], "ms": t_n, "half_ms": t_h, "plain_ms": plain_ms,
                       "c_node_step_ms": step_ms, "c_node_ns_per_fetch": fetch_ns,
                       "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-                      "rays": S1_RAYS, "iters": S1_ITERS}
+                      "rays": S1_RAYS, "iters": S1_ITERS, "parent": parent}
         log(f"[12] S1 {label} ({nodes.shape[0]} f32 node rows), {S1_RAYS} rays x {S1_ITERS} "
             f"steps: bit-equal to the plain version (and on {BLOCK} random rays); {t_n:.4f} ms "
             f"({S1_ITERS // 2} steps: {t_h:.4f} ms): c_node {step_ms * 1e3:.4f} us per step of "
@@ -2100,6 +2122,14 @@ def phase_s1(mk, nb, tk, dev, scenes: dict) -> dict:
             f"({bound_by}), {bound_ms / t_n:.4f} of bound; plain {plain_ms:.1f} ms")
     res["launches"] = nb.LAUNCHES["node_bench"]
     return res
+
+
+def s1_c_node(nb, nodes, o, d) -> float:
+    """S1's c_node in us per step of the launch: its time at S1_ITERS steps
+    less its time at half of them, per step (events_ms, 5 launches each)."""
+    t_n = events_ms(lambda: nb.node_bench(nodes, o, d, S1_ITERS), 5)
+    t_h = events_ms(lambda: nb.node_bench(nodes, o, d, S1_ITERS // 2), 5)
+    return (t_n - t_h) / (S1_ITERS - S1_ITERS // 2) * 1e3
 
 
 def model_share(row: dict, c_fetch_ns: float, label: str) -> float:
@@ -2259,23 +2289,31 @@ def s2_c_node(ab, tag: str, nodes, o, d) -> float:
 def phase_s3(mk, lg, dev) -> dict:
     """Kernel S3 (csrc/lanegather.cu): every tag bit-equal to its plain
     version at the reference's (64, 128) x REPS and at (8192, 128) x 16; the
-    check gather equal to torch.take_along_dim; then the entry (lg.main) at
-    64 rows, launches counted, and at CARD_LANES / 128 rows; the gather's
-    time, its plain version's and torch.take_along_dim's at both sizes (each
-    launch timed alone, after a device sleep)."""
-    from cuda_pt_torch.utils.timing import events_ms as launch_ms
+    check gather equal to torch.take_along_dim; with --parent every tag and
+    the gather bit-equal to the parent's kernel, and the gather timed in
+    turns with it, warm and cold; then the entry (lg.main) at 64 rows,
+    launches counted, and at CARD_LANES / 128 rows; at both sizes the
+    gather's time warm (its inputs left in L2 by the last launch) and cold
+    (L2 flushed before each launch), an empty kernel on its grid (the
+    launch floor), its plain version's and torch.take_along_dim's time
+    (each launch timed alone, after a device sleep)."""
+    from cuda_pt_torch.utils import timing
 
+    flush = timing.flush_buffer(dev)
     res, err = {}, 0.0
     for label, rows, reps in (("reference", lg.ROWS, lg.REPS),
                               ("card_scale", CARD_LANES // lg.ROW, 16)):
         x, row, idx = lg.make_inputs(0, rows, dev)
-        plain = {}
+        plain, parent_differ = {}, 0
         for tag in lg.TAGS:
             out = lg.lanegather(tag, x, row, idx, reps)
             ref, plain[tag] = host_ms(lambda: lg.lanegather_reference(tag, x, row, idx, reps))
             if bit_differ(out, ref):
                 raise SystemExit(f"S3 {tag}, {rows} rows: {bit_differ(out, ref)} lanes differ "
                                  "from the plain version")
+            if parent_lib() is not None:
+                parent_differ += bit_differ(out, with_parent(
+                    lambda: lg.lanegather(tag, x, row, idx, reps)))
         g = lg.gather(row, idx)
         idx64 = idx.long()
         rb = row.expand(rows, lg.ROW)
@@ -2286,15 +2324,34 @@ def phase_s3(mk, lg, dev) -> dict:
         err = max(err, float((g - ref).abs().max()))
         n = rows * lg.ROW
         b_ms, b_by = bound(n * 8 + lg.ROW * 4, 0, 0)
-        res["hold_" + label] = h = {"lanes": n, "hold_reps": reps, "hold_plain_ms": plain,
-                     "gather_ms": launch_ms(lambda: lg.gather(row, idx), 5),
-                     "gather_plain_ms": launch_ms(lambda: lg.gather_reference(row, idx), 5),
-                     "library_ms": launch_ms(lambda: torch.take_along_dim(rb, idx64, dim=1), 5),
-                     "bound_ms": b_ms, "bound_by": b_by}
+        gather = lambda: lg.gather(row, idx)  # noqa: E731
+        res["hold_" + label] = h = {
+            "lanes": n, "hold_reps": reps, "hold_plain_ms": plain,
+            "gather_ms": timing.events_ms(gather, 5),
+            "gather_cold_ms": timing.events_ms(gather, 5, flush=flush),
+            "launch_floor_ms": timing.events_ms(lambda: lg.empty_launch(row, idx), 5),
+            "gather_plain_ms": timing.events_ms(lambda: lg.gather_reference(row, idx), 5),
+            "library_ms": timing.events_ms(lambda: torch.take_along_dim(rb, idx64, dim=1), 5),
+            "library_cold_ms": timing.events_ms(
+                lambda: torch.take_along_dim(rb, idx64, dim=1), 5, flush=flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+        if parent_lib() is not None:
+            parent_differ += bit_differ(g, with_parent(gather))
+            log(f"[14] S3 at ({rows}, 128): lanes of the tags and the gather that differ from the "
+                f"parent's kernel bit for bit: {parent_differ}")
+            if parent_differ:
+                raise SystemExit(f"S3, {rows} rows: lanes differ from the parent's kernel")
+            h["parent"] = {
+                "warm": in_turns(lambda: timing.events_ms(gather, 5), "14",
+                                 f"S3 gather ({rows}, 128), warm"),
+                "cold": in_turns(lambda: timing.events_ms(gather, 5, flush=flush), "14",
+                                 f"S3 gather ({rows}, 128), cold")}
         log(f"[14] S3 at ({rows}, 128) x {reps}: every tag bit-equal to the plain version, "
-            f"the gather equal to torch.take_along_dim; gather {h['gather_ms']:.4f} ms, "
-            f"plain {h['gather_plain_ms']:.4f}, take_along_dim {h['library_ms']:.4f}, bound "
-            f"{b_ms:.5f} ms ({b_by})")
+            f"the gather equal to torch.take_along_dim; gather {h['gather_ms']:.6f} ms warm, "
+            f"{h['gather_cold_ms']:.6f} cold, launch floor (an empty kernel on its grid) "
+            f"{h['launch_floor_ms']:.6f}; plain {h['gather_plain_ms']:.6f}, take_along_dim "
+            f"{h['library_ms']:.6f} warm, {h['library_cold_ms']:.6f} cold; bound {b_ms:.7f} ms "
+            f"({b_by})")
     rows_ref, launches = counted_entry(mk, lg.LAUNCHES, "lanegather", lambda: lg.main([]))
     rows_card = lg.main(["--rows", str(CARD_LANES // lg.ROW)])
     for label, rows_, r_ in (("reference", rows_ref, lg.ROWS),
@@ -2481,18 +2538,25 @@ def s3_entry(s3: dict) -> dict:
     """The results line's S3 entry: the check gather at the reference's
     (64, 128) against torch.take_along_dim; the timed tags beside it."""
     ref, card = s3["hold_reference"], s3["hold_card_scale"]
+    pick = ("gather_ms", "gather_cold_ms", "launch_floor_ms", "gather_plain_ms", "library_ms",
+            "library_cold_ms", "bound_ms", "bound_by", "lanes")
+    parent = {label: {w: {k: r[k] for k in ("parent_ms", "this_ms")} for w, r in h["parent"].items()}
+              for label, h in (("reference", ref), ("card_scale", card)) if "parent" in h}
     return {"name": "lanegather (S3 gather, (64, 128))", "route": "cuda",
             "source": "cuda_pt_torch/csrc/lanegather.cu",
             "replaces": "scripts/exp_lanegather.py:57", "launches": s3["launches"],
             "max_abs_err": s3["max_abs_err"], "ms": ref["gather_ms"],
             "plain_ms": ref["gather_plain_ms"], "bound_ms": ref["bound_ms"],
             "bound_by": ref["bound_by"], "library_ms": ref["library_ms"],
-            "card_scale": {k: card[k] for k in ("gather_ms", "gather_plain_ms", "library_ms",
-                                               "bound_ms", "bound_by", "lanes")},
+            "cold_ms": ref["gather_cold_ms"], "launch_floor_ms": ref["launch_floor_ms"],
+            "card_scale": {k: card[k] for k in pick}, "parent": parent,
             "per_iter_ns": {label: s3[label]["per_iter_ns"] for label in ("reference", "card_scale")},
             "summary": {label: s3[label]["summary"] for label in ("reference", "card_scale")},
             "note": "ms: one launch of the check form (kern_chk, :100), timed alone after a device "
-                    "sleep; per_iter_ns: the timed tags (:57), a launch over REPS"}
+                    "sleep, warm (its inputs in L2); cold_ms: L2 flushed before each launch; "
+                    "launch_floor_ms: an empty kernel on the gather's grid; per_iter_ns: the "
+                    "timed tags (:57), a launch over REPS; parent: the parent tree's gather "
+                    "and this one's in turns (--parent)"}
 
 
 def s4_entry(s4: dict) -> dict:
@@ -2582,8 +2646,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few main-path passes (torch.profiler)")
     ap.add_argument("--parent", default=None,
-                    help="another checkout (git archive of the parent commit) whose K1-K6, S2 "
-                         "and S4 mxu are held to and timed against this tree's on the same inputs")
+                    help="another checkout (git archive of the parent commit) whose K1-K6, "
+                         "S1-S3 and S4 mxu are held to and timed against this tree's on the same "
+                         "inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
@@ -2718,8 +2783,12 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          "source": "cuda_pt_torch/csrc/node_bench.cu", "replaces": "scripts/roofline.py:116",
          "library_ms": None, "launches": s1["launches"], **s1["kitchen"],
          "cornell": s1["cornell"],
+         **next((v for k, v in regs.items() if k.startswith("node_bench_kernel")), {}),
+         **({"parent_ms": s1["kitchen"]["parent"]["ms"]["parent_ms"]}
+            if s1["kitchen"]["parent"] else {}),
          "note": "launches: S1's own phase (no render path runs it); ms: S1_ITERS steps on "
-                 "S1_RAYS equal rays"},
+                 "S1_RAYS equal rays; parent: the parent tree's kernel and this one in turns "
+                 "(--parent), ms and c_node (us per step)"},
         s2_entry(s2), s3_entry(s3), s4_entry(s4),
     ]
     for k in kernels:

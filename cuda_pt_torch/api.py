@@ -106,11 +106,15 @@ class Renderer:
     """Stateful renderer over a compiled scene."""
 
     def __init__(self, source, renderer: RendererType | None = None, seed_offset: int = 0,
-                 nee_candidates: int = 1, max_lanes_per_call: int | None = None, device=None,
-                 traversal: str | None = None):
-        """source: a ParsedScene (scene, camera, RenderingConfig) or an XML
-        path (raises until the parser is ported). traversal: the route
-        (module docstring).
+                 override_res=None, traversal: str | None = None, sampler: str = "pcg",
+                 nee_candidates: int = 1, max_lanes_per_call: int | None = None, device=None):
+        """The reference's parameters in the reference's order, then device.
+
+        source: a ParsedScene (scene, camera, RenderingConfig) or an XML
+        path (raises until the parser is ported). override_res: raises
+        unless None (ROADMAP Queue 1 item 5). traversal: the route (module
+        docstring). sampler: "pcg" (the pcg streams); any other raises as
+        qmc.make_state does ("sobol" waits for ROADMAP Queue 1 item 1).
 
         nee_candidates: M > 1 = RIS light sampling (M candidates, one
         shadow ray); the fused volume path tracer takes 1 (traversal="fused"
@@ -121,6 +125,11 @@ class Renderer:
         per pass; default from CUDA_PT_MAX_LANES_PER_CALL, else 0); the
         wavefront route is never banded. Bands are bit-identical to the
         unbanded pass."""
+        if override_res is not None:
+            raise NotImplementedError("override_res waits for ROADMAP Queue 1 item 5 (the tail "
+                                      "of the API)")
+        qmc.check_sampler(sampler)
+        self.sampler = sampler
         self.parsed: ParsedScene = load_xml(source) if isinstance(source, str) else source
         self.config = self.parsed.config
         self.rtype = RendererType(renderer or self.config.renderer)
@@ -188,7 +197,7 @@ class Renderer:
         return self._swizzles[key]
 
     def _trace_lanes(self, perm: torch.Tensor, idx: int) -> torch.Tensor:
-        rng = qmc.make_state("pcg", self.seed, perm, idx)
+        rng = qmc.make_state(self.sampler, self.seed, perm, idx)
         o, d, rng = cam_mod.generate_rays(self.camera, perm, rng)
         return mk.auto_trace(self._pack, self.md, o, d, rng, self.nee_candidates)
 
@@ -197,7 +206,7 @@ class Renderer:
         order (the reference's streams: lane = pixel index)."""
         if self.rtype == RendererType.VOLUME_PT:
             lane = start + torch.arange(count, device=self.device)
-            rng = qmc.make_state("pcg", self.seed, lane, idx)
+            rng = qmc.make_state(self.sampler, self.seed, lane, idx)
             o, d, rng = cam_mod.generate_rays(self.camera, lane, rng)
             return volume_pt.trace_paths(self.scene, self.md, o, d, rng,
                                          wl_u=pt.wl_stratum_u(self.seed, idx, lane))
@@ -263,10 +272,11 @@ class Renderer:
             "num_prims": self.scene.geom.num_prims,
             "num_nodes": self.scene.bvh.num_nodes,
             "spp_accumulated": self.counter(),
+            "use_bvh": self.scene.geom.num_prims > pt.BRUTE_FORCE_MAX_PRIMS,
             "traversal": "fused" if self.fused else self.scene.traversal or pt.TRAVERSAL_IMPL,
             "driver": mk.driver_of(self._pack) if self.fused else "composed",
             "device": str(self.device),
-            "sampler": "pcg",
+            "sampler": self.sampler,
             "nee_candidates": self.nee_candidates,
             **self._flags(),
         }

@@ -9,7 +9,9 @@ accumulator (the tags and outputs of the reference):
               tests hold the port to it)
   g1 g4 g14   acc + row[(idx + i) % 128] for i < N: N gathers from a row
   w14 w112    where(idx == i, acc + 1, acc) for i < N: N selects
-and ``gather`` (kern_chk) is row[idx], once. The port adds s1, s4 and s14:
+and ``gather`` (kern_chk) is row[idx], once; ``empty_launch`` launches an
+empty kernel on the gather's grid, the launch floor of its time. The port
+adds s1, s4 and s14:
 the gN bodies with the row held in registers and read by warp shuffles,
 bit-equal to gN. Timed with REPS iterations inside the kernel, a tag's
 time over REPS is its cost per iteration; gN - e0 is what a gather costs,
@@ -48,6 +50,7 @@ ROW = 128
 TAGS = {"e0": (0, 0), "g1": (1, 1), "g4": (1, 4), "g14": (1, 14), "w14": (2, 14),
         "w112": (2, 112), "s1": (3, 1), "s4": (3, 4), "s14": (3, 14)}
 _CHECK = 4
+_EMPTY = 5
 
 
 def make_inputs(seed: int = 0, rows: int = ROWS, device="cpu"):
@@ -116,6 +119,8 @@ def gather_reference(row: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _launch(kind: int, n_ops: int, x, row, idx, reps: int) -> torch.Tensor:
     cuda_build.check_inputs(*[t for t in (idx, x, row) if t is not None])
+    if idx.data_ptr() % 16:
+        raise ValueError("idx must be 16-byte aligned: the gather reads it as int4")
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
     rc = cuda_build.load().s3_lanegather(
         kind, n_ops, None if x is None else x.data_ptr(), row.data_ptr(), idx.data_ptr(),
@@ -145,6 +150,13 @@ def gather(row: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_reference(row, idx)
     _check(None, row, idx)
     return _launch(_CHECK, 0, None, row, idx, 0)
+
+
+def empty_launch(row: torch.Tensor, idx: torch.Tensor) -> None:
+    """Launch an empty kernel on the grid the check gather takes for idx
+    (CUDA tensors only): the launch floor beside the gather's time."""
+    _check(None, row, idx)
+    _launch(_EMPTY, 0, None, row, idx, 0)
 
 
 def main(argv=None) -> list:

@@ -46,14 +46,29 @@ def card(dev: torch.device) -> str | None:
 SETTLE_CYCLES = 1_000_000
 
 
-def events_ms(fn, reps: int) -> float:
+# bytes written before a cold launch (events_ms(flush=flush_buffer(dev))):
+# past the H100's 50 MB L2, so that the launch finds none of its inputs there
+FLUSH_BYTES = 128 << 20
+
+
+def flush_buffer(device) -> torch.Tensor:
+    """A buffer of FLUSH_BYTES on device, for events_ms(flush=...)."""
+    return torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+
+
+def events_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     """Median device ms of one fn() (a kernel launch) over reps calls, after
     one warm-up call: each call starts after a device sleep of SETTLE_CYCLES
-    and runs between two CUDA events."""
+    and runs between two CUDA events. flush (flush_buffer): written before
+    each sleep, outside the events, so that each call starts with its
+    inputs out of L2 (a cold launch); None leaves L2 as the last call left
+    it (warm)."""
     fn()
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
     for t0, t1 in pairs:
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(SETTLE_CYCLES)
         t0.record()
         fn()

@@ -614,6 +614,24 @@ def test_node_bench_bit_equal(cuda):
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
+@pytest.mark.parametrize("n, iters", [(1, 301), (129, 300), (65537, 97), (129, 0)])
+def test_node_bench_ragged_counts(cuda, n, iters):
+    """Kernel S1 bit-equal to its plain version at ray counts that are no
+    multiple of the block size or the unroll, odd step counts and 0 steps,
+    on kitchen-small's rows (random rays, the first one the reference's)."""
+    from cuda_pt_torch.ops import node_bench as t_nb
+
+    scene, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    nodes = torch.as_tensor(t_tk.pack_nodes(scene.bvh), device=cuda)
+    lo, hi = scene.bvh.node_min[0].numpy() - 1.0, scene.bvh.node_max[0].numpy() + 1.0
+    o, d = _s2_rays(1, n - 1, lo, hi, n, cuda)
+    out = t_nb.node_bench(nodes, o, d, iters)
+    ref = t_nb.node_bench_reference(nodes, o, d, iters)
+    torch.cuda.synchronize()
+    assert out.shape == (n,) and torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert (float(out[0]) != 0.0) == (iters > 0)
+
+
 def _s2_rays(n_equal: int, n_random: int, lo, hi, seed: int, dev):
     """n_equal of the reference's equal rays, then n_random random rays with
     origins in [lo, hi] (some outside the scene's box) -> (o, d)."""
@@ -703,6 +721,26 @@ def test_lanegather_bit_equal(cuda):
         assert torch.equal(outs[f"s{n}"], outs[f"g{n}"])
     g = t_lg.gather(row, idx)
     assert torch.equal(g, torch.take_along_dim(row.expand(64, 128), idx.long(), dim=1))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8193])
+def test_lanegather_gather_rows(cuda, rows):
+    """Kernel S3's gather bit-equal to torch.take_along_dim at 1, 3 and 8,193
+    rows (grids that end inside a block), on random idx and on idx of 0 and
+    127 only; a misaligned idx is refused."""
+    from cuda_pt_torch.ops import lanegather as t_lg
+
+    _, row, idx = t_lg.make_inputs(rows, rows, cuda)
+    edges = torch.where(idx < 64, 0, 127).to(torch.int32)
+    for ix in (idx, edges):
+        n0 = t_lg.LAUNCHES["lanegather"]
+        g = t_lg.gather(row, ix)
+        torch.cuda.synchronize()
+        assert t_lg.LAUNCHES["lanegather"] == n0 + 1
+        assert torch.equal(g, torch.take_along_dim(row.expand(rows, 128), ix.long(), dim=1))
+    flat = torch.zeros(rows * 128 + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        t_lg.gather(row, flat[1:].view(rows, 128))
 
 
 def test_mxuleaf_matches_plain(cuda):

@@ -1,9 +1,10 @@
-"""Probe kernel K6 (the split driver's closest walk and hit resolve) and
-kernel S2 (the tile-vote node walk) on one CUDA card, for this tree's
-library, build variants of it and another tree's library.
+"""Probe kernel K6 (the split driver's closest walk and hit resolve),
+kernel S2 (the tile-vote node walk), kernel S1 (the node step) and kernel
+S3's gather on one CUDA card, for this tree's library, build variants of
+it and another tree's library.
 
     python3 tools/split_probe.py [--parent TREE] [--variants K6_THREADS=256,S2_PREFETCH=2]
-                                 [--s2] [--no-k6] [--grid-n 256]
+                                 [--s2] [--s1] [--s3] [--no-k6] [--grid-n 256]
 
 Builds, all nvcc started at once, this tree's library, one library per
 variant and, with ``--parent``, the library of another checkout (a git
@@ -14,8 +15,20 @@ block size, ``S2_MAX_CLUSTER`` the largest cluster an S2 tile spreads
 over, ``S2_PREFETCH`` S2's successor prefetch for every form (v1 keeps
 its own under 2), ``S2_RAYS_SMEM`` 1 / 0 S2's rays in shared memory or in
 registers at 8 lanes per thread for every form (see csrc/extract_ab.cu).
-Prints each library's ptxas registers and spills of the traverse and S2
-kernels.
+S1's step is written out from its parts (S1_PARTS, the defaults giving
+csrc/node_bench.cu's step): ``S1_LOADS`` 3 / 2 (2: no count load, the move
+ptr + 1 on any box hit, the walk's where each leaf's skip is its slot + 1
+as in pack_nodes' rows), ``S1_LEAF`` int / f32 (the leaf test on the
+converted count or on the float), ``S1_SKIP`` int / add (the skip by a
+conversion or by adding 2^23 and taking the bits), ``S1_ACC`` select /
+pred (acc += tn under the box predicate), ``S1_MINMAX`` both / axis (a
+diagnostic: each axis' near and far times taken as if the direction were
+positive, not the walk, so its outputs are not compared); ``S1_THREADS``
+its block size, ``S1_UNROLL`` an unroll pragma on its step loop;
+``S3_ROW`` smem stages the row in shared memory for S3's gather (the
+kernel keeps it in registers). A variant's library holds only the
+translation units its changes touch. Prints each library's ptxas
+registers and spills of the traverse, S2, S1 and S3 gather kernels.
 
 K6: one spp of grid_smoke 1024x1024 (a GRID_N^3 density grid) runs through
 the split driver's loop on this tree's kernels and records each bounce's
@@ -32,7 +45,16 @@ and g_hit.
 
 S2 (``--s2``): every tag through ``ops/extract_ab.main`` at 1 tile and 128
 tiles on kitchen_stress's binary f32 rows, each library in turns, outputs
-compared bit for bit. Prints one JSON line at the end.
+compared bit for bit.
+
+S1 (``--s1``): on kitchen_stress's and cornell's binary f32 rows,
+chip_smoke's S1_RAYS equal rays x S1_ITERS steps and BLOCK random rays,
+outputs compared bit for bit; ms and c_node (chip_smoke.s1_c_node) per
+library, in turns. S3 (``--s3``): the gather at (64, 128) and (8192, 128),
+outputs compared bit for bit, warm and cold (L2 flushed) per library in
+turns, and the empty kernel on the gather's grid where the library has
+it. Each mode runs on the libraries that hold its kernel. Prints one JSON
+line at the end.
 """
 
 from __future__ import annotations
@@ -77,26 +99,126 @@ PATCHES = {
 }
 
 
+# S1's loop body in csrc/node_bench.cu, replaced by S1_STEP with the parts
+S1_BODY = """\
+        K1Node nd = k1_node<false>(nodes, ptr);
+        float tx0 = (nd.lo[0] - o[0]) * inv[0];
+        float tx1 = (nd.hi[0] - o[0]) * inv[0];
+        float ty0 = (nd.lo[1] - o[1]) * inv[1];
+        float ty1 = (nd.hi[1] - o[1]) * inv[1];
+        float tz0 = (nd.lo[2] - o[2]) * inv[2];
+        float tz1 = (nd.hi[2] - o[2]) * inv[2];
+        float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+        float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+        bool box = (tn <= tf) && (tf > HIT_EPS) && (tn < 1e30f);
+        int next = (box && nd.cnt <= 0) ? ptr + 1 : nd.skip;
+        ptr = next >= m_pad ? 0 : next;
+        acc = acc + (box ? tn : 0.0f);
+"""
+S1_STEP = """\
+        const float4* p = reinterpret_cast<const float4*>(nodes + (size_t)ptr * SLOT_F);
+        float4 a = __ldg(p);
+        float4 b = __ldg(p + 1);
+{load_c}        float tx0 = (a.x - o[0]) * inv[0];
+        float tx1 = (a.w - o[0]) * inv[0];
+        float ty0 = (a.y - o[1]) * inv[1];
+        float ty1 = (b.x - o[1]) * inv[1];
+        float tz0 = (a.z - o[2]) * inv[2];
+        float tz1 = (b.y - o[2]) * inv[2];
+{minmax}
+        bool box = (tn <= tf) && (tf > HIT_EPS) && (tn < 1e30f);
+        int next = {move};
+        ptr = next >= m_pad ? 0 : next;
+        {acc}
+"""
+S1_PARTS = {"S1_LOADS": ("3", "2"), "S1_LEAF": ("int", "f32"), "S1_SKIP": ("int", "add"),
+            "S1_ACC": ("select", "pred"), "S1_MINMAX": ("both", "axis")}
+# changes whose outputs are not the walk's: timed, not compared
+DIAGNOSTIC = {"S1_MINMAX=axis"}
+PATCHES.update({
+    "S1_THREADS": [("node_bench.cu", "__launch_bounds__(128)", "__launch_bounds__({v})"),
+                   ("node_bench.cu", "int threads = 128;", "int threads = {v};")],
+    "S1_UNROLL": ("node_bench.cu", "    for (int it = 0; it < n_iters; ++it) {\n",
+                  "#pragma unroll {v}\n    for (int it = 0; it < n_iters; ++it) {\n"),
+    "S3_ROW": [("lanegather.cu", """\
+    int lane = threadIdx.x & 31;
+    float r0 = __ldg(row + lane), r1 = __ldg(row + lane + 32), r2 = __ldg(row + lane + 64),
+          r3 = __ldg(row + lane + 96);
+""", """\
+    __shared__ float srow[S3_ROW];
+    if (threadIdx.x < S3_ROW) srow[threadIdx.x] = __ldg(row + threadIdx.x);
+    __syncthreads();
+"""), ("lanegather.cu", """\
+    v.x = s3_pick(r0, r1, r2, r3, id.x);
+    v.y = s3_pick(r0, r1, r2, r3, id.y);
+    v.z = s3_pick(r0, r1, r2, r3, id.z);
+    v.w = s3_pick(r0, r1, r2, r3, id.w);
+""", """\
+    v.x = srow[id.x & (S3_ROW - 1)];
+    v.y = srow[id.y & (S3_ROW - 1)];
+    v.z = srow[id.z & (S3_ROW - 1)];
+    v.w = srow[id.w & (S3_ROW - 1)];
+""")],
+})
+
+
+def s1_step(parts: dict) -> str:
+    """S1's loop body from its parts (S1_PARTS; the first value of each is
+    csrc/node_bench.cu's)."""
+    skip = "(int)b.z" if parts["S1_SKIP"] == "int" else \
+        "(__float_as_int(b.z + 8388608.0f) - 0x4B000000)"
+    leaf = "(int)c.x <= 0" if parts["S1_LEAF"] == "int" else "c.x <= 0.0f"
+    three = parts["S1_LOADS"] == "3"
+    minmax = ("        float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));\n"
+              "        float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));")
+    if parts["S1_MINMAX"] == "axis":
+        minmax = ("        float tn = fmaxf(fmaxf(tx0, ty0), tz0);\n"
+                  "        float tf = fminf(fminf(tx1, ty1), tz1);")
+    return S1_STEP.format(
+        load_c="        float4 c = __ldg(p + 2);\n" if three else "", minmax=minmax,
+        move=f"(box && {leaf}) ? ptr + 1 : {skip}" if three else f"box ? ptr + 1 : {skip}",
+        acc="acc = acc + (box ? tn : 0.0f);" if parts["S1_ACC"] == "select" else
+            "if (box) acc += tn;")
+
+
 def log(msg):
     print(msg, flush=True)
 
 
 def variant_tree(variant: str) -> str:
-    """A copy of cuda_pt_torch/ with the variant's PATCHES applied."""
-    tree = os.path.join(VARIANT_DIR, variant.replace("=", "_"))
+    """A copy of cuda_pt_torch/ with the variant's changes applied and only
+    the translation units they touch."""
+    tree = os.path.join(VARIANT_DIR, variant.replace("=", "_").replace("+", "-"))
     shutil.rmtree(tree, ignore_errors=True)
     shutil.copytree(os.path.join(REPO, "cuda_pt_torch"), os.path.join(tree, "cuda_pt_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
+    changes, parts = [], {}
     for change in variant.split("+"):
         name, value = change.split("=")
-        src, old, new = PATCHES[name]
-        path = os.path.join(tree, "cuda_pt_torch", "csrc", src)
+        if name in S1_PARTS:
+            if value not in S1_PARTS[name]:
+                raise SystemExit(f"split_probe: {name} takes {S1_PARTS[name]}")
+            parts[name] = value
+            continue
+        patch = PATCHES[name]
+        changes += [(name, src, old, new.replace("{v}", value))
+                    for src, old, new in (patch if isinstance(patch, list) else [patch])]
+    if parts:
+        full = {k: parts.get(k, v[0]) for k, v in S1_PARTS.items()}
+        changes.append(("S1 step", "node_bench.cu", S1_BODY, s1_step(full)))
+    csrc = os.path.join(tree, "cuda_pt_torch", "csrc")
+    for name, src, old, new in changes:
+        path = os.path.join(csrc, src)
         with open(path) as f:
             text = f.read()
         if text.count(old) != 1:
             raise SystemExit(f"split_probe: {name}: {src} no longer holds {old.strip()!r}")
         with open(path, "w") as f:
-            f.write(text.replace(old, new.replace("{v}", value)))
+            f.write(text.replace(old, new))
+    touched = {src for _, src, _, _ in changes}
+    for unit in os.listdir(csrc):
+        if unit.endswith(".cu") and unit not in touched:
+            os.remove(os.path.join(csrc, unit))
     return tree
 
 
@@ -111,7 +233,8 @@ def build_libraries(variants, parent):
     for name, path in libs.items():
         for kname, regs, st, ld in cb.ptxas_report(cb.build_log(path)):
             if kname.startswith(("traverse_kernel", "extract_ab_kernel<4,1,", "extract_ab_kernel<7,1,",
-                                 "extract_ab_kernel<4,4,")):
+                                 "extract_ab_kernel<4,4,", "node_bench_kernel",
+                                 "gather_kernel")):
                 log(f"  {name} {kname}: {regs} registers, spill stores {st} B, loads {ld} B")
     return libs
 
@@ -227,11 +350,97 @@ def probe_s2(libs) -> dict:
     return {"c_node_ns": res, "differ": differ}
 
 
+def diagnostic(variant: str) -> bool:
+    return any(change in variant.split("+") for change in DIAGNOSTIC)
+
+
+def rounded(row: dict, digits: int) -> dict:
+    return {str(k): {q: round(x, digits) for q, x in v.items()} for k, v in row.items()}
+
+
+def holding(libs, entry: str) -> list:
+    """The names of the libraries that export a C entry."""
+    return [n for n, path in libs.items() if hasattr(cb.open_library(path), entry)]
+
+
+def probe_s1(libs) -> dict:
+    """S1 on both scenes' rows, each library in turns: outputs against the
+    first library's (DIAGNOSTIC variants timed only), ms and c_node."""
+    from cuda_pt_torch.ops import extract_ab as ab
+
+    dev = torch.device("cuda")
+    names = holding(libs, "s1_node_bench")
+    o, d = nb.reference_rays(cs.S1_RAYS, dev)
+    rows = {}
+    for label in ("kitchen", "cornell"):
+        nodes = ab.scene_nodes(label, dev)
+        rs = np.random.default_rng(29)
+        lo = nodes[0, 0:3].cpu().numpy()
+        hi = nodes[0, 3:6].cpu().numpy()
+        o_r = torch.as_tensor(rs.uniform(lo, hi, (cs.BLOCK, 3)).astype(np.float32), device=dev)
+        d_r = torch.nn.functional.normalize(torch.as_tensor(
+            rs.normal(size=(cs.BLOCK, 3)).astype(np.float32), device=dev), dim=1).contiguous()
+        rows[label] = (nodes, o_r, d_r)
+    first, differ = {}, {n: 0 for n in names}
+    res = {n: [] for n in names}
+    for name in names + names[::-1]:
+        cb.use_library(libs[name])
+        row = {}
+        for label, (nodes, o_r, d_r) in rows.items():
+            outs = (nb.node_bench(nodes, o, d, cs.S1_ITERS),
+                    nb.node_bench(nodes, o_r, d_r, cs.S1_ITERS))
+            first.setdefault(label, outs)
+            if not diagnostic(name):
+                differ[name] += sum(cs.bit_differ(a, b) for a, b in zip(outs, first[label]))
+            run = lambda: nb.node_bench(nodes, o, d, cs.S1_ITERS)  # noqa: E731
+            row[label] = {"ms": timing.events_ms(run, REPS),
+                          "c_node_us": cs.s1_c_node(nb, nodes, o, d)}
+        res[name].append(row)
+        log(f"  S1 {name}: {json.dumps(rounded(row, 4))}; "
+            + ("a diagnostic, not compared" if diagnostic(name) else
+               f"rays differing from {names[0]}: {differ[name]}"))
+    mean = {n: {label: float(np.mean([r[label]["ms"] for r in res[n]])) for label in rows}
+            for n in names}
+    return {"runs": res, "mean_ms": mean, "differ": differ}
+
+
+def probe_s3(libs) -> dict:
+    """S3's gather at (64, 128) and (8192, 128), each library in turns:
+    outputs against the first library's, warm and cold ms, and the empty
+    kernel on the gather's grid where the library has it (kind 5)."""
+    from cuda_pt_torch.ops import lanegather as lg
+
+    dev = torch.device("cuda")
+    names = holding(libs, "s3_lanegather")
+    flush = timing.flush_buffer(dev)
+    inputs = {rows: lg.make_inputs(0, rows, dev)[1:] for rows in (lg.ROWS, 8192)}
+    first, differ = {}, {n: 0 for n in names}
+    res = {n: [] for n in names}
+    for name in names + names[::-1]:
+        cb.use_library(libs[name])
+        row = {}
+        for rows, (r, idx) in inputs.items():
+            g = lg.gather(r, idx)
+            first.setdefault(rows, g)
+            differ[name] += cs.bit_differ(g, first[rows])
+            gather = lambda: lg.gather(r, idx)  # noqa: E731
+            row[rows] = {"warm": timing.events_ms(gather, REPS),
+                         "cold": timing.events_ms(gather, REPS, flush=flush)}
+            if name != "parent":
+                row[rows]["floor"] = timing.events_ms(lambda: lg.empty_launch(r, idx), REPS)
+        res[name].append(row)
+        log(f"  S3 {name}: {json.dumps(rounded(row, 6))}"
+            f"; lanes differing from {names[0]}: {differ[name]}")
+    return {"runs": res, "differ": differ}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None)
     ap.add_argument("--variants", default="")
     ap.add_argument("--s2", action="store_true", help="also probe S2")
+    ap.add_argument("--s1", action="store_true", help="also probe S1")
+    ap.add_argument("--s3", action="store_true", help="also probe S3's gather")
     ap.add_argument("--no-k6", action="store_true", help="leave K6 out")
     ap.add_argument("--grid-n", type=int, default=256)
     args = ap.parse_args()
@@ -246,9 +455,12 @@ def main():
         out["k6"] = probe_k6(libs, args.grid_n)
     if args.s2:
         out["s2"] = probe_s2(libs)
+    if args.s1:
+        out["s1"] = probe_s1(libs)
+    if args.s3:
+        out["s3"] = probe_s3(libs)
     print(json.dumps(out), flush=True)
-    if any(out.get("k6", {}).get("differ", {}).values()) \
-            or any(out.get("s2", {}).get("differ", {}).values()):
+    if any(any(out.get(k, {}).get("differ", {}).values()) for k in ("k6", "s2", "s1", "s3")):
         raise SystemExit("outputs differ between libraries")
 
 
