@@ -179,14 +179,38 @@ Phases (any failure exits non-zero):
      (and the select chains' opcodes of phase 14); with --parent, the
      parent's mxu forms on the same inputs in turns; the entry
      (mxuleaf.main, launches counted) at 4,096 and CARD_LANES rays; the
-     batched torch.matmul of the product alone.
+     batched torch.matmul of the product alone;
+  16. the light tracer's main path: api.Renderer(renderer=MEGAKERNEL_LT,
+     traversal="pallas") on full-size kitchen_stress with its f32 forest,
+     1024x1024, LT_SPP passes (cut: passes only), default depth caps: K1
+     and no other kernel, at most 2 max_depth + 1 launches a pass (a
+     closest and a connection walk per bounce and the vertex-0
+     connection), a finite image with a positive mean; the wall and the
+     launches per pass, and K1's summed time, walk work, bound and share
+     over one pass (as in phase 10); 65,536 light paths (render_pass
+     n_paths=BLOCK) on K1 and on its plain walk, held per pixel (float
+     atomics do not fix the splat's order: over the pixels either touched,
+     allclose(rtol 1e-4, atol 1e-6 x the largest pixel) on >= 98 %, image
+     sums within 1e-4 relative); cornell 1024x1024 x LT_SPP through
+     MEGAKERNEL_LT (brute force: no launch) and the fused MEGAKERNEL_PT,
+     their image means' ratio in (0.8, 1.25); DEPTH and BVH_COST at SMALL
+     on cornell and kitchen_stress(grid=2) held to the same Renderer on
+     CPU tensors (DEPTH: the depth buffer, t_min and t_max within 4e-6
+     relative, the image equal on >= 99 % of pixels; BVH_COST: the cost
+     counts equal on >= 99.9 % of rays, mean_cost within 1e-3 relative),
+     and each at 1024x1024 on cornell, its wall per pass; render_aovs(
+     spp=1) under "pallas" on full-size kitchen_stress launching K1 alone,
+     its coverage equal to the plain walk's and its depth within 1e-5
+     relative on >= 99.9 % of pixels; denoise() of the fused cornell film
+     at 4 passes against atrous_denoise on CPU copies of its mean, AOVs and
+     variance (allclose rtol 1e-4, atol 1e-4).
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
 at VPT_SPP and GRID_SPP samples per pixel and hold BLOCK lanes.
 ``--profile`` adds a torch.profiler breakdown of a few main-path passes
 of each scene, of kitchen_stress and medium_cbox through the whole-path
-kernel too, and of the wavefront main path. ``--parent TREE`` (a git
+kernel too, and of the wavefront and light-tracer main paths. ``--parent TREE`` (a git
 archive of the parent commit unpacked under the git-ignored build/) holds
 the parent's K2-K4, K1, K6 (its walk and resolve_hit), S1, S2 and S3 to
 this tree's bit for bit and times them in turns (phases 3, 5-14), and
@@ -237,6 +261,9 @@ FOREST_CHUNK = 65536
 WF_SPP = 2
 PACKET_RAYS = 16384
 SMALL = 128
+# the light tracer's main path and the light-against-path check (phase 16;
+# cut: passes only)
+LT_SPP = 2
 # render_megakernel at full size (phase 11; cut: spp only): samples per
 # pixel on cornell and on kitchen_stress
 RM_CORNELL_SPP = 16
@@ -1842,6 +1869,37 @@ def k1_calls(tk, timing: bool = False, count: bool = False, record: bool = False
         torch.cuda.synchronize()
 
 
+def k1_main_path(tk, forest, run, phase: str, label: str) -> dict:
+    """K1 over the calls of run() (a pass of a composed main path on
+    forest), run once timed and once counted (k1_calls): the summed device
+    time, the walk work, the bound and its share, the per-group figures,
+    and the counted calls (recorded, for ab_k1_calls)."""
+    with k1_calls(tk, timing=True) as timed:
+        run()
+    with k1_calls(tk, count=True, record=True) as counted:
+        run()
+    timed = [c for c in timed if c["lanes"]]  # a call on no live lane launches nothing
+    counted = [c for c in counted if c["lanes"]]
+    k1_ms = sum(c["ev"][0].elapsed_time(c["ev"][1]) for c in timed)
+    nodes = sum(int(c["stats"][:, 0].sum(dtype=torch.int64)) for c in counted)
+    prim_tests = sum(int(c["stats"][:, 1].sum(dtype=torch.int64)) for c in counted)
+    lanes = [c["lanes"] for c in counted]
+    bound_ms, bound_by, nbytes = k1_bound(forest, sum(c["bytes"] for c in counted), nodes,
+                                          prim_tests)
+    log(f"[{phase}] K1 on the main path, {label}: {len(timed)} launches (lanes {lanes}), "
+        f"{k1_ms:.3f} ms summed; bound {bound_ms:.4f} ms ({bound_by}: {nodes} node fetches, "
+        f"{prim_tests} prim tests, {nbytes} bytes); {bound_ms / k1_ms:.4f} of bound")
+    figs = [warp_figures(c["stats"]) for c in counted]
+    mx, mean = sum(f["warp_max_sum"] for f in figs), sum(f["warp_mean_sum"] for f in figs)
+    n_w = sum(f["warps"] for f in figs)
+    warps = {"warp_max_sum": mx, "warp_mean_sum": mean, "warps": n_w, "warp_max": mx / n_w,
+             "warp_mean": mean / n_w, "lane_use": mean / mx}
+    log_warp_figures(phase, f"K1 over the {len(counted)} calls of {label}", warps)
+    return {"ms": k1_ms, "bound_ms": bound_ms, "bound_by": bound_by, "nodes": nodes,
+            "prim_tests": prim_tests, "bytes": nbytes, "lanes": lanes, "launches": len(timed),
+            "warps": warps, "calls": counted}
+
+
 def phase_wavefront(mk, tk, dev, kscene, kcam, f32, k5_mean: float, MaxDepthParams,
                     RendererType, RenderingConfig, ParsedScene, Renderer):
     """The wavefront path tracer's main path: the Renderer with
@@ -1875,29 +1933,11 @@ def phase_wavefront(mk, tk, dev, kscene, kcam, f32, k5_mean: float, MaxDepthPara
         f"(phase 6, K5 route: {k5_mean:.6f}; textured: the estimators agree in the mean only)")
     # K1 over the main path's first spp (wavefront.render_sample, the
     # Renderer's pass), once timed and once counted
-    with k1_calls(tk, timing=True) as timed:
-        wavefront.render_sample(r.scene, r.camera, md, 0, 0, compact=True)
-    with k1_calls(tk, count=True, record=True) as counted:
-        wavefront.render_sample(r.scene, r.camera, md, 0, 0, compact=True)
-    timed = [c for c in timed if c["lanes"]]  # a call on no live lane launches nothing
-    counted = [c for c in counted if c["lanes"]]
-    k1_ms = sum(c["ev"][0].elapsed_time(c["ev"][1]) for c in timed)
-    nodes = sum(int(c["stats"][:, 0].sum(dtype=torch.int64)) for c in counted)
-    prim_tests = sum(int(c["stats"][:, 1].sum(dtype=torch.int64)) for c in counted)
-    lanes = [c["lanes"] for c in counted]
-    bound_ms, bound_by, nbytes = k1_bound(f32, sum(c["bytes"] for c in counted), nodes,
-                                          prim_tests)
-    log(f"[10] K1 on the main path, one spp: {len(timed)} launches (lanes {lanes}), "
-        f"{k1_ms:.3f} ms summed; bound {bound_ms:.4f} ms ({bound_by}: {nodes} node fetches, "
-        f"{prim_tests} prim tests, {nbytes} bytes); {bound_ms / k1_ms:.4f} of bound")
-    figs = [warp_figures(c["stats"]) for c in counted]
-    mx, mean = sum(f["warp_max_sum"] for f in figs), sum(f["warp_mean_sum"] for f in figs)
-    n_w = sum(f["warps"] for f in figs)
-    warps = {"warp_max_sum": mx, "warp_mean_sum": mean, "warps": n_w, "warp_max": mx / n_w,
-             "warp_mean": mean / n_w, "lane_use": mean / mx}
-    log_warp_figures("10", f"K1 over the {len(counted)} calls of one wavefront spp", warps)
-    ab = ab_k1_calls(tk, counted, "10", "one wavefront spp") if parent_lib() is not None \
-        else None
+    k1_run = k1_main_path(tk, f32, lambda: wavefront.render_sample(r.scene, r.camera, md, 0, 0,
+                                                                   compact=True),
+                          "10", "one wavefront spp")
+    ab = ab_k1_calls(tk, k1_run["calls"], "10", "one wavefront spp") \
+        if parent_lib() is not None else None
     # the block: the wavefront loop on K1 and on its plain version
     o, d, rng, sl = main_rays(mk, r, BLOCK)
     perm, _ = mk.tile_swizzle(kcam.width, kcam.height, dev)
@@ -1919,10 +1959,10 @@ def phase_wavefront(mk, tk, dev, kscene, kcam, f32, k5_mean: float, MaxDepthPara
     log(f"[10] wavefront loop on a {BLOCK}-lane Z-order block: K1 against its plain walk "
         f"{frac:.7f} lanes differ, {int((L_k != L_p).any(dim=-1).sum())} not bit-equal, means "
         f"differ by {dmean:.3g}; the loop on the plain walk {plain_ms:.0f} ms")
-    return {"launches": n_launch, "main_path_ms_per_spp": k1_ms, "main_path_bound_ms": bound_ms,
-            "main_path_bound_by": bound_by, "main_path_nodes": nodes,
-            "main_path_prim_tests": prim_tests, "main_path_lanes": lanes,
-            "main_path_warps": warps,
+    return {"launches": n_launch, "main_path_ms_per_spp": k1_run["ms"],
+            "main_path_bound_ms": k1_run["bound_ms"], "main_path_bound_by": k1_run["bound_by"],
+            "main_path_nodes": k1_run["nodes"], "main_path_prim_tests": k1_run["prim_tests"],
+            "main_path_lanes": k1_run["lanes"], "main_path_warps": k1_run["warps"],
             **({"main_path_parent": ab, "main_path_parent_ms": ab["parent_ms"]} if ab else {}),
             "wall_ms_per_spp": wall * 1e3 / WF_SPP, "image_mean": mean,
             "k5_route_mean": k5_mean, "block_lanes_differ": frac, "block_mean_differ": dmean,
@@ -2002,6 +2042,185 @@ def hold_walk_k1(mk, tk, scene, o, d, label: str) -> dict:
     if out["f32_differ"] or out["bf16_differ"]:
         raise SystemExit(f"binary walk check failed on {label}: {out}")
     return out
+
+
+def held_splats(label: str, img_k: torch.Tensor, img_p: torch.Tensor) -> dict:
+    """Two splat images of the same paths (H*W, 3): the kernel's walk and
+    the plain walk. Float atomics do not fix the order of a pixel's adds,
+    so they are held per pixel: over the pixels either touched,
+    allclose(rtol 1e-4, atol 1e-6 x the largest pixel) on >= 98 %, and the
+    image sums within 1e-4 relative."""
+    if not (bool(torch.isfinite(img_k).all()) and bool(torch.isfinite(img_p).all())):
+        raise SystemExit(f"{label}: non-finite splats")
+    touched = (img_k != 0).any(dim=-1) | (img_p != 0).any(dim=-1)
+    atol = 1e-6 * float(img_p.abs().max())
+    close = torch.isclose(img_k[touched], img_p[touched], rtol=1e-4, atol=atol).all(dim=-1)
+    frac = float(close.float().mean()) if bool(touched.any()) else 0.0
+    s_k, s_p = float(img_k.double().sum()), float(img_p.double().sum())
+    rel = abs(s_k / s_p - 1.0) if s_p else float("inf")
+    if frac < 0.98 or rel > 1e-4:
+        raise SystemExit(f"{label}: {frac} of {int(touched.sum())} touched pixels agree, sums "
+                         f"differ by {rel} relative")
+    return {"pixels_touched": int(touched.sum()), "pixels_agree": frac, "sum_rel_differ": rel,
+            "not_bit_equal": int((img_k != img_p).any(dim=-1).sum())}
+
+
+def walls_per_pass(r, passes: int) -> float:
+    """Wall ms per pass of the Renderer r over passes passes (synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render(passes)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / passes
+
+
+def phase_light(mk, tk, tts, dev, kscene, kcam, f32, T, MaxDepthParams, RendererType,
+                RenderingConfig, ParsedScene, Renderer) -> tuple:
+    """Phase 16: the light tracer's main path (MEGAKERNEL_LT, traversal
+    "pallas", full-size kitchen_stress on its f32 forest: K1 only) with a
+    65,536-path block held to the plain walk, light against path tracing on
+    cornell, DEPTH and BVH_COST held to the CPU, render_aovs on K1 held to
+    the plain walk, and denoise held to the CPU's filter. Returns (K1's
+    numbers for its kernels entry, the phase's own entry, the light
+    tracer's Renderer)."""
+    import dataclasses
+
+    from cuda_pt_torch.accel import traverse
+    from cuda_pt_torch.core import film as film_mod
+    from cuda_pt_torch.models import debug_renderers, denoise, light_tracer
+
+    md = MaxDepthParams()
+
+    def parsed(scene, cam):
+        return ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height, md=md,
+                                                       seed=0))
+
+    # 1. the main path
+    r = Renderer(parsed(dataclasses.replace(kscene, forest=f32), kcam),
+                 renderer=RendererType.MEGAKERNEL_LT, traversal="pallas")
+    info = r.info()
+    if (info["driver"], info["traversal"]) != ("composed", "pallas"):
+        raise SystemExit(f"light tracer: not the composed route on K1: {info}")
+    wall, launches, _, mean = render_main_path(
+        mk, r, LT_SPP, "light tracer", {"launches": ["traverse_forest"], "instantiations": []})
+    n_launch = launches["traverse_forest"]
+    if n_launch > (2 * md.max_depth + 1) * LT_SPP or mean <= 0.0:
+        raise SystemExit(f"light tracer: {n_launch} K1 launches in {LT_SPP} passes (at most "
+                         f"{2 * md.max_depth + 1} a pass), image mean {mean}")
+    log(f"[16] Renderer MEGAKERNEL_LT traversal=pallas, kitchen_stress {kcam.width}x"
+        f"{kcam.height}x{LT_SPP} passes: {wall * 1e3 / LT_SPP:.2f} ms wall per pass, "
+        f"{n_launch / LT_SPP:g} K1 launches per pass, image mean {mean:.6f}")
+    k1_run = k1_main_path(tk, f32, lambda: light_tracer.render_pass(
+        r.scene, r.camera, md, 0, 0, True), "16", "one light-tracing pass")
+    # 2. a block of paths on K1 and on its plain walk
+    t0 = time.perf_counter()
+    blk_k = light_tracer.render_pass(r.scene, r.camera, md, 3, 0, True, n_paths=BLOCK)
+    torch.cuda.synchronize()
+    blk_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with plain_walk(tk):
+        blk_p = light_tracer.render_pass(r.scene, r.camera, md, 3, 0, True, n_paths=BLOCK)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    blk = held_splats("light tracer block, K1 against its plain walk", blk_k, blk_p)
+    log(f"[16] {BLOCK} light paths on K1 against the plain walk: {blk['pixels_agree']:.6f} of "
+        f"{blk['pixels_touched']} touched pixels agree ({blk['not_bit_equal']} not bit-equal), "
+        f"sums differ by {blk['sum_rel_differ']:.3g}; {blk_ms:.0f} ms on K1, {plain_ms:.0f} ms "
+        f"on the plain walk")
+    # 3. light against path tracing on cornell
+    cscene, ccam = tts.cornell_box(kcam.width, kcam.height, device=dev)[:2]
+    rl = Renderer(parsed(cscene, ccam), renderer=RendererType.MEGAKERNEL_LT)
+    rp = Renderer(parsed(cscene, ccam), renderer=RendererType.MEGAKERNEL_PT)
+    mk.reset_launches()
+    lt_cornell_ms = walls_per_pass(rl, LT_SPP)
+    if any(mk.LAUNCHES.values()):
+        raise SystemExit(f"cornell light tracer (brute force) launched {dict(mk.LAUNCHES)}")
+    rp.render(LT_SPP)
+    ratio = float(rl.film.mean.mean()) / float(rp.film.mean.mean())
+    if not 0.8 < ratio < 1.25:
+        raise SystemExit(f"cornell: light-traced / path-traced mean {ratio}, not in (0.8, 1.25)")
+    log(f"[16] cornell {ccam.width}x{ccam.height}x{LT_SPP}: MEGAKERNEL_LT (brute force) "
+        f"{lt_cornell_ms:.2f} ms wall per pass, mean {float(rl.film.mean.mean()):.6f}; fused "
+        f"MEGAKERNEL_PT mean {float(rp.film.mean.mean()):.6f}; ratio {ratio:.4f}")
+    # 4. DEPTH and BVH_COST on the card against the CPU
+    debug = {}
+    for name, make in (("cornell", lambda d: tts.cornell_box(SMALL, SMALL, device=d)[:2]),
+                       ("kitchen_small", lambda d: tts.kitchen_stress(
+                           SMALL, SMALL, grid=2, device=d)[:2])):
+        scene, cam = make(dev)
+        scene_c, cam_c = T.to_device(scene, "cpu"), cam.to("cpu")
+        for rtype in (RendererType.DEPTH, RendererType.BVH_COST):
+            rd = Renderer(parsed(scene, cam), renderer=rtype)
+            img = rd.render_raw()
+            img_c = Renderer(parsed(scene_c, cam_c), renderer=rtype, device="cpu").render_raw()
+            px = float((img.cpu() == img_c).all(dim=-1).float().mean())
+            if rtype == RendererType.DEPTH:
+                _, aux = debug_renderers.render_depth(scene, cam, use_bvh=rd.use_bvh)
+                _, aux_c = debug_renderers.render_depth(scene_c, cam_c, use_bvh=rd.use_bvh)
+                rel = max(float(((aux[k].cpu() - aux_c[k]).abs()
+                                 / aux_c[k].abs().clamp(min=1e-30)).max())
+                          for k in ("depth", "t_min", "t_max"))
+                row = {"pixels_equal": px, "max_rel_differ": rel}
+                ok = px >= 0.99 and rel <= 4e-6
+            else:
+                o, d = debug_renderers._primary_rays(cam, 0)
+                cnt = traverse.closest_hit_bvh(scene.geom, scene.bvh, o, d, count_cost=True)
+                cnt_c = traverse.closest_hit_bvh(scene_c.geom, scene_c.bvh, o.cpu(), d.cpu(),
+                                                 count_cost=True)
+                rays = min(float((cnt[k].cpu() == cnt_c[k]).float().mean())
+                           for k in ("node_cnt", "prim_cnt"))
+                _, aux = debug_renderers.render_bvh_cost(scene, cam)
+                _, aux_c = debug_renderers.render_bvh_cost(scene_c, cam_c)
+                rel = abs(float(aux["mean_cost"]) / float(aux_c["mean_cost"]) - 1.0)
+                row = {"pixels_equal": px, "rays_equal": rays, "mean_cost_rel_differ": rel}
+                ok = rays >= 0.999 and rel <= 1e-3
+            log(f"[16] {rtype.value} on {name} {SMALL}x{SMALL}, card against CPU: {row}")
+            if not ok:
+                raise SystemExit(f"{rtype.value} on {name}: the card disagrees with the CPU: {row}")
+            debug[f"{rtype.value}_{name}"] = row
+    for rtype in (RendererType.DEPTH, RendererType.BVH_COST):
+        debug[f"{rtype.value}_cornell_wall_ms_per_pass"] = walls_per_pass(
+            Renderer(parsed(cscene, ccam), renderer=rtype), LT_SPP)
+        log(f"[16] {rtype.value} cornell {ccam.width}x{ccam.height}: "
+            f"{debug[f'{rtype.value}_cornell_wall_ms_per_pass']:.2f} ms wall per pass")
+    # 5. AOVs on K1 and on the plain walk; denoise against the CPU's filter
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    aov = r.render_aovs(spp=1)
+    aov_launches = {k: v for k, v in mk.LAUNCHES.items() if v}
+    if set(aov_launches) != {"traverse_forest"}:
+        raise SystemExit(f"render_aovs under pallas launched {aov_launches}, not K1 alone")
+    with plain_walk(tk):
+        aov_p = r.render_aovs(spp=1)
+    dep_ok = float(np.mean(np.isclose(aov["depth"], aov_p["depth"], rtol=1e-5, atol=0.0)))
+    if not np.array_equal(aov["coverage"], aov_p["coverage"]) or dep_ok < 0.999:
+        raise SystemExit(f"render_aovs on K1 against the plain walk: coverage equal "
+                         f"{np.array_equal(aov['coverage'], aov_p['coverage'])}, depth "
+                         f"within 1e-5 on {dep_ok}")
+    rp.render(4 - LT_SPP)  # the fused cornell film at 4 passes
+    den = rp.denoise()
+    a_cpu = {k: v.cpu() for k, v in debug_renderers.render_aovs(
+        rp.scene, rp.camera, spp=4, seed=rp.seed + 7919, use_bvh=rp.use_bvh).items()}
+    var = (film_mod.variance(rp.film) / rp.film.count).cpu()
+    den_c = denoise.atrous_denoise(rp.film.mean.cpu(), a_cpu, variance=var).numpy()
+    den_err = float(np.abs(den - den_c).max())
+    if rp.film.count != 4 or not np.allclose(den, den_c, rtol=1e-4, atol=1e-4):
+        raise SystemExit(f"denoise on the card against the CPU's filter: max |err| {den_err}")
+    log(f"[16] render_aovs kitchen {kcam.width}x{kcam.height} on K1: launches {aov_launches}, "
+        f"coverage equal to the plain walk's, depth within 1e-5 on {dep_ok:.6f}; denoise of "
+        f"the fused cornell film at 4 passes against the CPU's filter: max |err| {den_err:.3g}")
+    k1_entry = {"lt_ms_per_pass": k1_run["ms"], "lt_launches_per_pass": n_launch / LT_SPP,
+                "lt_bound_ms": k1_run["bound_ms"], "lt_bound_by": k1_run["bound_by"],
+                "lt_nodes": k1_run["nodes"], "lt_prim_tests": k1_run["prim_tests"],
+                "lt_warps": k1_run["warps"]}
+    entry = {"lt_wall_ms_per_pass": wall * 1e3 / LT_SPP, "lt_image_mean": mean,
+             "lt_k1_launches": n_launch, "lt_k1_ms_per_pass": k1_run["ms"],
+             "lt_k1_bound_ms": k1_run["bound_ms"], "lt_k1_lanes": k1_run["lanes"],
+             "block": {**blk, "k1_ms": blk_ms, "plain_ms": plain_ms},
+             "cornell_lt_wall_ms_per_pass": lt_cornell_ms, "cornell_lt_over_pt": ratio,
+             "debug": debug, "aov_launches": aov_launches, "aov_depth_within": dep_ok,
+             "denoise_max_abs_err": den_err}
+    return k1_entry, entry, r
 
 
 def phase_render_megakernel(mk, tk, tts, dev, kscene, kcam, ref_mean: float,
@@ -2666,7 +2885,7 @@ def main():
 
 
 def run_phases(args, build: dict, sass_job: dict) -> int:
-    """Phases 2-15 and the result lines, after the build (phase 1)."""
+    """Phases 2-16 and the result lines, after the build (phase 1)."""
     from cuda_pt_torch.api import Renderer
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import extract_ab as ab
@@ -2726,6 +2945,9 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
     s2 = phase_s2(mk, ab, nb, tk, dev, kscene, tts.cornell_box(device=dev)[0])
     s3 = phase_s3(mk, lg, dev)
     s4 = phase_s4(mk, mx, dev, sass_job)
+    k1_lt, light, rl = phase_light(mk, tk, tts, dev, kscene, kcam, forests["f32"], T,
+                                   MaxDepthParams, RendererType, RenderingConfig, ParsedScene,
+                                   Renderer)
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
@@ -2768,9 +2990,10 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          **{k: k1[k] for k in ("registers", "spill_stores", "spill_loads") if k in k1},
          **({"parent_ms": k1["parent"]["closest"]["parent_ms"],
              "anyhit_parent_ms": k1["parent"]["anyhit"]["parent_ms"]} if "parent" in k1 else {}),
-         **k1_wf,
+         **k1_wf, **k1_lt,
          "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
-                 "rays of kitchen_stress; main_path_*: summed over one wavefront spp"},
+                 "rays of kitchen_stress; main_path_*: summed over one wavefront spp; lt_*: "
+                 "the light tracer's main path, one pass (lt_launches_per_pass over LT_SPP)"},
         {"name": "trace_megakernel (K2+BIN: render_megakernel, cornell, binary f32 nodes)",
          "route": "cuda", "source": "cuda_pt_torch/csrc/megakernel_bin.cu",
          "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:802", "library_ms": None,
@@ -2794,14 +3017,15 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
     for k in kernels:
         k.pop("runs", None)
     extra = {"k1_check": {k: v for k, v in k1.items() if k != "timing"}, "routes_check": routes,
-             "build": build}
+             "light_check": light, "build": build}
     if args.profile:
         md = MaxDepthParams()
         for key, run in (("profile", r.render_raw), ("profile_kitchen", rk.render_raw),
                          ("profile_kitchen_whole_path", whole_path_pass(mk, rk, md)),
                          ("profile_vpt", rv.render_raw),
                          ("profile_vpt_whole_path", whole_path_pass(mk, rv, md)),
-                         ("profile_wavefront", rw.render_raw)):
+                         ("profile_wavefront", rw.render_raw),
+                         ("profile_light", rl.render_raw)):
             log(f"[profile] {key}")
             extra[key] = phase_profile(run)
     # the two result lines carry no time prefix: each is one JSON object

@@ -36,10 +36,12 @@ def _slab(nmin, nmax, o, inv_d, t_best):
 
 
 def closest_hit_bvh(geom: Geometry, bvh: BVHArrays, o: torch.Tensor, d: torch.Tensor,
-                    max_leaf: int | None = None):
+                    max_leaf: int | None = None, count_cost: bool = False):
     """Closest hit by the skip walk; the contract of
     ops/intersect.closest_hit_brute: dict(t, prim (int64, -1 = miss), hit,
-    b1, b2). max_leaf defaults to the tree's own leaf capacity."""
+    b1, b2). max_leaf defaults to the tree's own leaf capacity. count_cost
+    adds the reference's cost counts (int32): node_cnt, the steps a lane
+    walks, and prim_cnt, the valid leaf slots it tests."""
     max_leaf = bvh.max_leaf if max_leaf is None else max_leaf
     B = o.shape[0]
     M = bvh.num_nodes
@@ -52,6 +54,9 @@ def closest_hit_bvh(geom: Geometry, bvh: BVHArrays, o: torch.Tensor, d: torch.Te
     b1 = torch.zeros(B, device=dev)
     b2 = torch.zeros(B, device=dev)
     ptr = torch.zeros(B, dtype=torch.int64, device=dev)
+    if count_cost:
+        node_cnt = torch.zeros(B, dtype=torch.int32, device=dev)
+        prim_cnt = torch.zeros(B, dtype=torch.int32, device=dev)
     idx = torch.arange(B, device=dev)  # lanes still walking
     while idx.numel() > 0:
         pc = ptr[idx]
@@ -60,10 +65,14 @@ def closest_hit_bvh(geom: Geometry, bvh: BVHArrays, o: torch.Tensor, d: torch.Te
         cnt = bvh.node_count[pc].long()
         is_leaf = cnt > 0
         leaf = box_hit & is_leaf
+        if count_cost:
+            node_cnt[idx] += 1
         if bool(leaf.any()):
             li = torch.nonzero(leaf)[:, 0]
             ids = torch.clamp(bvh.node_base[pc[li]].long()[:, None] + karange, 0, N - 1)
             valid = karange < cnt[li][:, None]
+            if count_cost:
+                prim_cnt[idx[li]] += valid.sum(-1, dtype=torch.int32)
             t_k, hit_k, b1_k, b2_k = isect.intersect_gather(geom, o_i[li], d_i[li], ids, valid)
             t_k = torch.where(hit_k & (t_k < t_i[li][:, None]), t_k, math.inf)
             k = torch.argmin(t_k, dim=-1, keepdim=True)
@@ -77,7 +86,10 @@ def closest_hit_bvh(geom: Geometry, bvh: BVHArrays, o: torch.Tensor, d: torch.Te
         ptr_next = torch.where(box_hit & ~is_leaf, pc + 1, bvh.node_skip[pc].long())
         ptr[idx] = ptr_next
         idx = idx[ptr_next < M]
-    return {"t": t, "prim": prim, "hit": prim >= 0, "b1": b1, "b2": b2}
+    out = {"t": t, "prim": prim, "hit": prim >= 0, "b1": b1, "b2": b2}
+    if count_cost:
+        out.update(node_cnt=node_cnt, prim_cnt=prim_cnt)
+    return out
 
 
 def occlusion_bvh(geom: Geometry, bvh: BVHArrays, o: torch.Tensor, d: torch.Tensor,

@@ -1,25 +1,36 @@
-"""High-level renderer API (port of cuda_pt_tpu/api.py: MEGAKERNEL_PT,
-VOLUME_PT and WAVEFRONT_PT).
+"""High-level renderer API (port of cuda_pt_tpu/api.py: every renderer
+family of the reference: MEGAKERNEL_PT, VOLUME_PT, WAVEFRONT_PT,
+MEGAKERNEL_LT, DEPTH and BVH_COST, with render_aovs and denoise).
 
 One stateful Renderer over a compiled scene: the film and the camera stay
 on the render device between passes. ``traversal`` picks the route, with
 the reference's names:
 - None (default): the fused kernel routes below for a MEGAKERNEL_PT or
   VOLUME_PT scene inside the kernel's envelope; outside it (Plastic-
-  forward, say) and for WAVEFRONT_PT the composed path on the default walk
-  (models/path_tracer.TRAVERSAL_IMPL, the skip walk);
-- "fused": the kernel routes, raising outside the envelope;
+  forward, say) and for the other families the composed path on the
+  default walk (models/path_tracer.TRAVERSAL_IMPL, the skip walk);
+- "fused": the kernel routes, raising outside the envelope and for every
+  family but MEGAKERNEL_PT and VOLUME_PT, as the reference does;
 - "xla" / "pallas" / "wide": the composed path on that walk:
-  path_tracer.render_band (MEGAKERNEL_PT, banded as the reference bands
-  it), volume_pt.trace_paths (VOLUME_PT), wavefront.render_sample with
-  compact=True (WAVEFRONT_PT, never banded). "pallas" is kernel K1, the
-  CUDA port of the reference's Pallas walk (ops/traverse_kernel.py), over
+  path_tracer.render_band (MEGAKERNEL_PT), volume_pt.trace_paths
+  (VOLUME_PT), wavefront.render_sample with compact=True (WAVEFRONT_PT),
+  light_tracer.render_pass (MEGAKERNEL_LT, its splat over the whole film).
+  Only MEGAKERNEL_PT and VOLUME_PT are banded (_BANDABLE), as in the
+  reference: a light path splats anywhere on the film. "pallas" is
+  kernel K1, the CUDA port of the reference's Pallas walk
+  (ops/traverse_kernel.py; the light tracer's closest and connection
+  walks and render_aovs' first hits walk on it too), over
   the scene's forest (SceneBuilder.compile(forest_chunk=...)) or its BVH
   as one chunk; "wide" the 8-wide walk over a wide tree collapsed at
   construction. "xla" and "wide" (and so the default composed routes)
   are plain PyTorch walks that launch no kernel, slow on the card at
   full size; only "pallas" walks on a kernel there;
 - "auto" and "mxu" wait for ROADMAP Queue 1 items 6 and 13.
+DEPTH (debug_renderers.render_depth) and BVH_COST (render_bvh_cost) walk
+the skip walk or the brute force whatever ``traversal`` says, as in the
+reference. render_aovs (the first hits through the scene's walk, K1 under
+"pallas") and denoise (models/denoise.atrous_denoise of the film mean
+with fresh AOVs) render on any route.
 
 The kernel routes run the reference's driver pick
 (ops/megakernel.auto_trace): a scene of fewer than
@@ -49,10 +60,9 @@ nee_candidates=1) homogeneous media at any size and grid media without
 an envmap or emission. The composed routes render every surface scene;
 VOLUME_PT's composed route takes no grid medium.
 
-Still to port (ROADMAP Queue 1): other renderer families, emissive grids
-and the composed volume path tracer's grid route, render_adaptive,
-render_aovs, denoise, film checkpoints, the XML parser, the Sobol sampler
-(the Renderer draws from pcg streams only).
+Still to port (ROADMAP Queue 1): emissive grids and the composed volume
+path tracer's grid route, render_adaptive, film checkpoints, the XML
+parser, the Sobol sampler (the Renderer draws from pcg streams only).
 """
 
 from __future__ import annotations
@@ -68,18 +78,16 @@ from .core import camera as cam_mod
 from .core import film as film_mod
 from .core import qmc
 from .core.config import MaxDepthParams, RendererType
+from .models import debug_renderers, light_tracer, volume_pt, wavefront
+from .models import denoise as dn
 from .models import path_tracer as pt
-from .models import volume_pt, wavefront
 from .ops import megakernel as mk
 from .scene import types as T
 from .scene.xml_parser import ParsedScene, load_xml
 
-# renderer family -> the ROADMAP Queue 1 item that ports it
-_WAITING = {
-    RendererType.MEGAKERNEL_LT: "item 9 (models/light_tracer.py)",
-    RendererType.DEPTH: "item 10 (models/debug_renderers.py)",
-    RendererType.BVH_COST: "item 10 (models/debug_renderers.py)",
-}
+# the families whose pass may be split into row bands, and the only ones
+# the kernel routes take (the reference's _BANDABLE and auto-pick)
+_BANDABLE = (RendererType.MEGAKERNEL_PT, RendererType.VOLUME_PT)
 # traversal -> the ROADMAP Queue 1 item that ports it
 _TRAVERSAL_WAITING = {
     "auto": "item 6 (accel/autotune.py)",
@@ -122,9 +130,9 @@ class Renderer:
         composed volume path tracer, which ignores M, and info() reports M,
         as in the reference. max_lanes_per_call: split a pass into full-width row
         bands of at most this many lanes, one call each (0 = one call
-        per pass; default from CUDA_PT_MAX_LANES_PER_CALL, else 0); the
-        wavefront route is never banded. Bands are bit-identical to the
-        unbanded pass."""
+        per pass; default from CUDA_PT_MAX_LANES_PER_CALL, else 0); only
+        MEGAKERNEL_PT and VOLUME_PT are banded. Bands are bit-identical to
+        the unbanded pass."""
         if override_res is not None:
             raise NotImplementedError("override_res waits for ROADMAP Queue 1 item 5 (the tail "
                                       "of the API)")
@@ -133,9 +141,6 @@ class Renderer:
         self.parsed: ParsedScene = load_xml(source) if isinstance(source, str) else source
         self.config = self.parsed.config
         self.rtype = RendererType(renderer or self.config.renderer)
-        if self.rtype in _WAITING:
-            raise NotImplementedError(
-                f"renderer {self.rtype.value!r} waits for ROADMAP Queue 1 {_WAITING[self.rtype]}")
         if traversal in _TRAVERSAL_WAITING:
             raise NotImplementedError(f"traversal {traversal!r} waits for ROADMAP Queue 1 "
                                       f"{_TRAVERSAL_WAITING[traversal]}")
@@ -145,14 +150,14 @@ class Renderer:
         if vpt and int(nee_candidates) != 1 and traversal == "fused":
             raise ValueError("the fused volume path tracer takes nee_candidates=1, as in the "
                              "reference")
-        if traversal == "fused" and self.rtype == RendererType.WAVEFRONT_PT:
+        if traversal == "fused" and self.rtype not in _BANDABLE:
             raise ValueError("traversal='fused' requires the megakernel PT or volume PT "
-                             "renderer, as in the reference")
+                             f"renderer, got {self.rtype}")
         scene = self.parsed.scene
         self.md: MaxDepthParams = self.config.md
         # the volume path tracer with nee_candidates > 1 takes the composed
         # route, which ignores it (the reference's auto-pick, api.py:106-110)
-        fused_ok = (self.rtype != RendererType.WAVEFRONT_PT
+        fused_ok = (self.rtype in _BANDABLE
                     and (not vpt or int(nee_candidates) == 1)
                     and mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"))
         self.fused = traversal == "fused" or (traversal is None and fused_ok)
@@ -179,6 +184,7 @@ class Renderer:
             self.scene.forest = pt.pallas_forest(self.scene)  # packed once, on our copy
         self.camera: cam_mod.Camera = self.parsed.camera.to(self.device)
         self.seed = int(self.config.seed) + int(seed_offset)
+        self.use_bvh = self.scene.geom.num_prims > pt.BRUTE_FORCE_MAX_PRIMS
         self.nee_candidates = int(nee_candidates)
         if max_lanes_per_call is None:
             max_lanes_per_call = int(os.environ.get("CUDA_PT_MAX_LANES_PER_CALL", "0"))
@@ -213,18 +219,32 @@ class Renderer:
         return pt.render_band(self.scene, self.camera, self.md, self.seed, idx, start, count,
                               self.nee_candidates)
 
+    def _whole_pass(self, idx: int) -> torch.Tensor:
+        """One pass of a family that is never banded -> (H, W, 3)."""
+        H, W = self.camera.height, self.camera.width
+        if self.rtype == RendererType.WAVEFRONT_PT:
+            return wavefront.render_sample(self.scene, self.camera, self.md, self.seed, idx,
+                                           compact=True, nee_candidates=self.nee_candidates)
+        if self.rtype == RendererType.MEGAKERNEL_LT:
+            img = light_tracer.render_pass(self.scene, self.camera, self.md, self.seed, idx,
+                                           self.use_bvh, max(self.config.specular_constraint, 0),
+                                           self.config.caustic_scaling)
+            return img.reshape(H, W, 3)
+        if self.rtype == RendererType.DEPTH:
+            return debug_renderers.render_depth(self.scene, self.camera, use_bvh=self.use_bvh)[0]
+        return debug_renderers.render_bvh_cost(self.scene, self.camera)[0]
+
     def render_raw(self) -> torch.Tensor:
         """One 1-spp pass folded into the film; returns the pass (H, W, 3).
         The kernel routes run lanes in Z-order screen blocks
-        (mk.tile_swizzle); when H*W exceeds max_lanes_per_call the pass is
-        split into row bands (not the wavefront route)."""
+        (mk.tile_swizzle); when H*W exceeds max_lanes_per_call the pass of
+        a _BANDABLE family is split into row bands."""
         t0 = time.perf_counter()
         H, W = self.camera.height, self.camera.width
         idx = self.film.count
         budget = self.max_lanes_per_call
-        if self.rtype == RendererType.WAVEFRONT_PT:
-            img = wavefront.render_sample(self.scene, self.camera, self.md, self.seed, idx,
-                                          compact=True, nee_candidates=self.nee_candidates)
+        if self.rtype not in _BANDABLE:
+            img = self._whole_pass(idx)
         elif budget and H * W > budget:
             rows_per = max(budget // W, 1)
             parts = []
@@ -253,6 +273,27 @@ class Renderer:
             self.render_raw()
         return self.film.mean.cpu().numpy()
 
+    def render_aovs(self, spp: int = 1) -> dict:
+        """First-hit denoiser AOVs (albedo, normal, emission, depth,
+        coverage) as numpy arrays (models/debug_renderers.render_aovs)."""
+        aovs = debug_renderers.render_aovs(self.scene, self.camera, spp=spp, seed=self.seed,
+                                           use_bvh=self.use_bvh)
+        return {k: v.cpu().numpy() for k, v in aovs.items()}
+
+    def denoise(self, aov_spp: int = 4, variance_guided: bool = True) -> np.ndarray:
+        """Edge-avoiding à-trous denoise of the film mean with fresh
+        first-hit AOVs (models/denoise.atrous_denoise) on the seed + 7919
+        streams (decorrelated from the film's, as in the reference).
+        variance_guided feeds the film's per-pixel variance of the mean to
+        the filter; a film of fewer than 2 passes has no variance estimate
+        and takes the plain filter."""
+        aovs = debug_renderers.render_aovs(self.scene, self.camera, spp=aov_spp,
+                                           seed=self.seed + 7919, use_bvh=self.use_bvh)
+        variance = None
+        if variance_guided and self.film.count >= 2:
+            variance = film_mod.variance(self.film) / max(self.film.count, 1)
+        return dn.atrous_denoise(self.film.mean, aovs, variance=variance).cpu().numpy()
+
     # -- TracerBase surface -------------------------------------------------
     def variance(self) -> np.ndarray:
         return film_mod.variance(self.film).cpu().numpy()
@@ -272,7 +313,7 @@ class Renderer:
             "num_prims": self.scene.geom.num_prims,
             "num_nodes": self.scene.bvh.num_nodes,
             "spp_accumulated": self.counter(),
-            "use_bvh": self.scene.geom.num_prims > pt.BRUTE_FORCE_MAX_PRIMS,
+            "use_bvh": self.use_bvh,
             "traversal": "fused" if self.fused else self.scene.traversal or pt.TRAVERSAL_IMPL,
             "driver": mk.driver_of(self._pack) if self.fused else "composed",
             "device": str(self.device),

@@ -106,3 +106,20 @@ def generate_rays(cam: Camera, pixel_idx: torch.Tensor, rng_state: torch.Tensor)
     o = torch.where(use_lens, o_lens, o)
     d = torch.where(use_lens, d_lens, d)
     return o, d, rng_state
+
+
+def splat_pixel(cam: Camera, p: torch.Tensor):
+    """Project world points (B, 3) onto the film (the light tracer's camera
+    connection). Returns (px, py, valid): continuous pixel coordinates and
+    whether the point lies in front of the camera and inside the film;
+    hsign is applied as in generate_rays. Reference: core/camera.py:125."""
+    rel = p - cam.t
+    # rel @ R: the point in the camera's (right, up, forward) frame
+    x_c, y_c, z = (vm.dot(rel, cam.R[:, j]) for j in range(3))
+    inv_z = 1.0 / torch.clamp(z, min=1e-5)
+    x = x_c * cam.focal * inv_z * cam.hsign
+    y = y_c * cam.focal * inv_z
+    px = x + 0.5 * cam.width
+    py = 0.5 * cam.height - y
+    valid = (z > 1e-5) & (px >= 0.0) & (px < cam.width) & (py >= 0.0) & (py < cam.height)
+    return px, py, valid

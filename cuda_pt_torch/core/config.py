@@ -1,8 +1,8 @@
 """Render configuration dataclasses (port of cuda_pt_tpu/core/config.py).
 
 Static host-side configs: they select bounce caps and resolution, never
-tensors. Fields of the reference configs that only unported renderers
-read (light-tracer knobs, SBVH budgets) arrive with those renderers.
+tensors. Fields of the reference configs that only unported code reads
+(the BVH's cache level and SBVH budgets) arrive with that code.
 """
 
 from __future__ import annotations
@@ -48,4 +48,11 @@ class RenderingConfig:
     md: MaxDepthParams = dataclasses.field(default_factory=MaxDepthParams)
     bvh: BVHConfig = dataclasses.field(default_factory=BVHConfig)
     gamma: bool = True
+    # Light-tracer knobs (the reference's config.h:37-41). The Renderer's
+    # MEGAKERNEL_LT route reads the last two; ``bidirectional`` is read by
+    # no route, as in the reference (light_tracer.render_bidirectional is a
+    # module function).
+    bidirectional: bool = False
+    specular_constraint: int = 0
+    caustic_scaling: float = 1.0
     seed: int = 0

@@ -1,6 +1,6 @@
 """Emitter sampling and evaluation: point, area, area-spot and envmap
-(port of cuda_pt_tpu/emitters/emitters.py). ``sample_le`` (the light
-tracer's emission sampling) waits for ROADMAP Queue 1 item 9.
+(port of cuda_pt_tpu/emitters/emitters.py), and ``sample_le``, the light
+tracer's emission sampling (models/light_tracer.py).
 
 NEE strategy pdf: power-weighted emitter pick (sel_pmf), area-weighted
 prim pick and uniform point on the prim for area emitters (solid-angle
@@ -164,6 +164,80 @@ def sample_emitter(scene: T.Scene, p: torch.Tensor, n: torch.Tensor, rng_state: 
     valid = valid & (torch.amax(le, dim=-1) > 0.0) & (pdf > 1e-12)
     return {"dir": dirn_out, "dist": dist_out, "le": le, "pdf": pdf, "valid": valid,
             "delta": is_point, "prim": prim, "eid": eid}, rng_state
+
+
+def sample_le(scene: T.Scene, rng_state: torch.Tensor, n_lanes: int):
+    """Emission position and direction for light tracing (reference
+    emitters.py:227). Draw order: u_sel, u_prim (1d each), u_pos, u_dir
+    (2d each). The emitter by sel_cdf, then for area and area-spot
+    emitters a prim by its prim_cdf, a point on it and a cosine-hemisphere
+    direction; point sources a uniform-sphere direction. An envmap's (or
+    the null emitter's) draws are invalid.
+
+    Returns ({pos, dir, n, thp0, thp_pos, valid, is_point, cos_gate},
+    rng_state): thp0 is the path's initial throughput Le cos / (p_sel p_A
+    p_w), zero for an area-spot direction outside the cone; thp_pos the
+    positional throughput Le A / p_sel of the vertex-0 camera connection
+    (zero for point sources); cos_gate the area-spot cone's cosine (-1 for
+    every other type). pos, dir and n are detached, as in the reference."""
+    e = scene.emitters
+    g = scene.geom
+    B = n_lanes
+    u_sel, rng_state = prng.next1d(rng_state)
+    u_prim, rng_state = prng.next1d(rng_state)
+    u_pos, rng_state = prng.next2d(rng_state)
+    u_dir, rng_state = prng.next2d(rng_state)
+
+    eid = torch.sum((e.sel_cdf[None, :] < u_sel[:, None]).to(torch.int64), -1)
+    eid = torch.clamp(eid, 1, e.etype.shape[0] - 1)
+    etype = e.etype[eid]
+    sel_pdf = torch.clamp(e.sel_pmf[eid], min=1e-12)
+
+    cdf = e.prim_cdf[eid]
+    kidx = torch.sum((cdf < u_prim[:, None]).to(torch.int64), -1)
+    kidx = torch.clamp(kidx, max=cdf.shape[1] - 1)
+    prim = e.prim_sel[eid, kidx].long()
+    sph = g.is_sphere[prim]
+    bary = sampling.uniform_triangle(u_pos)
+    b1, b2 = bary[..., 0], bary[..., 1]
+    pos_tri = g.p0[prim] + b1[:, None] * g.e1[prim] + b2[:, None] * g.e2[prim]
+    n_tri = vm.normalize(vm.cross(g.e1[prim], g.e2[prim]))
+    sdir, _ = sampling.uniform_sphere(u_pos)
+    pos_sph = g.p0[prim] + sdir * g.e1[prim][:, 0:1]
+    pos_l = torch.where(sph[:, None], pos_sph, pos_tri)
+    n_l = torch.where(sph[:, None], sdir, n_tri)
+
+    # cosine-weighted emission: Le cos / (p_A p_w) = Le pi / p_A
+    d_loc, _ = sampling.cosine_hemisphere(u_dir)
+    dir_area = vm.to_world(d_loc, n_l)
+    area = 1.0 / torch.clamp(scene.objects.inv_area[torch.clamp(e.obj_id[eid], min=0).long()],
+                             min=1e-12)
+    le = emitter_radiance(scene, eid, torch.zeros((B, 2), device=u_sel.device))
+    # an area-spot emitter emits inside its cone only (NEE's gate)
+    in_cone = d_loc[..., 2] >= e.extra[eid, 0]
+    spot_gate = torch.where((etype == T.EMITTER_AREA_SPOT) & ~in_cone, 0.0, 1.0)
+    thp_area = le * (math.pi * area * spot_gate / sel_pdf)[..., None]
+
+    dir_pnt, _ = sampling.uniform_sphere(u_dir)
+    thp_pnt = le * (4.0 * math.pi / sel_pdf)[..., None]
+
+    is_point = etype == T.EMITTER_POINT
+    is_area = (etype == T.EMITTER_AREA) | (etype == T.EMITTER_AREA_SPOT)
+    pos = torch.where(is_point[:, None], e.pos[eid], pos_l)
+    dirn = torch.where(is_point[:, None], dir_pnt, dir_area)
+    nrm = torch.where(is_point[:, None], dirn, n_l)
+    out = {
+        "pos": pos.detach(),
+        "dir": dirn.detach(),
+        "n": nrm.detach(),
+        "thp0": torch.where(is_point[:, None], thp_pnt, thp_area),
+        "thp_pos": torch.where(is_area[:, None], le * (area / sel_pdf)[..., None],
+                               torch.zeros_like(le)),
+        "valid": is_point | is_area,
+        "is_point": is_point,
+        "cos_gate": torch.where(etype == T.EMITTER_AREA_SPOT, e.extra[eid, 0], -1.0),
+    }
+    return out, rng_state
 
 
 def hit_emitter_pdf(scene: T.Scene, obj: torch.Tensor, t: torch.Tensor, cos_l: torch.Tensor):

@@ -155,14 +155,17 @@ def pallas_forest(scene: T.Scene):
     return tk.single_chunk_forest(scene.geom, scene.bvh)
 
 
-def _walks(scene: T.Scene):
+def _walks(scene: T.Scene, use_bvh: bool | None = None):
     """(closest, any hit) of the scene's walk backend as functions of
-    (o, d) and (o, d, t_far); None at or below the brute-force bound."""
+    (o, d) and (o, d, t_far); None for the brute force: where use_bvh is
+    False, or None with the scene at or below the brute-force bound. An
+    explicit True walks the tree at any prim count, as the reference's
+    closest_hit(..., use_bvh) does."""
     impl = scene.traversal or TRAVERSAL_IMPL
     if impl == "mxu":  # the reference takes it at any prim count
         raise NotImplementedError("the matmul brute force (traversal 'mxu') waits for ROADMAP "
                                   "Queue 1 item 13")
-    if not _use_bvh(scene):
+    if not (_use_bvh(scene) if use_bvh is None else use_bvh):
         return None
     ml = scene.bvh.max_leaf  # the tree's leaf capacity, as the reference passes it
     forest = pallas_forest(scene) if impl == "pallas" else None
@@ -179,17 +182,19 @@ def _walks(scene: T.Scene):
             lambda o, d, t: traverse.occlusion_bvh(scene.geom, scene.bvh, o, d, t))
 
 
-def closest_hit(scene: T.Scene, o, d, live: torch.Tensor):
-    """Closest hit for the lanes where ``live`` (misses elsewhere)."""
-    walks = _walks(scene)
+def closest_hit(scene: T.Scene, o, d, live: torch.Tensor, use_bvh: bool | None = None):
+    """Closest hit for the lanes where ``live`` (misses elsewhere); use_bvh
+    as in _walks."""
+    walks = _walks(scene, use_bvh)
     if walks is None:
         return isect.closest_hit_brute(scene.geom, o, d)
     return _on_lanes(walks[0], live, _MISS, o, d)
 
 
-def occluded(scene: T.Scene, o, d, t_far, need: torch.Tensor):
-    """Any-hit shadow test for the lanes where ``need`` (False elsewhere)."""
-    walks = _walks(scene)
+def occluded(scene: T.Scene, o, d, t_far, need: torch.Tensor, use_bvh: bool | None = None):
+    """Any-hit shadow test for the lanes where ``need`` (False elsewhere);
+    use_bvh as in _walks."""
+    walks = _walks(scene, use_bvh)
     if walks is None:
         return isect.occlusion_brute(scene.geom, o, d, t_far)
     return _on_lanes(walks[1], need, False, o, d, t_far)

@@ -1,5 +1,5 @@
 """Port BSDFs (all ten families, textured slots), emitters (area, point,
-area-spot, envmap), Fresnel, GGX, spectral and texture functions against
+area-spot, envmap; NEE and the light tracer's emission sampling), Fresnel, GGX, spectral and texture functions against
 the JAX reference on random inputs (rtol 1e-5)."""
 
 import jax.numpy as jnp
@@ -18,6 +18,7 @@ from cuda_pt_tpu.bsdf import eval as j_eval
 from cuda_pt_tpu.bsdf import fresnel as j_fresnel
 from cuda_pt_tpu.bsdf import ggx as j_ggx
 from cuda_pt_tpu.bsdf import spectral as j_spectral
+from cuda_pt_tpu.core import rng as j_rng
 from cuda_pt_tpu.emitters import emitters as j_em
 from cuda_pt_tpu.scene import testscenes as j_ts
 from cuda_pt_tpu.scene import textures as j_tex
@@ -240,6 +241,31 @@ def test_sample_emitter_matches(scenes):
                                       JT.EMITTER_ENVMAP}
     spot = etype == JT.EMITTER_AREA_SPOT
     assert (np.asarray(ej["le"])[spot].max(-1) == 0).any()  # some samples outside the cone
+
+
+def test_sample_le_matches(scenes):
+    """The light tracer's emission sampling: area, area-spot (cone gate)
+    and point draws; the envmap's draws are invalid."""
+    sj, st, _ = scenes
+    rs = np.random.default_rng(5)
+    rng = rs.integers(0, 2**32, (B, 2), dtype=np.uint64).astype(np.uint32)
+    ej, rj = j_em.sample_le(sj, jnp.asarray(rng), B)
+    et, rt = t_em.sample_le(st, torch.as_tensor(rng.astype(np.int64)), B)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj).astype(np.int64))
+    for k in ("pos", "dir", "n", "thp0", "thp_pos", "cos_gate"):
+        _close(et[k], ej[k], k)
+    for k in ("valid", "is_point"):
+        np.testing.assert_array_equal(et[k].numpy(), np.asarray(ej[k]), err_msg=k)
+    # the emitter each draw picked, from the reference's own pick
+    u_sel = np.asarray(j_rng.next1d(jnp.asarray(rng))[0])
+    eid = np.clip((np.asarray(sj.emitters.sel_cdf)[None, :] < u_sel[:, None]).sum(-1), 1,
+                  int(sj.emitters.etype.shape[0]) - 1)
+    etype = np.asarray(sj.emitters.etype)[eid]
+    assert {JT.EMITTER_AREA, JT.EMITTER_POINT, JT.EMITTER_AREA_SPOT} <= {int(x) for x in etype}
+    np.testing.assert_array_equal(np.asarray(ej["valid"]), etype != JT.EMITTER_ENVMAP)
+    spot = etype == JT.EMITTER_AREA_SPOT
+    thp0 = np.asarray(ej["thp0"])
+    assert (thp0[spot].max(-1) == 0).any() and (thp0[spot].max(-1) > 0).any()
 
 
 def test_emitter_hit_terms_match(scenes):

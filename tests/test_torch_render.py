@@ -202,8 +202,7 @@ def test_composed_render_matches_golden(name, make):
     assert abs(float(img.mean()) - float(ref.mean())) < 5e-4
 
 
-@pytest.mark.parametrize("rtype", [RendererType.BVH_COST, RendererType.VOLUME_PT,
-                                   RendererType.MEGAKERNEL_LT, RendererType.DEPTH])
+@pytest.mark.parametrize("rtype", [RendererType.VOLUME_PT])
 def test_unported_renderers_raise(rtype):
     scene, cam, b = t_ts.cornell_box(8, 8)
     if rtype == RendererType.VOLUME_PT:
