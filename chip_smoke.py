@@ -203,7 +203,31 @@ Phases (any failure exits non-zero):
      its coverage equal to the plain walk's and its depth within 1e-5
      relative on >= 99.9 % of pixels; denoise() of the fused cornell film
      at 4 passes against atrous_denoise on CPU copies of its mean, AOVs and
-     variance (allclose rtol 1e-4, atol 1e-4).
+     variance (allclose rtol 1e-4, atol 1e-4);
+  17. gradients on the card, each figure printed with the card's name and
+     power limit: the inverse-rendering main path at full width
+     (cuda_pt_torch.inverse_render.main, albedo family, cornell
+     GRAD_RES x GRAD_RES, "remat", its default 8 spp and max_depth 3;
+     cut: GRAD_STEPS Adam steps) with the loss, parameter error, wall and
+     peak memory of each step, no kernel launched (32 prims: the brute
+     force), the k_d gradient of rows 0-2 finite and non-zero; at
+     GRAD_CHECK_SPP spp "remat" against plain (the image bit-equal, the
+     gradient within rtol 1e-6, remat's peak memory below plain's), the
+     peak memory of plain, remat and remat nested in each pass (each
+     bounce checkpointed inside the pass's checkpoint, as the reference
+     nests them; printed only) at MEM_SPP spp, remat's below plain's and
+     flat in spp, and the emitter-scaler gradient against central
+     differences with common random numbers (rtol 2e-3); volume_pt.render(differentiable="remat")
+     on full-size medium_cbox under "pallas" (K1, detached), GRAD_RES x
+     GRAD_RES x VPT_GRAD_SPP, MaxDepthParams(max_depth=4, max_volume=3),
+     gradients in both media's scale: K1's launches (> 0), the wall and
+     the peak memory, and on a CROP x CROP window of the same camera the
+     K1 route's image (phase-4 contract) and gradient (rtol 1e-3) held to
+     the plain "xla" walk's; ToF on the Renderer's composed route
+     (kitchen_stress 1024x1024 x TOF_SPP, traversal "pallas", f32 forest):
+     the windows [0, TOF_SPLIT] and [TOF_SPLIT, 1e6] summing to the
+     ungated image per pixel within 1e-3, K1's launches and the wall per
+     pass of each.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
@@ -264,6 +288,19 @@ SMALL = 128
 # the light tracer's main path and the light-against-path check (phase 16;
 # cut: passes only)
 LT_SPP = 2
+# gradients (phase 17; cut: Adam steps, spp): the inverse-rendering side,
+# its steps, the spp of the remat / plain and finite-difference checks, the
+# volume gradient render's spp and its held window, the ToF route's passes
+# and the path length splitting its two windows (kitchen's camera paths
+# fall on both sides of it)
+GRAD_RES = 512
+GRAD_STEPS = 3
+GRAD_CHECK_SPP = 4
+MEM_SPP = (2, 8)
+VPT_GRAD_SPP = 2
+CROP = 64
+TOF_SPP = 2
+TOF_SPLIT = 20.0
 # render_megakernel at full size (phase 11; cut: spp only): samples per
 # pixel on cornell and on kitchen_stress
 RM_CORNELL_SPP = 16
@@ -2223,6 +2260,264 @@ def phase_light(mk, tk, tts, dev, kscene, kcam, f32, T, MaxDepthParams, Renderer
     return k1_entry, entry, r
 
 
+def peak_mib(dev, base: int = 0) -> float:
+    """The allocator's peak since its last reset, less base bytes, in MiB."""
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+
+
+def grad_steps(mk, dev, card: str) -> dict:
+    """Phase 17's main path: inverse_render.main on the albedo family at
+    GRAD_RES for GRAD_STEPS Adam steps, each step's loss, parameter error,
+    wall, peak memory and k_d gradient (rows 0-2 finite and non-zero)."""
+    import io
+
+    from cuda_pt_torch import inverse_render as ir
+
+    steps, base = [], [0]
+
+    def on_step(rec):
+        torch.cuda.synchronize()
+        g = rec["grad"][0:3]
+        steps.append({"loss": rec["loss"], "param_err": rec["param_err"],
+                      "elapsed_s": rec["elapsed_s"], "peak_mib": peak_mib(dev, base[0]),
+                      "grad_finite": bool(torch.isfinite(g).all()),
+                      "grad_abs_mean": float(g.abs().mean())})
+        base[0] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    out = os.path.join(REPO, "build", "inverse_render")
+    argv = ["--param", "albedo", "--res", str(GRAD_RES), "--steps", str(GRAD_STEPS),
+            "--out", out]
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    base[0] = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = ir.main(argv, on_step=on_step)
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in mk.LAUNCHES.items() if v}
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    log(f"[17] inverse_render.main({' '.join(argv)}) (cut: {GRAD_STEPS} of the albedo "
+        f"family's 60 steps; its defaults: remat, 8 spp, max_depth 3): exit {rc}, "
+        f"{wall:.2f} s wall, launches {launched} (the brute force: none), result {lines[-1]} "
+        f"({card})")
+    prev = 0.0
+    for i, st in enumerate(steps):
+        log(f"[17] inverse_render step {i}: loss {st['loss']:.6f}, param_err "
+            f"{st['param_err']:.5f}, wall {st['elapsed_s'] - prev:.3f} s, peak "
+            f"{st['peak_mib']:.1f} MiB above the step's start"
+            f"{' (the target render too)' if i == 0 else ''}, "
+            f"|grad| of k_d rows 0-2 {st['grad_abs_mean']:.3e} ({card})")
+        st["wall_s"] = st["elapsed_s"] - prev
+        prev = st["elapsed_s"]
+        if not st["grad_finite"] or not st["grad_abs_mean"] > 0.0 or not np.isfinite(st["loss"]):
+            raise SystemExit(f"inverse_render step {i}: gradient or loss not finite and non-zero")
+    if launched or len(steps) != GRAD_STEPS:
+        raise SystemExit(f"inverse_render: launched {launched}, {len(steps)} steps")
+    return {"exit": rc, "wall_s": wall, "steps": steps, "result": lines[-1]}
+
+
+def grad_checks(mk, dev, card: str) -> dict:
+    """remat against plain at GRAD_CHECK_SPP (the image, the gradient, the
+    peak memory), the peak memory of plain, remat and remat with each
+    bounce checkpointed inside each pass's checkpoint (the reference's
+    nesting, which render does not use) at MEM_SPP spp, and the
+    emitter-scaler gradient against central differences; cornell
+    GRAD_RES x GRAD_RES, d mean(image) / d k_d."""
+    from cuda_pt_torch import inverse_render as ir
+    from cuda_pt_torch.core.config import MaxDepthParams
+    from cuda_pt_torch.models import path_tracer as pt
+    from cuda_pt_torch.scene import testscenes as tts
+
+    prob = ir.make_problem("albedo", GRAD_RES, dev)
+    cam, md = tts.cornell_box(GRAD_RES, GRAD_RES, device=dev)[1], MaxDepthParams(max_depth=3)
+
+    def render(scene, spp: int, mode):
+        if mode != "nested":
+            return prob.render(scene, 1, spp, mode)
+        acc = torch.zeros((GRAD_RES, GRAD_RES, 3), device=dev)
+        for i in range(spp):
+            acc = acc + pt.remat(lambda j: pt.render_sample(scene, cam, md, 1, j, False, "remat"),
+                                 i)
+        return acc / spp
+
+    def run(spp: int, mode) -> tuple:
+        theta = prob.theta0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        img = render(prob.apply(prob.scene, theta), spp, mode)
+        (g,) = torch.autograd.grad(img.mean(), theta)
+        torch.cuda.synchronize()
+        return img.detach(), g, time.perf_counter() - t0, peak_mib(dev, base)
+
+    (img_p, g_p, s_p, m_p), (img_r, g_r, s_r, m_r) = (run(GRAD_CHECK_SPP, m)
+                                                      for m in (True, "remat"))
+    rel = float(((g_r - g_p).abs() / g_p.abs().clamp(min=1e-30)).max())
+    log(f"[17] cornell {GRAD_RES}x{GRAD_RES}x{GRAD_CHECK_SPP}spp, d mean(image) / d k_d: remat "
+        f"against plain: image bit-equal {bool(torch.equal(img_p, img_r))}, gradient max rel "
+        f"diff {rel:.3e}; wall {s_p:.3f} s (plain) / {s_r:.3f} s (remat), peak memory above "
+        f"the inputs {m_p:.1f} MiB (plain) / {m_r:.1f} MiB (remat) ({card})")
+    if not torch.equal(img_p, img_r) or not torch.allclose(g_r, g_p, rtol=1e-6, atol=0.0) \
+            or not m_r < m_p:
+        raise SystemExit("remat does not match plain or saves no memory")
+    mem = {str(mode): [run(spp, mode)[3] for spp in MEM_SPP] for mode in (True, "remat", "nested")}
+    log(f"[17] peak memory above the inputs (MiB) at {MEM_SPP} spp: plain {mem['True']}, remat "
+        f"{mem['remat']}, remat nested in each pass {mem['nested']} ({card})")
+    if any(r >= p for r, p in zip(mem["remat"], mem["True"])) \
+            or mem["remat"][-1] > 1.05 * mem["remat"][0]:
+        raise SystemExit("remat's peak memory is not below plain's or grows with spp")
+    # the emitter's scaler: autograd against central differences, the same
+    # streams at s +- eps (the reference's test_grad_emitter_scaler_matches_fd)
+    pe = ir.make_problem("emitter", GRAD_RES, dev)
+
+    def f(s):
+        th = torch.cat([pe.theta_true[:1], (s * torch.ones(3, device=dev))[None],
+                        pe.theta_true[2:]])
+        return pe.render(pe.apply(pe.scene, th), 3, GRAD_CHECK_SPP, True).mean()
+
+    s0, eps = 12.0, 0.5
+    s = torch.tensor(s0, device=dev, requires_grad=True)
+    (g_ad,) = torch.autograd.grad(f(s), s)
+    with torch.no_grad():
+        g_fd = (f(torch.tensor(s0 + eps, device=dev)) - f(torch.tensor(s0 - eps, device=dev))) \
+            / (2 * eps)
+    g_ad, g_fd = float(g_ad), float(g_fd)
+    log(f"[17] emitter scaler gradient at {s0}: autograd {g_ad:.7e}, central differences "
+        f"(eps {eps}, common random numbers) {g_fd:.7e}, rel diff "
+        f"{abs(g_ad / g_fd - 1.0):.3e} ({card})")
+    if not (np.isfinite(g_ad) and g_fd != 0.0 and abs(g_ad - g_fd) <= 2e-3 * abs(g_fd) + 1e-4):
+        raise SystemExit("emitter scaler gradient disagrees with finite differences")
+    return {"spp": GRAD_CHECK_SPP, "remat_grad_max_rel": rel, "plain_s": s_p, "remat_s": s_r,
+            "plain_peak_mib": m_p, "remat_peak_mib": m_r, "mem_spp": MEM_SPP,
+            "peak_mib_by_spp": mem, "fd_grad": g_fd, "ad_grad": g_ad}
+
+
+def grad_vpt(mk, tk, dev, vscene, vcam, card: str) -> dict:
+    """volume_pt.render(differentiable="remat") on full-size medium_cbox
+    under "pallas" at GRAD_RES, d mean(image) / d media.scale; a CROP x CROP
+    window of it on K1 and on the plain "xla" walk."""
+    import dataclasses
+
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+    from cuda_pt_torch.core.config import MaxDepthParams
+    from cuda_pt_torch.models import path_tracer as pt
+    from cuda_pt_torch.models import volume_pt as vpt
+
+    md = MaxDepthParams(max_depth=4, max_volume=3)
+    cam = _shrunk(vcam, GRAD_RES)
+    scene = dataclasses.replace(vscene, traversal="pallas",
+                                forest=tk.single_chunk_forest(vscene.geom, vscene.bvh))
+
+    def with_scale(sc, trav):
+        return dataclasses.replace(scene, traversal=trav,
+                                   media=dataclasses.replace(scene.media, scale=sc))
+
+    leaf = scene.media.scale.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    img = vpt.render(with_scale(leaf, "pallas"), cam, md, VPT_GRAD_SPP, seed=0, use_bvh=True,
+                     differentiable="remat")
+    (g,) = torch.autograd.grad(img.mean(), leaf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in mk.LAUNCHES.items() if v}
+    mem = peak_mib(dev, base)
+    log(f"[17] volume_pt.render(differentiable='remat'), medium_cbox {GRAD_RES}x{GRAD_RES}x"
+        f"{VPT_GRAD_SPP}spp, traversal pallas, d mean(image) / d media.scale = "
+        f"{g.tolist()}: {wall:.2f} s wall (forward and backward), peak memory above the inputs "
+        f"{mem:.1f} MiB, launches {launched}, image mean {float(img.detach().mean()):.6f} "
+        f"({card})")
+    if set(launched) != {"traverse_forest"} or not bool(torch.isfinite(img).all()) \
+            or not bool(torch.isfinite(g).all()) or not bool((g != 0).all()):
+        raise SystemExit(f"VPT gradient render: launched {launched}, image or gradient bad")
+    # the window: the same lanes, streams and strata as the render's
+    r0 = (GRAD_RES - CROP) // 2
+    rows = torch.arange(r0, r0 + CROP, device=dev)
+    lane = (rows[:, None] * GRAD_RES + rows[None, :]).reshape(-1)
+    held = {}
+    for trav in ("pallas", "xla"):
+        sc = scene.media.scale.clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        acc = torch.zeros((lane.numel(), 3), device=dev)
+        for i in range(VPT_GRAD_SPP):
+            rng = qmc.make_state("pcg", 0, lane, i)
+            o, d, rng = cam_mod.generate_rays(cam, lane, rng)
+            acc = acc + vpt.trace_paths(with_scale(sc, trav), md, o, d, rng, True, True,
+                                        wl_u=pt.wl_stratum_u(0, i, lane))
+        L = acc / VPT_GRAD_SPP
+        (gw,) = torch.autograd.grad(L.mean(), sc)
+        torch.cuda.synchronize()
+        held[trav] = (L.detach(), gw, time.perf_counter() - t0)
+    frac, dmean = check_contract("VPT gradient window, K1 against the plain walk",
+                                 held["pallas"][0], held["xla"][0])
+    grel = float(((held["pallas"][1] - held["xla"][1]).abs() / held["xla"][1].abs()).max())
+    log(f"[17] {CROP}x{CROP} window ({lane.numel()} lanes) of the same render, K1 against the "
+        f"plain walk: {frac:.7f} lanes differ, means differ by {dmean:.3g}; gradients "
+        f"{held['pallas'][1].tolist()} / {held['xla'][1].tolist()}, max rel diff {grel:.3e}; "
+        f"{held['pallas'][2]:.2f} s / {held['xla'][2]:.2f} s ({card})")
+    if not grel <= 1e-3:
+        raise SystemExit("VPT gradient window: K1's gradient disagrees with the plain walk's")
+    return {"wall_s": wall, "peak_mib": mem, "k1_launches": launched["traverse_forest"],
+            "grad": g.tolist(), "window_lanes_differ": frac, "window_mean_differ": dmean,
+            "window_grad_max_rel": grel}
+
+
+def grad_tof(mk, kscene, kcam, f32, MaxDepthParams, RenderingConfig, ParsedScene, Renderer,
+             card: str) -> dict:
+    """ToF windows on the Renderer's composed route: kitchen_stress
+    1024x1024 x TOF_SPP under "pallas" (its f32 forest), two windows split
+    at TOF_SPLIT and the ungated image."""
+    import dataclasses
+
+    scene = dataclasses.replace(kscene, forest=f32)
+    windows = {"near": (0.0, TOF_SPLIT), "far": (TOF_SPLIT, 1e6), "ungated": (0.0, 0.0)}
+    imgs, out = {}, {}
+    for name, (lo, hi) in windows.items():
+        md = MaxDepthParams(min_time=lo, max_time=hi)
+        parsed = ParsedScene(scene, kcam, RenderingConfig(width=kcam.width, height=kcam.height,
+                                                          md=md, seed=0))
+        r = Renderer(parsed, traversal="pallas")
+        if r.info()["driver"] != "composed":
+            raise SystemExit(f"ToF {name}: not the composed route: {r.info()}")
+        wall, launches, _, mean = render_main_path(
+            mk, r, TOF_SPP, f"ToF {name}", {"launches": ["traverse_forest"],
+                                             "instantiations": []})
+        imgs[name] = torch.as_tensor(r.film.mean)
+        out[name] = {"wall_ms_per_pass": wall * 1e3 / TOF_SPP,
+                     "k1_launches_per_pass": launches["traverse_forest"] / TOF_SPP,
+                     "image_mean": mean}
+        log(f"[17] Renderer traversal=pallas, kitchen_stress {kcam.width}x{kcam.height}x"
+            f"{TOF_SPP}spp, ToF {name} {'window [%g, %g]' % (lo, hi) if hi else '(no window)'}: "
+            f"{wall * 1e3 / TOF_SPP:.1f} ms wall per pass, K1 launches per pass "
+            f"{launches['traverse_forest'] / TOF_SPP:g}, image mean {mean:.6f} ({card})")
+    diff = float((imgs["near"] + imgs["far"] - imgs["ungated"]).abs().max())
+    log(f"[17] ToF windows near + far against the ungated image: max |difference| per pixel "
+        f"{diff:.3e} ({card})")
+    if not diff <= 1e-3 or not 0.0 < out["near"]["image_mean"] < out["ungated"]["image_mean"]:
+        raise SystemExit("ToF windows do not partition the ungated image")
+    return {**out, "max_abs_partition_err": diff}
+
+
+def phase_grad(mk, tk, dev, card: str, vscene, vcam, kscene, kcam, f32, MaxDepthParams,
+               RenderingConfig, ParsedScene, Renderer) -> dict:
+    """Phase 17: gradients on the card (module docstring)."""
+    t0 = time.perf_counter()
+    res = {"inverse_render": grad_steps(mk, dev, card), "checks": grad_checks(mk, dev, card),
+           "vpt": grad_vpt(mk, tk, dev, vscene, vcam, card),
+           "tof": grad_tof(mk, kscene, kcam, f32, MaxDepthParams, RenderingConfig, ParsedScene,
+                           Renderer, card)}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"[17] phase 17: {res['phase_s']:.1f} s ({card})")
+    return res
+
+
 def phase_render_megakernel(mk, tk, tts, dev, kscene, kcam, ref_mean: float,
                             MaxDepthParams) -> tuple:
     """The reference's render_megakernel at full size, in the formats of its
@@ -2885,7 +3180,7 @@ def main():
 
 
 def run_phases(args, build: dict, sass_job: dict) -> int:
-    """Phases 2-16 and the result lines, after the build (phase 1)."""
+    """Phases 2-17 and the result lines, after the build (phase 1)."""
     from cuda_pt_torch.api import Renderer
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import extract_ab as ab
@@ -2948,6 +3243,8 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
     k1_lt, light, rl = phase_light(mk, tk, tts, dev, kscene, kcam, forests["f32"], T,
                                    MaxDepthParams, RendererType, RenderingConfig, ParsedScene,
                                    Renderer)
+    grad = phase_grad(mk, tk, dev, card, rv.scene, rv.camera, kscene, kcam, forests["f32"],
+                      MaxDepthParams, RenderingConfig, ParsedScene, Renderer)
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
@@ -2990,10 +3287,13 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          **{k: k1[k] for k in ("registers", "spill_stores", "spill_loads") if k in k1},
          **({"parent_ms": k1["parent"]["closest"]["parent_ms"],
              "anyhit_parent_ms": k1["parent"]["anyhit"]["parent_ms"]} if "parent" in k1 else {}),
-         **k1_wf, **k1_lt,
+         **k1_wf, **k1_lt, "grad_vpt_launches": grad["vpt"]["k1_launches"],
+         "tof_launches_per_pass": grad["tof"]["ungated"]["k1_launches_per_pass"],
          "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
                  "rays of kitchen_stress; main_path_*: summed over one wavefront spp; lt_*: "
-                 "the light tracer's main path, one pass (lt_launches_per_pass over LT_SPP)"},
+                 "the light tracer's main path, one pass (lt_launches_per_pass over LT_SPP); "
+                 "grad_vpt_launches: the VPT gradient render (phase 17, forward and "
+                 "backward); tof_launches_per_pass: the ToF route's ungated passes"},
         {"name": "trace_megakernel (K2+BIN: render_megakernel, cornell, binary f32 nodes)",
          "route": "cuda", "source": "cuda_pt_torch/csrc/megakernel_bin.cu",
          "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:802", "library_ms": None,
@@ -3017,7 +3317,7 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
     for k in kernels:
         k.pop("runs", None)
     extra = {"k1_check": {k: v for k, v in k1.items() if k != "timing"}, "routes_check": routes,
-             "light_check": light, "build": build}
+             "light_check": light, "grad_check": grad, "build": build}
     if args.profile:
         md = MaxDepthParams()
         for key, run in (("profile", r.render_raw), ("profile_kitchen", rk.render_raw),

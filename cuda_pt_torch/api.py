@@ -24,7 +24,9 @@ the reference's names:
   as one chunk; "wide" the 8-wide walk over a wide tree collapsed at
   construction. "xla" and "wide" (and so the default composed routes)
   are plain PyTorch walks that launch no kernel, slow on the card at
-  full size; only "pallas" walks on a kernel there;
+  full size; only "pallas" walks on a kernel there. A ToF-gated config
+  (md.max_time > 0) takes these routes: the fused kernels take no ToF
+  window;
 - "auto" and "mxu" wait for ROADMAP Queue 1 items 6 and 13.
 DEPTH (debug_renderers.render_depth) and BVH_COST (render_bvh_cost) walk
 the skip walk or the brute force whatever ``traversal`` says, as in the
@@ -95,10 +97,13 @@ _TRAVERSAL_WAITING = {
 }
 
 
-def _envelope_message(scene: T.Scene, vpt: bool) -> str:
+def _envelope_message(scene: T.Scene, md: MaxDepthParams, vpt: bool) -> str:
     """Why a scene is outside the kernel's envelope, with the renderer or
     the ROADMAP item that would bring it in."""
-    if T.BSDF_PLASTIC_FORWARD in scene.present_bsdfs:
+    if md.max_time > 0.0:
+        item = ("the fused kernels take no ToF window, as in the reference; traversal=None "
+                "renders a gated scene through the composed path")
+    elif T.BSDF_PLASTIC_FORWARD in scene.present_bsdfs:
         item = ("Plastic-forward stays outside the fused kernel, as in the reference; "
                 "traversal=None renders it through the composed path")
     elif mk.scene_has_media(scene) and not vpt:
@@ -168,7 +173,7 @@ class Renderer:
                 "with emission stays outside it, as in the reference; the composed volume path "
                 "tracer's grid route waits for ROADMAP Queue 1 item 8")
         if (self.fused and not fused_ok) or (not vpt and mk.scene_has_media(scene)):
-            raise ValueError(_envelope_message(scene, vpt))
+            raise ValueError(_envelope_message(scene, self.md, vpt))
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device=None) renders on CUDA, which is not available; "
@@ -216,8 +221,8 @@ class Renderer:
             o, d, rng = cam_mod.generate_rays(self.camera, lane, rng)
             return volume_pt.trace_paths(self.scene, self.md, o, d, rng,
                                          wl_u=pt.wl_stratum_u(self.seed, idx, lane))
-        return pt.render_band(self.scene, self.camera, self.md, self.seed, idx, start, count,
-                              self.nee_candidates)
+        return pt.render_band(self.scene, self.camera, self.md, self.seed, idx, None, start, count,
+                              nee_candidates=self.nee_candidates)
 
     def _whole_pass(self, idx: int) -> torch.Tensor:
         """One pass of a family that is never banded -> (H, W, 3)."""

@@ -347,7 +347,7 @@ def sample_bsdf(ctx, wo: torch.Tensor, rng_state: torch.Tensor, wl: torch.Tensor
                     torch.where(refl[:, None], rgb, rgb * rad[:, None]) * ctx["ks"]))
         delta_p.append((T.BSDF_DISPERSION, ones_b))
         lobe_p.append((T.BSDF_DISPERSION, torch.where(refl, LOBE_SPECULAR, LOBE_TRANSMIT)))
-        wl_out = torch.where(bt == T.BSDF_DISPERSION, wl_use, wl)
+        wl_out = torch.where(bt == T.BSDF_DISPERSION, wl_use.detach(), wl)
 
     if T.BSDF_FORWARD in present:
         wi_p.append((T.BSDF_FORWARD, -wo))
@@ -360,10 +360,10 @@ def sample_bsdf(ctx, wo: torch.Tensor, rng_state: torch.Tensor, wl: torch.Tensor
             out = _sel(bt, typ, val, out)
         return out
 
-    out = {
-        "wi": select(wi_p, wi_lam),
+    out = {  # the sampled direction and its pdf are detached, the weight attached
+        "wi": select(wi_p, wi_lam).detach(),
         "weight": select(w_p, w_lam),
-        "pdf": select(pdf_p, pdf_lam),
+        "pdf": select(pdf_p, pdf_lam).detach(),
         "is_delta": select(delta_p, torch.zeros(B, dtype=torch.bool, device=dev)),
         "lobe": select(lobe_p, torch.full((B,), LOBE_DIFFUSE, device=dev)),
         "wl": wl_out,

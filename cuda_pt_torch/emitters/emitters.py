@@ -75,7 +75,9 @@ def sample_emitter(scene: T.Scene, p: torch.Tensor, n: torch.Tensor, rng_state: 
     """One NEE candidate per ray. Draw order: u_sel, u_prim (1d each),
     u_pos (2d), and u_tex (2d) when the scene has envmap importance tables.
 
-    Returns ({dir, dist, le, pdf, valid, delta, prim, eid}, rng_state)."""
+    Returns ({dir, dist, le, pdf, valid, delta, prim, eid}, rng_state); the
+    sample's dir, dist and pdf are detached (sampling decisions), le stays
+    attached."""
     B = p.shape[0]
     e = scene.emitters
     g = scene.geom
@@ -162,8 +164,8 @@ def sample_emitter(scene: T.Scene, p: torch.Tensor, n: torch.Tensor, rng_state: 
     pdf = torch.where(is_point, pdf_point, torch.where(is_env, pdf_env, pdf_area))
     valid = torch.where(is_area, front, True) & (etype != T.EMITTER_NULL)
     valid = valid & (torch.amax(le, dim=-1) > 0.0) & (pdf > 1e-12)
-    return {"dir": dirn_out, "dist": dist_out, "le": le, "pdf": pdf, "valid": valid,
-            "delta": is_point, "prim": prim, "eid": eid}, rng_state
+    return {"dir": dirn_out.detach(), "dist": dist_out.detach(), "le": le, "pdf": pdf.detach(),
+            "valid": valid, "delta": is_point, "prim": prim, "eid": eid}, rng_state
 
 
 def sample_le(scene: T.Scene, rng_state: torch.Tensor, n_lanes: int):

@@ -1,11 +1,12 @@
 """Grid (heterogeneous) medium: delta-tracking free flight, ratio-tracking
-transmittance, blackbody emission (port of cuda_pt_tpu/media/grid.py,
-forward mode).
+transmittance, blackbody emission (port of cuda_pt_tpu/media/grid.py).
 
 Grids are dense (G, D, H, W) tensors with trilinear lookups. The tracking
 loops run a fixed MAX_TRACK_STEPS steps with masked termination, each step
 one ``next2d`` draw on every lane (the reference's draw order), so a lane's
-result does not depend on how the batch is grouped.
+result does not depend on how the batch is grouped. As in the reference,
+the tracking steps, the collision test and the roulette read detached
+values, and the weights keep the attached density.
 """
 
 from __future__ import annotations
@@ -101,14 +102,17 @@ def sample_distance_arrays(grids: T.GridMediumData, gid, scale, maj, albedo, o, 
     for _ in range(MAX_TRACK_STEPS):
         u, rng = prng.next2d(rng)
         step = -torch.log(torch.clamp(1.0 - u[..., 0], min=1e-12)) * inv_maj
-        t_new = t + step
+        t_new = t + step.detach()
         pass_srf = t_new >= t_surf
         p = o + t_new[:, None] * d
         dens = density_lookup(grids, gid, p) * scale
         ratio = torch.clamp(dens * inv_maj, 0.0, 1.0)
-        real = u[..., 1] < ratio
-        w_real = ratio / torch.clamp(ratio, min=1e-8)
-        w_null = (1.0 - ratio) / torch.clamp(1.0 - ratio, min=1e-8)
+        ratio_d = ratio.detach()
+        real = u[..., 1] < ratio_d
+        # attached weights over their detached probabilities: 1 in value,
+        # d(sigma) in the gradient
+        w_real = ratio / torch.clamp(ratio_d, min=1e-8)
+        w_null = (1.0 - ratio) / torch.clamp(1.0 - ratio_d, min=1e-8)
         upd = ~done
         w = torch.where(upd & ~pass_srf, w * torch.where(real, w_real, w_null), w)
         t = torch.where(upd, torch.where(pass_srf, t_surf, t_new), t)
@@ -131,14 +135,14 @@ def transmittance_grid(scene: T.Scene, mid, o, d, dist, rng, active):
     for _ in range(MAX_TRACK_STEPS):
         u, rng = prng.next2d(rng)
         step = -torch.log(torch.clamp(1.0 - u[..., 0], min=1e-12)) * inv_maj
-        t_new = t + step
+        t_new = t + step.detach()
         out = t_new >= dist
         p = o + t_new[:, None] * d
         dens = density_lookup(scene.grids, gid, p) * scale
         ratio = torch.clamp(dens * inv_maj, 0.0, 1.0)
         upd = ~done & ~out
         tr = torch.where(upd, tr * (1.0 - ratio), tr)
-        low = upd & (tr < 1e-3)
+        low = upd & (tr.detach() < 1e-3)  # the roulette reads the detached Tr
         rr_kill = low & (u[..., 1] > 0.5)
         tr = torch.where(rr_kill, 0.0, torch.where(low, tr * 2.0, tr))
         done = done | out | rr_kill | (tr <= 0.0)
@@ -169,14 +173,14 @@ def transmittance_residual_arrays(grids: T.GridMediumData, gid, scale, maj, o, d
     for _ in range(MAX_TRACK_STEPS):
         u, rng = prng.next2d(rng)
         step = -torch.log(torch.clamp(1.0 - u[..., 0], min=1e-12)) * inv_maj
-        t_new = t + step
+        t_new = t + step.detach()
         out = t_new >= dist
         p = o + t_new[:, None] * d
         dens = density_lookup(grids, gid, p) * scale
         upd = ~done & ~out
         # signed residual factor: above 1 where sigma < sigma_c, unbiased
         tr = torch.where(upd, tr * (1.0 - (dens - sigma_c) * inv_maj), tr)
-        trd = torch.abs(tr)
+        trd = torch.abs(tr.detach())  # the roulette reads the detached |Tr|
         rr = upd & (trd < 0.1)
         kill = rr & (u[..., 1] >= trd)
         tr = torch.where(kill, 0.0, torch.where(rr, tr / torch.clamp(trd, min=1e-12), tr))

@@ -72,4 +72,4 @@ def phase_sample(ptype, g, g2, w, d_in: torch.Tensor, u2: torch.Tensor, u1: torc
     phi = 2.0 * math.pi * u2[..., 1]
     local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t], dim=-1)
     d_out = vm.to_world(local, d_in)
-    return d_out, phase_eval(ptype, g, g2, w, d_in, d_out)
+    return d_out.detach(), phase_eval(ptype, g, g2, w, d_in, d_out)

@@ -110,10 +110,10 @@ def render_pass(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, p
         o = p + inter["n_g"] * off * 1e-3
         n_spec = n_spec + (hit_ok & (bs["lobe"] != bsdf_eval.LOBE_DIFFUSE)).to(torch.int32)
 
-        # Russian roulette on the bounce weight from bounce 1 (the initial
-        # throughput is in flux units, far above 1)
-        w_mx = torch.amax(bs["weight"], dim=-1)
-        mx = torch.amax(thp_new, dim=-1)
+        # Russian roulette on the detached bounce weight from bounce 1 (the
+        # initial throughput is in flux units, far above 1)
+        w_mx = torch.amax(bs["weight"].detach(), dim=-1)
+        mx = torch.amax(thp_new.detach(), dim=-1)
         u_rr, rng = prng.next1d(rng)
         p_srv = torch.clamp(w_mx, 0.1, 1.0) if bounce >= 1 else torch.ones_like(w_mx)
         thp_new = thp_new / p_srv[:, None]
@@ -141,11 +141,8 @@ def render_bidirectional(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams
                          seed: int = 0, use_bvh=None, specular_constraint: int = 1,
                          caustic_scale: float = 1.0) -> torch.Tensor:
     """The reference's ``bidirectional`` mode: a path-traced image plus a
-    light-traced caustic image (seed + 1). The path-traced half picks its
-    walk by the scene's prim count (path_tracer.render takes no use_bvh
-    yet, ROADMAP Queue 1 item 4); the hits do not depend on the choice
-    beyond exact-t ties."""
-    img_pt = pt.render(scene, cam, md, spp, seed=seed)
+    light-traced caustic image (seed + 1)."""
+    img_pt = pt.render(scene, cam, md, spp, seed=seed, use_bvh=use_bvh)
     img_lt = render(scene, cam, md, spp, seed=seed + 1, use_bvh=use_bvh,
                     specular_constraint=specular_constraint, caustic_scale=caustic_scale)
     return img_pt + img_lt

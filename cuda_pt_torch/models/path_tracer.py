@@ -1,11 +1,14 @@
 """Unidirectional path tracer with NEE + MIS (port of
-cuda_pt_tpu/models/path_tracer.py, forward mode).
+cuda_pt_tpu/models/path_tracer.py).
 
 Per bounce: closest hit -> envmap miss accumulation (MIS against the
 cached envmap NEE pdf) -> emitter-hit MIS -> NEE with a shadow ray and
 light MIS (RIS over ``nee_candidates`` when > 1) -> BSDF sampling ->
 per-lobe depth caps -> NaN guard -> Russian roulette after bounce 1
-(survival clip(max_thp, 0.1, 1)). The pcg draw order of ``pt_bounce`` is
+(survival clip(max_thp, 0.1, 1), or the fixed schedule of a
+differentiable render). ToF gating (``md.max_time > 0``) weights the
+envmap miss, the emitter hit and NEE by whether the path length ``dist``
+lies in [md.min_time, md.max_time]. The pcg draw order of ``pt_bounce`` is
 kept exactly: per bounce, 3 NEE advances per candidate (+1 with envmap
 importance tables, +1 reservoir draw per candidate when RIS is on), 3
 BSDF advances, 1 RR advance. The renderers pass the dispersion wavelength
@@ -43,15 +46,30 @@ records between bounces (the state's ``rec``):
   ``uv``); the driver multiplies the texel into it and into the
   throughput, so Russian roulette sees the texels of the earlier bounces.
 
-Still narrowed: the differentiable mode and ToF gating (ROADMAP Queue 1
-item 4). Participating media render with models/volume_pt.py.
+The differentiable mode (``differentiable=True`` or ``"remat"``) is torch
+autograd through the composed estimator: exactly ``md.max_depth`` masked
+bounces with the fixed Russian-roulette schedule, the sampling decisions
+detached (emitter and BSDF sample directions and pdfs, the roulette's
+throughput) and the radiometry attached, so gradients flow to the BSDF,
+emitter and texture tables. "remat" recomputes each bounce (trace_paths)
+or each pass (render) in the backward pass (torch.utils.checkpoint)
+instead of keeping their activations. A forward render runs under
+torch.no_grad(): its roulette depends on the throughput, which biases a
+gradient, so none is built.
+Kernel K1 has no backward: its inputs and outputs are detached
+(``_detached``), and a differentiable render under "pallas" warns and
+walks with "xla", as the reference does. Participating media render with
+models/volume_pt.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
+import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..accel import traverse
 from ..bsdf import eval as bsdf_eval
@@ -91,6 +109,7 @@ class PTState:
     n_diff: torch.Tensor
     n_spec: torch.Tensor
     n_trans: torch.Tensor
+    dist: torch.Tensor  # path length so far (ToF gating)
     wl: torch.Tensor  # locked dispersion wavelength (0 = unset)
     bounce: int
     wl_u: torch.Tensor | None = None  # per-lane wavelength stratum (None = drawn)
@@ -104,14 +123,12 @@ def wl_stratum_u(seed, s_idx, lane: torch.Tensor) -> torch.Tensor:
     (so it shifts no other draw), in u32 fixed point."""
     st = prng.seed((int(seed) & prng.MASK32) ^ 0xA511E9B3, prng.as_u32(lane))
     u0 = prng.next2d(st)[1][..., 0]
-    s = prng.as_u32(int(s_idx), lane.device)
+    s = prng.as_u32(s_idx, lane.device)  # a sample index, or one per lane
     return prng.u01((u0 + prng.mul32(s.expand_as(u0), _WL_PHI_U32)) & prng.MASK32)
 
 
-def check_supported(scene: T.Scene, md: MaxDepthParams):
-    """Raise for scene features this slice does not port."""
-    if md.max_time > 0.0:
-        raise NotImplementedError("ToF gating waits for ROADMAP Queue 1 item 4")
+def check_supported(scene: T.Scene):
+    """Raise for a scene with media, which render with models/volume_pt.py."""
     if int(scene.objects.medium_in.max()) >= 0 or scene.cam_medium >= 0:
         raise NotImplementedError("participating media render with models/volume_pt.py "
                                   "(RendererType.VOLUME_PT)")
@@ -155,6 +172,16 @@ def pallas_forest(scene: T.Scene):
     return tk.single_chunk_forest(scene.geom, scene.bvh)
 
 
+def _detached(fn, *args, **kw):
+    """fn(*args, **kw) outside autograd, its tensor inputs and outputs
+    detached: a K1 walk, which has no backward (on CUDA tensors a ctypes
+    launch that autograd cannot see), so the cut is explicit. The shading
+    that reads its hits stays attached; vertex gradients need the plain
+    walks."""
+    out = fn(*[a.detach() if torch.is_tensor(a) else a for a in args], **kw)
+    return {k: v.detach() for k, v in out.items()}
+
+
 def _walks(scene: T.Scene, use_bvh: bool | None = None):
     """(closest, any hit) of the scene's walk backend as functions of
     (o, d) and (o, d, t_far); None for the brute force: where use_bvh is
@@ -170,9 +197,9 @@ def _walks(scene: T.Scene, use_bvh: bool | None = None):
     ml = scene.bvh.max_leaf  # the tree's leaf capacity, as the reference passes it
     forest = pallas_forest(scene) if impl == "pallas" else None
     if forest is not None:
-        return (lambda o, d: tk.traverse_forest(forest, o, d, max_leaf=ml),
-                lambda o, d, t: tk.traverse_forest(forest, o, d, t, max_leaf=ml,
-                                                   occlusion=True)["occluded"])
+        return (lambda o, d: _detached(tk.traverse_forest, forest, o, d, max_leaf=ml),
+                lambda o, d, t: _detached(tk.traverse_forest, forest, o, d, t, max_leaf=ml,
+                                          occlusion=True)["occluded"])
     if impl == "wide" and scene.wide is not None:
         from ..accel import wide_traverse
 
@@ -238,8 +265,42 @@ def surface_record(scene: T.Scene, hit: dict, p, d) -> dict:
             "med_obj": hit["med_obj"]}
 
 
+def _tof_weight(md: MaxDepthParams, dist: torch.Tensor) -> torch.Tensor:
+    """ToF gating factor: 1 where the path length dist lies in
+    [md.min_time, md.max_time] (distance as time), else 0; 1 everywhere
+    when md.max_time <= 0."""
+    if md.max_time <= 0.0:
+        return torch.ones_like(dist)
+    return ((dist >= md.min_time) & (dist <= md.max_time)).to(torch.float32)
+
+
+def tof_gate(md: MaxDepthParams, dist: torch.Tensor, fused: bool):
+    """_tof_weight of path length dist; 1 for the fused estimator, whose
+    kernels take no ToF window (ops/megakernel.megakernel_ok)."""
+    return 1.0 if fused else _tof_weight(md, dist)
+
+
+def survival(bounce: int, thp: torch.Tensor, fixed_rr: bool):
+    """(max_thp, p_survive) of the Russian roulette after bounce 1, from the
+    detached throughput. fixed_rr: the differentiable renders' schedule
+    max(exp(-0.25 (bounce - 1)), 0.1), which does not depend on the
+    throughput (a throughput-dependent survival biases the gradient)."""
+    max_thp = torch.amax(thp.detach(), dim=-1)
+    if bounce < 1:
+        return max_thp, torch.ones_like(max_thp)
+    if fixed_rr:
+        sched = torch.exp(torch.tensor(-0.25 * (bounce - 1), dtype=torch.float32))
+        return max_thp, torch.full_like(max_thp, float(torch.clamp(sched, min=0.1)))
+    return max_thp, torch.clamp(max_thp, 0.1, 1.0)
+
+
 def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
-                nee_candidates: int = 1, fused: bool = False, seg: bool = False) -> PTState:
+                nee_candidates: int = 1, fused: bool = False, seg: bool = False,
+                use_bvh: bool | None = None, fixed_rr: bool = False) -> PTState:
+    """Emitter MIS, NEE, BSDF scatter and RR of every lane at its hit.
+    fused / seg: the fused kernel's estimator (module docstring); use_bvh:
+    the shadow walk's pick (_walks); fixed_rr: the differentiable renders'
+    roulette schedule (survival)."""
     B = s.o.shape[0]
     t = hit["t"]
     hit_ok = hit["hit"] & s.active
@@ -254,8 +315,9 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
         L = s.L
     elif scene.env_emitter > 0:
         env_le = emitters.env_radiance(scene, s.d)
-        w_env = 1.0 if fused else torch.where(
-            s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, s.env_pdf))[:, None]
+        w_env = 1.0 if fused else (torch.where(
+            s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, s.env_pdf))
+            * _tof_weight(md, s.dist))[:, None]
         L = s.L + torch.where(miss[:, None], s.thp * tex_p * env_le * w_env, 0.0)
     else:
         L = s.L
@@ -265,6 +327,7 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     p = s.o + t_safe[:, None] * s.d
     sf = surface_record(scene, hit, p, s.d)
     bid, eid = sf["bid"], sf["eid"]
+    dist_new = s.dist + torch.where(hit_ok, t_safe, 0.0)
 
     # ---- emitter hit MIS -------------------------------------------------
     cos_l = -vm.dot(s.d, sf["n_g"])
@@ -272,6 +335,7 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     pdf_l = emitters.hit_emitter_pdf_of(scene, eid, sf["inv_area"], t_safe,
                                         torch.clamp(cos_l, min=1e-6))
     w_hit = torch.where(s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, pdf_l))
+    w_hit = w_hit * tof_gate(md, dist_new, fused)
     emit_mask = hit_ok & (eid > 0) & (cos_l > 1e-6)
     L = L + torch.where(emit_mask[:, None], s.thp * tex_p * le_hit * w_hit[:, None], 0.0)
 
@@ -322,11 +386,14 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     # the origin offset shortens the true segment: subtract its projection
     dist_shadow = es["dist"] - torch.abs(vm.dot(sf["n_g"], es["dir"])) * isect.RAY_OFFSET
     need = hit_ok & es["valid"] & (torch.amax(f_cos, dim=-1) > 0.0)
-    occ = occluded(scene, p_shadow, es["dir"], dist_shadow, need)
+    occ = occluded(scene, p_shadow, es["dir"], dist_shadow, need, use_bvh)
     # at the last bounce the BSDF continuation is never traced, so NEE
     # takes the full MIS weight
     last_bounce = s.bounce >= (md.max_depth - 1)
     w_nee = torch.where(es["delta"] | last_bounce, 1.0, sampling.power_heuristic(es["pdf"], bpdf))
+    # the light's distance counts unless it is the envmap's
+    w_nee = w_nee * tof_gate(md, dist_new + torch.where(es["dist"] < emitters.MAX_DIST * 0.5,
+                                                       es["dist"], 0.0), fused)
     nee_ok = need & ~occ
     contrib = s.thp * tex_here * f_cos * es["le"] * (w_nee * inv_density)[:, None]
     if inline_tex:
@@ -350,12 +417,8 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
                 & (n_trans <= md.max_transmit))
 
     # ---- Russian roulette after bounce 1 -------------------------------
-    max_thp = torch.amax(thp, dim=-1)
+    max_thp, p_survive = survival(s.bounce, thp, fixed_rr)
     u_rr, rng = prng.next1d(rng)
-    if s.bounce >= 1:
-        p_survive = torch.clamp(max_thp, 0.1, 1.0)
-    else:
-        p_survive = torch.ones_like(max_thp)
     survive = u_rr < p_survive
     thp = thp / p_survive[:, None]
 
@@ -373,6 +436,7 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
         n_diff=n_diff,
         n_spec=n_spec,
         n_trans=n_trans,
+        dist=dist_new,
         wl=torch.where(active, bs["wl"], s.wl),
         bounce=s.bounce + 1,
         wl_u=s.wl_u,
@@ -381,16 +445,18 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     )
 
 
-def intersect_stage(scene: T.Scene, s: PTState) -> dict:
+def intersect_stage(scene: T.Scene, s: PTState, use_bvh: bool | None = None) -> dict:
     """Wavefront stage 1: the closest hit of every live lane."""
-    return closest_hit(scene, s.o, s.d, s.active)
+    return closest_hit(scene, s.o, s.d, s.active, use_bvh)
 
 
 def pt_bounce(scene: T.Scene, md: MaxDepthParams, s: PTState, nee_candidates: int = 1,
-              fused: bool = False, seg: bool = False) -> PTState:
+              fused: bool = False, seg: bool = False, use_bvh: bool | None = None,
+              fixed_rr: bool = False) -> PTState:
     """One full bounce: closest hit, then shading. seg (with fused): the
     segment kernel's bounce (module docstring)."""
-    return shade_stage(scene, md, s, intersect_stage(scene, s), nee_candidates, fused, seg)
+    return shade_stage(scene, md, s, intersect_stage(scene, s, use_bvh), nee_candidates, fused,
+                       seg, use_bvh, fixed_rr)
 
 
 def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None,
@@ -404,50 +470,143 @@ def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None,
         active=torch.ones(B, dtype=torch.bool, device=dev),
         prev_pdf=torch.ones(B, device=dev),
         prev_delta=torch.ones(B, dtype=torch.bool, device=dev),
-        env_pdf=zf, n_diff=zi, n_spec=zi, n_trans=zi, wl=zf, bounce=0, wl_u=wl_u,
+        env_pdf=zf, n_diff=zi, n_spec=zi, n_trans=zi, dist=zf, wl=zf, bounce=0, wl_u=wl_u,
         tex=torch.ones_like(o) if fused else None)
 
 
-def trace_paths_final(scene: T.Scene, md: MaxDepthParams, o, d, rng, nee_candidates: int = 1,
-                      wl_u=None, fused: bool = False) -> PTState:
-    """Run the bounce loop until every lane is done or max_depth is hit."""
-    check_supported(scene, md)
+def remat(fn, *args):
+    """fn(*args) under a non-reentrant activation checkpoint: the backward
+    pass recomputes fn instead of keeping its intermediates (the
+    reference's jax.checkpoint). The tracer draws from its own pcg
+    streams, so no torch RNG state is kept."""
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def trace_paths_final(scene: T.Scene, md: MaxDepthParams, o, d, rng, use_bvh: bool | None = None,
+                      differentiable: bool | str = False, wl_u=None, nee_candidates: int = 1,
+                      fused: bool = False) -> PTState:
+    """Run the bounce loop to completion; returns the final PTState.
+
+    A forward render stops when every lane is done or max_depth is hit,
+    under torch.no_grad(). A differentiable one runs exactly md.max_depth
+    masked bounces with the fixed roulette schedule; "remat" recomputes
+    each bounce in the backward pass. Under traversal "pallas" it warns
+    and walks with "xla" (module docstring)."""
+    check_supported(scene)
     s = init_state(o, d, rng, wl_u, fused)
-    while s.bounce < md.max_depth and bool(s.active.any()):
-        s = pt_bounce(scene, md, s, nee_candidates, fused)
+    if not differentiable:
+        with torch.no_grad():
+            while s.bounce < md.max_depth and bool(s.active.any()):
+                s = pt_bounce(scene, md, s, nee_candidates, fused, use_bvh=use_bvh)
+        return s
+    if (scene.traversal or TRAVERSAL_IMPL) == "pallas":
+        warnings.warn("differentiable render with traversal='pallas' would detach geometry "
+                      "gradients; falling back to traversal='xla'", stacklevel=2)
+        scene = dataclasses.replace(scene, traversal="xla")
+
+    def bounce(st: PTState) -> PTState:
+        return pt_bounce(scene, md, st, nee_candidates, use_bvh=use_bvh, fixed_rr=True)
+
+    for _ in range(md.max_depth):
+        s = remat(bounce, s) if differentiable == "remat" else bounce(s)
     return s
 
 
-def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, nee_candidates: int = 1,
-                wl_u=None, fused: bool = False):
+def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, use_bvh: bool | None = None,
+                differentiable: bool | str = False, wl_u=None, nee_candidates: int = 1,
+                fused: bool = False):
     """Radiance (B, 3) for a batch of rays with pcg states (B, 2)."""
-    return trace_paths_final(scene, md, o, d, rng, nee_candidates, wl_u, fused).L
+    return trace_paths_final(scene, md, o, d, rng, use_bvh, differentiable, wl_u,
+                             nee_candidates, fused).L
 
 
 def render_band(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, sample_idx,
-                band_start: int, band_count: int, nee_candidates: int = 1):
+                use_bvh: bool | None, band_start: int, band_count: int,
+                differentiable: bool | str = False, sampler: str = "pcg",
+                nee_candidates: int = 1):
     """One 1-spp pass over lanes [band_start, band_start + band_count) ->
     (band_count, 3). Streams key off the absolute lane, so bands are
     bit-identical to the whole-frame pass."""
     lane = band_start + torch.arange(band_count, device=scene.device)
-    rng = qmc.make_state("pcg", seed, lane, sample_idx)
+    rng = qmc.make_state(sampler, seed, lane, sample_idx)
     o, d, rng = cam_mod.generate_rays(cam, lane, rng)
-    return trace_paths(scene, md, o, d, rng, nee_candidates,
-                       wl_u=wl_stratum_u(seed, sample_idx, lane))
+    return trace_paths(scene, md, o, d, rng, use_bvh, differentiable,
+                       wl_stratum_u(seed, sample_idx, lane), nee_candidates)
 
 
 def render_sample(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, sample_idx,
-                  nee_candidates: int = 1):
+                  use_bvh: bool | None = None, differentiable: bool | str = False,
+                  sampler: str = "pcg", nee_candidates: int = 1):
     """One 1-spp pass over all pixels -> (H, W, 3)."""
-    L = render_band(scene, cam, md, seed, sample_idx, 0, cam.width * cam.height,
-                    nee_candidates)
+    L = render_band(scene, cam, md, seed, sample_idx, use_bvh, 0, cam.width * cam.height,
+                    differentiable, sampler, nee_candidates)
     return L.reshape(cam.height, cam.width, 3)
 
 
+def render_pass_batched(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, pass_idx,
+                        k: int, use_bvh: bool | None = None, differentiable: bool | str = False,
+                        sampler: str = "pcg", nee_candidates: int = 1):
+    """k samples per pixel in one flat batch of W * H * k lanes -> the
+    (H, W, 3) sum. Lane l is pixel l // k, sample pass_idx * k + l % k, on
+    the stream of render_sample's (pixel, sample), so batched and
+    sequential passes give the same estimates."""
+    npix = cam.width * cam.height
+    lane = torch.arange(npix * k, device=scene.device)
+    pixel = lane // k
+    s_idx = pass_idx * k + lane % k
+    rng = qmc.make_state(sampler, seed, pixel, s_idx)
+    o, d, rng = cam_mod.generate_rays(cam, pixel, rng)
+    L = trace_paths(scene, md, o, d, rng, use_bvh, differentiable,
+                    wl_stratum_u(seed, s_idx, pixel), nee_candidates)
+    img = torch.zeros((npix, 3), device=scene.device).index_add_(0, pixel, L)
+    return img.reshape(cam.height, cam.width, 3)
+
+
 def render(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, spp: int, seed: int = 0,
-           nee_candidates: int = 1):
-    """Multi-spp render -> (H, W, 3) mean."""
+           use_bvh: bool | None = None, differentiable: bool | str = False,
+           samples_per_pass: int = 1, sampler: str = "pcg", nee_candidates: int = 1):
+    """Multi-spp render -> (H, W, 3) mean. differentiable=True: autograd
+    through the scene tables; "remat" recomputes each pass in the backward
+    pass, so gradient memory does not grow with spp. Its passes run their
+    bounces unchecked (trace_paths' "remat" checkpoints each bounce): a
+    checkpoint nested in another keeps its inputs, the bounce's state,
+    until the backward pass, and per bounce that state is as large as the
+    activations it would save. samples_per_pass folds k samples into one
+    batch per pass (k divides spp)."""
+    if use_bvh is None:
+        use_bvh = _use_bvh(scene)
+    k = max(1, samples_per_pass)
+    assert spp % k == 0, (spp, k)
+    in_pass = bool(differentiable)  # the bounces inside a pass: plain under "remat"
+
+    def one_pass(i: int) -> torch.Tensor:
+        if k == 1:
+            return render_sample(scene, cam, md, seed, i, use_bvh, in_pass, sampler,
+                                 nee_candidates)
+        return render_pass_batched(scene, cam, md, seed, i, k, use_bvh, in_pass, sampler,
+                                   nee_candidates)
+
     acc = torch.zeros((cam.height, cam.width, 3), device=scene.device)
-    for i in range(spp):
-        acc = acc + render_sample(scene, cam, md, seed, i, nee_candidates)
+    for i in range(spp // k):
+        acc = acc + (remat(one_pass, i) if differentiable == "remat" else one_pass(i))
     return acc / spp
+
+
+def render_tiled(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, spp: int,
+                 seed: int = 0, use_bvh: bool | None = None, rows_per_tile: int = 128,
+                 sampler: str = "pcg") -> np.ndarray:
+    """Memory-bounded render: the film in row bands of rows_per_tile rows
+    (the last one cut to the image), so lane state never exceeds
+    rows_per_tile x W lanes. Each band draws render's streams, so the
+    image equals render's. Returns a NumPy (H, W, 3) image."""
+    H, W = cam.height, cam.width
+    rows = min(rows_per_tile, H)
+    img = np.zeros((H, W, 3), np.float32)
+    for row0 in range(0, H, rows):
+        n = min(rows, H - row0)
+        acc = torch.zeros((n * W, 3), device=scene.device)
+        for i in range(spp):
+            acc = acc + render_band(scene, cam, md, seed, i, use_bvh, row0 * W, n * W,
+                                    sampler=sampler)
+        img[row0:row0 + n] = (acc / spp).reshape(n, W, 3).cpu().numpy()
+    return img

@@ -1,6 +1,6 @@
 """Volumetric path tracer with homogeneous media: nested media, free-flight
 distance sampling, transmittance NEE (port of
-cuda_pt_tpu/models/volume_pt.py, forward mode, homogeneous media).
+cuda_pt_tpu/models/volume_pt.py, homogeneous media).
 
 Per bounce: closest hit -> free flight through the current medium (the top
 of a per-lane stack of at most MAX_NESTED media, the scene's ``cam_medium``
@@ -12,7 +12,17 @@ the analytic transmittance of each segment -> phase sampling (medium) or
 BSDF sampling (surface) -> the medium stack toggled by object identity on
 transmission -> per-lobe and volume depth caps -> RR. pcg draw order per
 bounce: flight (1 advance), NEE (3, +1 with envmap importance tables),
-phase sample (2), BSDF sample (3), RR (1), on every lane.
+phase sample (2), BSDF sample (3), RR (1), on every lane. ToF gating
+(``md.max_time > 0``) weights the escape, the emitter hit and NEE by the
+path length, as in models/path_tracer.py.
+
+The differentiable mode (``differentiable=True`` or ``"remat"``) runs
+exactly ``md.max_depth`` bounces with the fixed roulette schedule, as
+path_tracer.trace_paths_final does, with no "pallas" fall-back: under
+"pallas" the walks run on kernel K1 with their inputs and outputs
+detached (path_tracer._detached), as the reference runs them, and the
+gradients flow through the media, BSDF and emitter tables. A forward
+render runs under torch.no_grad().
 
 ``fused=True`` computes the estimator of the fused TPU kernel with
 ``has_media`` (ops/pallas/megakernel.py:1224-1331, :1386-1439,
@@ -42,8 +52,7 @@ tracking. The kernel's media row holds zero sigmas for a grid medium, so
 every analytic factor of a grid lane is 1.
 
 Still narrowed: the composed estimator's grid route (ROADMAP Queue 1 item
-8), ToF gating and the differentiable mode (Queue 1 item 4), compaction
-(item 7).
+8) and compaction (item 7).
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ class VPTState:
     n_spec: torch.Tensor
     n_trans: torch.Tensor
     n_vol: torch.Tensor
+    dist: torch.Tensor  # path length so far (ToF gating)
     wl: torch.Tensor
     med_stack: torch.Tensor  # (B, MAX_NESTED) int32
     med_top: torch.Tensor  # (B,) int32, -1 = empty (the ambient medium)
@@ -115,15 +125,9 @@ def _pop(top, do):
     return torch.where(do, torch.clamp(top - 1, min=-1), top)
 
 
-def check_supported(scene: T.Scene, md: MaxDepthParams, differentiable=False, compact=False,
-                    fused=False):
+def check_supported(scene: T.Scene, compact=False, fused=False):
     """Raise for what this slice does not port. Grid media render only on
     the fused path, through the split sorted-wavefront driver."""
-    if md.max_time > 0.0:
-        raise NotImplementedError("ToF gating waits for ROADMAP Queue 1 item 4")
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable mode (fixed RR schedule) waits for ROADMAP Queue 1 item 4")
     if compact:
         raise NotImplementedError(
             "live-lane compaction waits for ROADMAP Queue 1 item 7 (models/wavefront.py)")
@@ -267,7 +271,8 @@ def _null_hit(scene: T.Scene, hit):
     return scene.objects.medium_in[obj], is_null
 
 
-def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, active, fused: bool = False):
+def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, active, fused: bool = False,
+                           use_bvh: bool | None = None):
     """Walk the shadow ray through at most MAX_CROSSINGS null interfaces,
     multiplying per-segment transmittance; an opaque hit gives 0. The
     medium toggles by object identity at each crossing, and the remaining
@@ -275,7 +280,7 @@ def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, active, fused: b
     tr = torch.ones_like(p)
     cur_p, cur_med, remaining, alive = p, mid0, dist, active
     for _ in range(MAX_CROSSINGS):
-        hit = pt.closest_hit(scene, cur_p, dirn, alive)
+        hit = pt.closest_hit(scene, cur_p, dirn, alive, use_bvh)
         if fused:
             seg = torch.minimum(torch.where(hit["hit"], hit["t"], remaining), remaining)
             st = _medium_params(scene, cur_med)["st"]
@@ -310,13 +315,16 @@ def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, active, fused: b
 
 
 def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = False,
-               seg: bool = False, hit: dict | None = None, flight: dict | None = None) -> VPTState:
+               seg: bool = False, hit: dict | None = None, flight: dict | None = None,
+               use_bvh: bool | None = None, fixed_rr: bool = False) -> VPTState:
     """One bounce. seg (with fused): the segment kernel's bounce; hit: the
     closest hit resolved from planes instead of walked; flight: the
-    delta-tracked flight of grid lanes (module docstring)."""
+    delta-tracked flight of grid lanes (module docstring); use_bvh: the
+    walks' pick (path_tracer._walks); fixed_rr: the differentiable
+    renders' roulette schedule (path_tracer.survival)."""
     cur_med = _peek(s, scene.cam_medium)
     if hit is None:
-        hit = pt.closest_hit(scene, s.o, s.d, s.active)
+        hit = pt.closest_hit(scene, s.o, s.d, s.active, use_bvh)
     mp = _medium_params(scene, cur_med)
     grid_rec = seg and bool((scene.media.mtype == T.MEDIUM_GRID).any())
 
@@ -334,6 +342,8 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
         med_event, t_evt = ms["is_medium"], ms["t"]
     srf_event = s.active & hit["hit"] & ~med_event
     p_evt = s.o + t_evt[:, None] * s.d
+    dist_new = s.dist + torch.where(s.active, t_evt, 0.0)
+    tofw = pt.tof_gate(md, dist_new, fused)
 
     # ---- escape: environment --------------------------------------------------
     esc = s.active & ~hit["hit"] & ~med_event
@@ -342,8 +352,9 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     if scene.env_emitter > 0 and seg:
         rec.update(pt.env_record(s, esc, thp))
     elif scene.env_emitter > 0:
-        w_env = 1.0 if fused else torch.where(
-            s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, s.env_pdf))[:, None]
+        w_env = 1.0 if fused else (torch.where(
+            s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, s.env_pdf))
+            * pt._tof_weight(md, s.dist))[:, None]
         L = L + torch.where(esc[:, None], thp * emitters.env_radiance(scene, s.d) * w_env, 0.0)
 
     # ---- surface interaction and emitter-hit MIS ---------------------------
@@ -353,7 +364,7 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     le_hit = emitters.emitter_radiance_hit(scene, torch.clamp(eid, min=0), sf["uv"], cos_l)
     pdf_l = emitters.hit_emitter_pdf_of(scene, eid, sf["inv_area"], t_evt,
                                         torch.clamp(cos_l, min=1e-6))
-    w_hit = torch.where(s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, pdf_l))
+    w_hit = torch.where(s.prev_delta, 1.0, sampling.power_heuristic(s.prev_pdf, pdf_l)) * tofw
     emit_mask = srf_event & (eid > 0) & (cos_l > 1e-6)
     L = L + torch.where(emit_mask[:, None], thp * le_hit * w_hit[:, None], 0.0)
 
@@ -374,10 +385,13 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     dist_shadow = es["dist"] - torch.abs(off_sign * gdir) * isect.RAY_OFFSET
     nee_try = (med_event | srf_event) & es["valid"] & (torch.amax(f_evt, dim=-1) > 0.0)
     tr_nee = transmittance_estimate(scene, p_shadow, es["dir"], dist_shadow, cur_med, nee_try,
-                                    fused)
+                                    fused, use_bvh)
     last_bounce = s.bounce >= (md.max_depth - 1)
     w_nee = torch.where(es["delta"] | last_bounce, 1.0,
                         sampling.power_heuristic(es["pdf"], pdf_evt))
+    # the light's distance counts unless it is the envmap's
+    w_nee = w_nee * pt.tof_gate(md, dist_new + torch.where(es["dist"] < T_MISS * 0.5,
+                                                           es["dist"], 0.0), fused)
     if fused:  # the kernel's order: the transmittance rides the emitted radiance
         contrib = thp * f_evt * (es["le"] * tr_nee) * (
             w_nee * (1.0 / torch.clamp(es["pdf"], min=1e-12)))[:, None]
@@ -425,9 +439,8 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     n_vol = s.n_vol + med_event.to(torch.int32)
     depth_ok = ((n_diff <= md.max_diffuse) & (n_spec <= md.max_specular)
                 & (n_trans <= md.max_transmit) & (n_vol <= md.max_volume))
-    max_thp = torch.amax(thp, dim=-1)
+    max_thp, p_survive = pt.survival(s.bounce, thp, fixed_rr)
     u_rr, rng = prng.next1d(rng)
-    p_survive = torch.clamp(max_thp, 0.1, 1.0) if s.bounce >= 1 else torch.ones_like(max_thp)
     thp = thp / p_survive[:, None]
     active = (med_event | srf_event) & depth_ok & (u_rr < p_survive) & (max_thp > 0.0)
     return VPTState(
@@ -436,7 +449,7 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
         prev_pdf=torch.where(active, torch.where(med_event, pdf_phase, bs["pdf"]), s.prev_pdf),
         prev_delta=torch.where(active, bs["is_delta"] & ~med_event, s.prev_delta),
         env_pdf=torch.where(active, env_pdf, s.env_pdf),
-        n_diff=n_diff, n_spec=n_spec, n_trans=n_trans, n_vol=n_vol,
+        n_diff=n_diff, n_spec=n_spec, n_trans=n_trans, n_vol=n_vol, dist=dist_new,
         wl=torch.where(active & srf_event, bs["wl"], s.wl),
         med_stack=med_stack, med_top=med_top, bounce=s.bounce + 1, wl_u=s.wl_u,
         rec=rec if seg else None)
@@ -451,32 +464,55 @@ def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None) -
         o=o, d=d, thp=torch.ones_like(o), L=torch.zeros_like(o), rng=rng,
         active=torch.ones(B, dtype=torch.bool, device=dev), prev_pdf=torch.ones(B, device=dev),
         prev_delta=torch.ones(B, dtype=torch.bool, device=dev), env_pdf=zf,
-        n_diff=zi, n_spec=zi, n_trans=zi, n_vol=zi, wl=zf,
+        n_diff=zi, n_spec=zi, n_trans=zi, n_vol=zi, dist=zf, wl=zf,
         med_stack=torch.full((B, MAX_NESTED), T.MEDIUM_NONE, dtype=torch.int32, device=dev),
         med_top=zi - 1, bounce=0, wl_u=wl_u)
 
 
-def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, wl_u=None, fused: bool = False,
-                differentiable: bool = False, compact: bool = False) -> torch.Tensor:
-    """Radiance (B, 3) of rays (B, 3) with pcg states (B, 2): the bounce
-    loop until every lane is done or max_depth is reached."""
-    check_supported(scene, md, differentiable, compact, fused)
+def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, use_bvh: bool | None = None,
+                differentiable: bool | str = False, compact: bool = False, wl_u=None,
+                fused: bool = False) -> torch.Tensor:
+    """Radiance (B, 3) of rays (B, 3) with pcg states (B, 2). A forward
+    render runs the bounce loop until every lane is done or max_depth is
+    reached, under torch.no_grad(); a differentiable one exactly
+    md.max_depth bounces with the fixed roulette schedule, each recomputed
+    in the backward pass under "remat" (module docstring)."""
+    check_supported(scene, compact, fused)
     s = init_state(o, d, rng, wl_u)
-    while s.bounce < md.max_depth and bool(s.active.any()):
-        s = vpt_bounce(scene, md, s, fused)
+    if not differentiable:
+        with torch.no_grad():
+            while s.bounce < md.max_depth and bool(s.active.any()):
+                s = vpt_bounce(scene, md, s, fused, use_bvh=use_bvh)
+        return s.L
+
+    def bounce(st: VPTState) -> VPTState:
+        return vpt_bounce(scene, md, st, use_bvh=use_bvh, fixed_rr=True)
+
+    for _ in range(md.max_depth):
+        s = pt.remat(bounce, s) if differentiable == "remat" else bounce(s)
     return s.L
 
 
 def render(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, spp: int, seed: int = 0,
-           differentiable: bool = False, compact: bool = False, sampler: str = "pcg"):
+           use_bvh: bool | None = None, differentiable: bool | str = False,
+           compact: bool = False, sampler: str = "pcg"):
     """Multi-spp render -> (H, W, 3) mean, with the per-(pixel, sample)
-    streams and wavelength strata of models/path_tracer.render."""
-    check_supported(scene, md, differentiable, compact)
+    streams and wavelength strata of models/path_tracer.render; "remat"
+    recomputes each pass in the backward pass, its bounces unchecked, as
+    path_tracer.render does."""
+    check_supported(scene, compact)
+    if use_bvh is None:
+        use_bvh = pt._use_bvh(scene)
     B = cam.width * cam.height
     lane = torch.arange(B, device=scene.device)
-    acc = torch.zeros((B, 3), device=scene.device)
-    for i in range(spp):
+
+    def one_pass(i: int) -> torch.Tensor:
         rng = qmc.make_state(sampler, seed, lane, i)
         o, d, rng = cam_mod.generate_rays(cam, lane, rng)
-        acc = acc + trace_paths(scene, md, o, d, rng, wl_u=pt.wl_stratum_u(seed, i, lane))
+        return trace_paths(scene, md, o, d, rng, use_bvh, bool(differentiable),
+                           wl_u=pt.wl_stratum_u(seed, i, lane))
+
+    acc = torch.zeros((B, 3), device=scene.device)
+    for i in range(spp):
+        acc = acc + (pt.remat(one_pass, i) if differentiable == "remat" else one_pass(i))
     return (acc / spp).reshape(cam.height, cam.width, 3)

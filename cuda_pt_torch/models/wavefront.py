@@ -89,7 +89,7 @@ def trace_paths_wavefront(scene: T.Scene, md: MaxDepthParams, o: torch.Tensor,
     """The bounce loop with a sort per bounce -> (L, pix): L[i] belongs to
     the original lane pix[i]. compact: the live-prefix ladder of
     compact_sizes (module docstring)."""
-    pt.check_supported(scene, md)
+    pt.check_supported(scene)
     B = o.shape[0]
     s = pt.init_state(o, d, rng, wl_u)
     pix = torch.arange(B, device=o.device)

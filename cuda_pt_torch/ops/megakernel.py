@@ -895,7 +895,7 @@ def trace_megakernel_reference(pack: MKPack, md, o, d, rng, nee_candidates: int 
         if nee_candidates != 1:
             raise ValueError("the fused volume path tracer takes nee_candidates=1")
         return volume_pt.trace_paths(scene, md, o, d, rng, fused=True)
-    return pt.trace_paths(scene, md, o, d, rng, nee_candidates, fused=True)
+    return pt.trace_paths(scene, md, o, d, rng, nee_candidates=nee_candidates, fused=True)
 
 
 def trace_megakernel(pack: MKPack, md, o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor,
@@ -1074,7 +1074,8 @@ def _seg_state(pack: MKPack, st: torch.Tensor, n: int, bounce: int):
         active=f[S_ACT, :n] > 0.5, prev_pdf=f[S_PPDF, :n].clone(),
         prev_delta=f[S_PDELTA, :n] > 0.5, env_pdf=torch.zeros(n, device=st.device),
         n_diff=f[S_NDIFF, :n].to(torch.int32), n_spec=f[S_NDIFF + 1, :n].to(torch.int32),
-        n_trans=f[S_NDIFF + 2, :n].to(torch.int32), wl=f[S_WL, :n].clone(), bounce=bounce)
+        n_trans=f[S_NDIFF + 2, :n].to(torch.int32), dist=torch.zeros(n, device=st.device),
+        wl=f[S_WL, :n].clone(), bounce=bounce)
     rec = None
     if lay.env >= 0:
         rec = {"miss_d": _vec(f, lay.env, n), "miss_thp": _vec(f, lay.env + 3, n)}

@@ -383,8 +383,9 @@ def test_vpt_renderer_errors():
     rng = torch.zeros((1, 2), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="item 7"):
         t_vpt.trace_paths(scene, TMD(), o, d, rng, compact=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_vpt.trace_paths(scene, TMD(), o, d, rng, differentiable=True)
+    # the differentiable mode renders (tests/test_torch_diff.py holds its gradients)
+    L = t_vpt.trace_paths(scene, TMD(), o, d, rng, differentiable=True)
+    assert L.shape == (1, 3) and bool(torch.isfinite(L).all())
 
 
 def test_vpt_composed_route_ignores_nee_candidates():
