@@ -227,7 +227,26 @@ Phases (any failure exits non-zero):
      (kitchen_stress 1024x1024 x TOF_SPP, traversal "pallas", f32 forest):
      the windows [0, TOF_SPLIT] and [TOF_SPLIT, 1e6] summing to the
      ungated image per pixel within 1e-3, K1's launches and the wall per
-     pass of each.
+     pass of each;
+ 18. sampling: Renderer(sampler="sobol") on cornell 1024x1024 x SOBOL_SPP
+     (the hybrid scheme: Sobol camera jitter, pcg path streams into K2;
+     K2 launched, its wall per spp and K2's ms per spp in turns with the
+     pcg Renderer, the ray setup's ms and device launches per pass); a
+     BLOCK-lane block's Sobol states, jitter draws and pcg streams built
+     on the card bit-equal to the CPU port's, its rays within 1e-6, and
+     K2 on it held to its plain version (phase-4 contract); kitchen_stress
+     1024x1024 x SOBOL_KITCHEN_SPP on K5 (launched; the image mean within
+     2 % of phase 6's pcg image); on cornell QUALITY_SIZE^2 the MSE of
+     Sobol against pcg at QUALITY_SPP and of render_adaptive against
+     render at ADAPTIVE_BUDGET, each against QUALITY_REF_SPP pcg spp on K2
+     (each image's mean within QUALITY_MEAN_TOL of the reference's);
+     render_adaptive(ADAPTIVE_BUDGET) on cornell 1024x1024 through K2
+     (base passes plus rounds launches, n's mean, the film-count rule,
+     its wall in turns with render); a checkpoint after CKPT_SPP spp,
+     loaded into a fresh Renderer and rendered CKPT_SPP more, bit-equal
+     to 2 x CKPT_SPP straight spp under both samplers. The K2 and K5
+     entries gain sobol_launches_per_pass; sampling_check joins the
+     result line.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
@@ -301,6 +320,18 @@ VPT_GRAD_SPP = 2
 CROP = 64
 TOF_SPP = 2
 TOF_SPLIT = 20.0
+# sampling (phase 18; cut: spp and rounds only): the hybrid Sobol route's
+# spp on cornell and on kitchen_stress, the quality check's side, its pcg
+# reference's spp and the compared spp, the adaptive budget, the spp before
+# and after the checkpoint
+SOBOL_SPP = 16
+SOBOL_KITCHEN_SPP = 2
+QUALITY_SIZE = 256
+QUALITY_REF_SPP = 1024
+QUALITY_SPP = 16
+ADAPTIVE_BUDGET = 8
+CKPT_SPP = 2
+QUALITY_MEAN_TOL = 0.05  # each image's mean against the reference's, relative
 # render_megakernel at full size (phase 11; cut: spp only): samples per
 # pixel on cornell and on kitchen_stress
 RM_CORNELL_SPP = 16
@@ -2518,6 +2549,180 @@ def phase_grad(mk, tk, dev, card: str, vscene, vcam, kscene, kcam, f32, MaxDepth
     return res
 
 
+def sobol_block(mk, rs, md, blk: int) -> dict:
+    """The hybrid route's inputs on a blk-lane block of the Z-order lanes
+    (the image centre's) built on the card and by the CPU port: the Sobol
+    states, the jitter draw, the camera's state after its two draws and the
+    pcg streams bit-equal, the rays within 1e-6; then K2 on the card's
+    block held to its plain version (phase-4 contract)."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+
+    cam = rs.camera
+    perm, inv = mk.tile_swizzle(cam.width, cam.height, rs.device)
+    k0 = int(inv[(cam.height // 2) * cam.width + cam.width // 2]) // blk * blk
+    sides = {}
+    for where, lanes, c in (("card", perm[k0:k0 + blk], cam),
+                            ("cpu", perm[k0:k0 + blk].cpu(), cam.to("cpu"))):
+        st = qmc.make_state("sobol", rs.seed, lanes, 0)
+        o, d, st_after = cam_mod.generate_rays(c, lanes, st)
+        rng = qmc.make_state("pcg", (rs.seed & 0xFFFFFFFF) ^ 0x9E3779B9, lanes, 0)
+        sides[where] = [t.cpu() for t in (st, qmc.next2d(st)[0], st_after, rng, o, d)]
+    bits = all(torch.equal(a, b) for a, b in zip(sides["card"][:4], sides["cpu"][:4]))
+    o_err, d_err = (float((a - b).abs().max()) for a, b in zip(sides["card"][4:], sides["cpu"][4:]))
+    log(f"[18] hybrid inputs of a {blk}-lane block, card against CPU: Sobol states, jitter "
+        f"draws, camera states and pcg streams bit-equal {bits}; rays max |diff| o {o_err:.3g}, "
+        f"d {d_err:.3g}")
+    if not bits or o_err > 1e-6 or d_err > 1e-6:
+        raise SystemExit("hybrid Sobol inputs: the card's differ from the CPU port's")
+    o, d, rng = rs._hybrid_rays(perm[k0:k0 + blk], 0)
+    L_k = mk.trace_megakernel(rs._pack, md, o, d, rng)
+    L_p, plain_ms = host_ms(lambda: mk.trace_megakernel_reference(rs._pack, md, o, d, rng))
+    frac, dmean = check_contract("cornell hybrid Sobol block, K2", L_k, L_p)
+    log(f"[18] K2 on the hybrid block against its plain version ({plain_ms:.1f} ms): {frac:.7f} "
+        f"lanes differ, means differ by {dmean:.3g}")
+    return {"lanes": blk, "inputs_bit_equal": bits, "o_max_abs_diff": o_err,
+            "d_max_abs_diff": d_err, "k2_lanes_differ": frac, "k2_mean_differ": dmean,
+            "k2_max_abs_err": float((L_k - L_p).abs().max()), "plain_ms": plain_ms}
+
+
+def in_turns_ms(runs: dict, turns: int = 2) -> dict:
+    """{name: [ms per turn]} of runs {name: fn() -> ms}, run in turns."""
+    out = {k: [] for k in runs}
+    for _ in range(turns):
+        for k, fn in runs.items():
+            out[k].append(fn())
+    return out
+
+
+def phase_sampling(mk, tts, dev, r, rk, k2_inst: str, k5_mean: float, MaxDepthParams,
+                   RenderingConfig, ParsedScene, Renderer) -> dict:
+    """Phase 18: the Sobol sampler on the kernel routes (the hybrid scheme:
+    Sobol camera jitter, pcg path streams into K2 and K5), adaptive
+    sampling on K2 and film checkpoints, through the Renderer."""
+    import tempfile
+
+    md = MaxDepthParams()
+    cam = r.camera
+    want_k2 = {"launches": ["trace_megakernel"], "instantiations": [k2_inst]}
+    out = {}
+    # -- cornell 1024x1024, hybrid Sobol on K2
+    rs = Renderer(r.parsed, sampler="sobol")
+    info = rs.info()
+    if (info["sampler"], info["driver"]) != ("sobol", "whole_path"):
+        raise SystemExit(f"cornell sobol: not the whole-path route: {info}")
+    wall, launches, inst, mean = render_main_path(mk, rs, SOBOL_SPP, "cornell sobol", want_k2)
+    out["cornell"] = {"spp": SOBOL_SPP, "wall_ms_per_spp": wall * 1e3 / SOBOL_SPP,
+                      "k2_launches": launches["trace_megakernel"],
+                      "k2_launches_per_pass": launches["trace_megakernel"] / SOBOL_SPP,
+                      "image_mean": mean}
+    perm, _ = mk.tile_swizzle(cam.width, cam.height, dev)
+    rays = {k: rr._hybrid_rays(perm, 0) for k, rr in (("pcg", r), ("sobol", rs))}
+    bits = {k: mk.rng_bits(v[2]) for k, v in rays.items()}
+    out["cornell"]["wall_ms_per_spp_turns"] = in_turns_ms(
+        {k: (lambda rr=rr: walls_per_pass(rr, 4)) for k, rr in (("pcg", r), ("sobol", rs))})
+    out["cornell"]["k2_ms_per_spp_turns"] = in_turns_ms(
+        {k: (lambda k=k: events_ms(lambda: mk.trace_megakernel(r._pack, md, rays[k][0],
+                                                               rays[k][1], bits[k]), 5))
+         for k in rays})
+    setup = {k: (lambda rr=rr: rr._hybrid_rays(perm, 0)) for k, rr in (("pcg", r), ("sobol", rs))}
+    out["ray_setup"] = {k: {"ms_per_pass": events_ms(fn, 5), "device_launches": device_launches(fn)}
+                        for k, fn in setup.items()}
+    c = out["cornell"]
+    log(f"[18] cornell {cam.width}x{cam.height}x{SOBOL_SPP}spp hybrid Sobol: {wall:.2f} s wall, "
+        f"launches {launches} {inst}, mean {mean:.6f}; wall ms/spp in turns {c['wall_ms_per_spp_turns']}; "
+        f"K2 ms/spp in turns {c['k2_ms_per_spp_turns']}; ray setup per pass {out['ray_setup']}")
+    out["block"] = sobol_block(mk, rs, md, BLOCK)
+    # -- kitchen_stress 1024x1024, hybrid Sobol on K5
+    rks = Renderer(rk.parsed, sampler="sobol")
+    wall, launches, inst, mean = render_main_path(
+        mk, rks, SOBOL_KITCHEN_SPP, "kitchen sobol",
+        {"launches": ["trace_megakernel_seg"], "instantiations": ["SEG+K3+ALL+CPT"]})
+    rel = abs(mean - k5_mean) / k5_mean
+    out["kitchen"] = {"spp": SOBOL_KITCHEN_SPP, "wall_ms_per_pass": wall * 1e3 / SOBOL_KITCHEN_SPP,
+                      "k5_launches": launches["trace_megakernel_seg"],
+                      "k5_launches_per_pass": launches["trace_megakernel_seg"] / SOBOL_KITCHEN_SPP,
+                      "image_mean": mean, "pcg_image_mean": k5_mean, "mean_rel_diff": rel,
+                      "wall_ms_per_pass_turns": in_turns_ms(
+                          {k: (lambda rr=rr: walls_per_pass(rr, SOBOL_KITCHEN_SPP))
+                           for k, rr in (("pcg", rk), ("sobol", rks))})}
+    log(f"[18] kitchen {rks.camera.width}x{rks.camera.height}x{SOBOL_KITCHEN_SPP}spp hybrid "
+        f"Sobol: {wall * 1e3 / SOBOL_KITCHEN_SPP:.2f} ms per pass, launches {launches} {inst}, "
+        f"mean {mean:.6f} against the pcg image's {k5_mean:.6f} (phase 6; {rel:.4f} relative); "
+        f"wall ms per pass in turns {out['kitchen']['wall_ms_per_pass_turns']}")
+    if rel > 0.02:
+        raise SystemExit("kitchen sobol: the image mean is not within 2 % of the pcg image's")
+    del rks
+    # -- quality on cornell 256x256 against a pcg reference on K2
+    sq, cq, _ = tts.cornell_box(QUALITY_SIZE, QUALITY_SIZE, device=dev)
+    pq = ParsedScene(sq, cq, RenderingConfig(width=QUALITY_SIZE, height=QUALITY_SIZE, md=md,
+                                             seed=0))
+    ref = Renderer(pq, seed_offset=99).render(QUALITY_REF_SPP)
+    imgs = {"pcg": Renderer(pq).render(QUALITY_SPP),
+            "sobol": Renderer(pq, sampler="sobol").render(QUALITY_SPP),
+            "uniform": Renderer(pq).render(ADAPTIVE_BUDGET),
+            "adaptive": Renderer(pq).render_adaptive(ADAPTIVE_BUDGET)}
+    mse = {k: float(((v - ref) ** 2).mean()) for k, v in imgs.items()}
+    q = {"size": QUALITY_SIZE, "ref_spp": QUALITY_REF_SPP, "spp": QUALITY_SPP,
+         "adaptive_budget": ADAPTIVE_BUDGET, "mse": mse,
+         "sobol_over_pcg": mse["sobol"] / mse["pcg"],
+         "adaptive_over_uniform": mse["adaptive"] / mse["uniform"],
+         "mean_rel_diff": {k: abs(float(v.mean()) / float(ref.mean()) - 1.0)
+                           for k, v in imgs.items()}}
+    out["quality"] = q
+    log(f"[18] quality, cornell {QUALITY_SIZE}x{QUALITY_SIZE} against {QUALITY_REF_SPP} pcg spp "
+        f"on K2: MSE {mse}; Sobol/pcg at {QUALITY_SPP} spp {q['sobol_over_pcg']:.4f}, "
+        f"adaptive/uniform at {ADAPTIVE_BUDGET} {q['adaptive_over_uniform']:.4f}")
+    if max(q["mean_rel_diff"].values()) > QUALITY_MEAN_TOL or not all(np.isfinite(v).all()
+                                                          for v in imgs.values()):
+        raise SystemExit(f"quality: an image strays from the reference's mean: {q}")
+    # -- adaptive at full width on cornell (K2 on the fused pack)
+    ra = Renderer(r.parsed)
+    wall, launches, inst, mean = counted_path(mk, lambda: ra.render_adaptive(ADAPTIVE_BUDGET), cam,
+                                              "cornell adaptive", want_k2)
+    n = ra.film.weight
+    base = ADAPTIVE_BUDGET // 2
+    lanes_per_round = (cam.width // 8) * (cam.height // 8) // 4 * 64
+    rounds = (ADAPTIVE_BUDGET - base) * cam.width * cam.height // lanes_per_round
+    cnt_rule = max(int(np.ceil(float(n.max()))), 2)
+    a = {"budget": ADAPTIVE_BUDGET, "base_spp": base, "rounds": rounds,
+         "lanes_per_round": lanes_per_round, "k2_launches": launches["trace_megakernel"],
+         "n_mean": float(n.mean()), "n_max": float(n.max()), "film_count": ra.counter(),
+         "count_rule": cnt_rule, "wall_ms": wall * 1e3, "image_mean": mean}
+    ru = Renderer(r.parsed)
+    a["wall_ms_turns"] = in_turns_ms(
+        {"render": lambda: host_ms(lambda: (ru.reset_out_buffer(), ru.render(ADAPTIVE_BUDGET)))[1],
+         "render_adaptive": lambda: host_ms(lambda: ra.render_adaptive(ADAPTIVE_BUDGET))[1]})
+    out["adaptive"] = a
+    log(f"[18] cornell adaptive {cam.width}x{cam.height}, budget {ADAPTIVE_BUDGET}: {a}")
+    if (a["k2_launches"] != base + rounds or a["film_count"] != cnt_rule
+            or abs(a["n_mean"] - ADAPTIVE_BUDGET) > 0.05 * ADAPTIVE_BUDGET):
+        raise SystemExit("cornell adaptive: launches, counts or the film-count rule are off")
+    # -- checkpoints: 2 spp, save, load into a fresh Renderer, 2 more spp
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    ck = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        for sampler in ("pcg", "sobol"):
+            first = Renderer(r.parsed, sampler=sampler)
+            first.render(CKPT_SPP)
+            path = os.path.join(tmp, f"{sampler}.npz")
+            first.save_checkpoint(path)
+            resumed = Renderer(r.parsed, sampler=sampler)
+            resumed.load_checkpoint(path)
+            resumed.render(CKPT_SPP)
+            straight = Renderer(r.parsed, sampler=sampler)
+            straight.render(2 * CKPT_SPP)
+            ck[sampler] = (resumed.counter() == straight.counter() == 2 * CKPT_SPP and all(
+                torch.equal(getattr(resumed.film, k), getattr(straight.film, k))
+                for k in ("mean", "m2", "weight")))
+    out["checkpoint_bit_equal"] = ck
+    log(f"[18] checkpoint after {CKPT_SPP} spp, resumed for {CKPT_SPP} more: bit-equal to "
+        f"{2 * CKPT_SPP} straight spp {ck}")
+    if not all(ck.values()):
+        raise SystemExit("checkpoint: the resumed film differs from the straight one")
+    return out
+
+
 def phase_render_megakernel(mk, tk, tts, dev, kscene, kcam, ref_mean: float,
                             MaxDepthParams) -> tuple:
     """The reference's render_megakernel at full size, in the formats of its
@@ -3180,7 +3385,7 @@ def main():
 
 
 def run_phases(args, build: dict, sass_job: dict) -> int:
-    """Phases 2-17 and the result lines, after the build (phase 1)."""
+    """Phases 2-18 and the result lines, after the build (phase 1)."""
     from cuda_pt_torch.api import Renderer
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import extract_ab as ab
@@ -3245,6 +3450,11 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
                                    Renderer)
     grad = phase_grad(mk, tk, dev, card, rv.scene, rv.camera, kscene, kcam, forests["f32"],
                       MaxDepthParams, RenderingConfig, ParsedScene, Renderer)
+    sampling = phase_sampling(mk, tts, dev, r, rk, next(iter(k2["instantiations"])),
+                              k5_kitchen["image_mean"], MaxDepthParams, RenderingConfig,
+                              ParsedScene, Renderer)
+    k2["sobol_launches_per_pass"] = sampling["cornell"]["k2_launches_per_pass"]
+    k5_kitchen["sobol_launches_per_pass"] = sampling["kitchen"]["k5_launches_per_pass"]
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
@@ -3317,7 +3527,8 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
     for k in kernels:
         k.pop("runs", None)
     extra = {"k1_check": {k: v for k, v in k1.items() if k != "timing"}, "routes_check": routes,
-             "light_check": light, "grad_check": grad, "build": build}
+             "light_check": light, "grad_check": grad, "sampling_check": sampling,
+             "build": build}
     if args.profile:
         md = MaxDepthParams()
         for key, run in (("profile", r.render_raw), ("profile_kitchen", rk.render_raw),

@@ -1,6 +1,7 @@
 """High-level renderer API (port of cuda_pt_tpu/api.py: every renderer
 family of the reference: MEGAKERNEL_PT, VOLUME_PT, WAVEFRONT_PT,
-MEGAKERNEL_LT, DEPTH and BVH_COST, with render_aovs and denoise).
+MEGAKERNEL_LT, DEPTH and BVH_COST, with render_aovs, denoise,
+render_adaptive and film checkpoints).
 
 One stateful Renderer over a compiled scene: the film and the camera stay
 on the render device between passes. ``traversal`` picks the route, with
@@ -62,9 +63,14 @@ nee_candidates=1) homogeneous media at any size and grid media without
 an envmap or emission. The composed routes render every surface scene;
 VOLUME_PT's composed route takes no grid medium.
 
+sampler="sobol" draws from the Owen-scrambled Sobol sampler
+(core/qmc.py) on every route. The kernel routes take pcg streams only, so
+there it runs the reference's hybrid scheme: Sobol camera jitter on the
+Z-order lanes, and the kernels' path streams from pcg seeded
+seed ^ 0x9E3779B9.
+
 Still to port (ROADMAP Queue 1): emissive grids and the composed volume
-path tracer's grid route, render_adaptive, film checkpoints, the XML
-parser, the Sobol sampler (the Renderer draws from pcg streams only).
+path tracer's grid route, the XML parser (and override_res with it).
 """
 
 from __future__ import annotations
@@ -125,9 +131,11 @@ class Renderer:
 
         source: a ParsedScene (scene, camera, RenderingConfig) or an XML
         path (raises until the parser is ported). override_res: raises
-        unless None (ROADMAP Queue 1 item 5). traversal: the route (module
-        docstring). sampler: "pcg" (the pcg streams); any other raises as
-        qmc.make_state does ("sobol" waits for ROADMAP Queue 1 item 1).
+        unless None (the reference applies it in the XML parser, ROADMAP
+        Queue 1 item 6). traversal: the route (module docstring).
+        sampler: "pcg" (the stream sampler) or "sobol" (Owen-scrambled
+        Sobol; on the kernel routes the hybrid scheme of the module
+        docstring); any other raises.
 
         nee_candidates: M > 1 = RIS light sampling (M candidates, one
         shadow ray); the fused volume path tracer takes 1 (traversal="fused"
@@ -139,8 +147,8 @@ class Renderer:
         MEGAKERNEL_PT and VOLUME_PT are banded. Bands are bit-identical to
         the unbanded pass."""
         if override_res is not None:
-            raise NotImplementedError("override_res waits for ROADMAP Queue 1 item 5 (the tail "
-                                      "of the API)")
+            raise NotImplementedError("override_res waits for ROADMAP Queue 1 item 6 (the XML "
+                                      "parser applies it)")
         qmc.check_sampler(sampler)
         self.sampler = sampler
         self.parsed: ParsedScene = load_xml(source) if isinstance(source, str) else source
@@ -208,9 +216,21 @@ class Renderer:
         return self._swizzles[key]
 
     def _trace_lanes(self, perm: torch.Tensor, idx: int) -> torch.Tensor:
-        rng = qmc.make_state(self.sampler, self.seed, perm, idx)
-        o, d, rng = cam_mod.generate_rays(self.camera, perm, rng)
+        """The kernel route over the lanes perm (absolute pixel ids). Under
+        "sobol" the hybrid scheme: Sobol jitter for the camera rays, the
+        kernel's paths on pcg streams seeded seed ^ 0x9E3779B9."""
+        o, d, rng = self._hybrid_rays(perm, idx)
         return mk.auto_trace(self._pack, self.md, o, d, rng, self.nee_candidates)
+
+    def _hybrid_rays(self, perm: torch.Tensor, idx):
+        """(o, d, pcg states) of the kernel route's lanes perm at sample idx."""
+        if self.sampler == "sobol":
+            o, d, _ = cam_mod.generate_rays(self.camera, perm,
+                                            qmc.make_state("sobol", self.seed, perm, idx))
+            rng = qmc.make_state("pcg", (self.seed & 0xFFFFFFFF) ^ 0x9E3779B9, perm, idx)
+            return o, d, rng
+        rng = qmc.make_state("pcg", self.seed, perm, idx)
+        return cam_mod.generate_rays(self.camera, perm, rng)
 
     def _composed_band(self, start: int, count: int, idx: int) -> torch.Tensor:
         """The composed path over lanes [start, start + count) in raster
@@ -222,18 +242,19 @@ class Renderer:
             return volume_pt.trace_paths(self.scene, self.md, o, d, rng,
                                          wl_u=pt.wl_stratum_u(self.seed, idx, lane))
         return pt.render_band(self.scene, self.camera, self.md, self.seed, idx, None, start, count,
-                              nee_candidates=self.nee_candidates)
+                              sampler=self.sampler, nee_candidates=self.nee_candidates)
 
     def _whole_pass(self, idx: int) -> torch.Tensor:
         """One pass of a family that is never banded -> (H, W, 3)."""
         H, W = self.camera.height, self.camera.width
         if self.rtype == RendererType.WAVEFRONT_PT:
             return wavefront.render_sample(self.scene, self.camera, self.md, self.seed, idx,
-                                           compact=True, nee_candidates=self.nee_candidates)
+                                           compact=True, sampler=self.sampler,
+                                           nee_candidates=self.nee_candidates)
         if self.rtype == RendererType.MEGAKERNEL_LT:
             img = light_tracer.render_pass(self.scene, self.camera, self.md, self.seed, idx,
                                            self.use_bvh, max(self.config.specular_constraint, 0),
-                                           self.config.caustic_scaling)
+                                           self.config.caustic_scaling, sampler=self.sampler)
             return img.reshape(H, W, 3)
         if self.rtype == RendererType.DEPTH:
             return debug_renderers.render_depth(self.scene, self.camera, use_bvh=self.use_bvh)[0]
@@ -277,6 +298,25 @@ class Renderer:
         for _ in range(spp or 1):
             self.render_raw()
         return self.film.mean.cpu().numpy()
+
+    def render_adaptive(self, spp_budget: int, **kw) -> np.ndarray:
+        """Variance-driven adaptive render (models/adaptive.render_adaptive,
+        its tracer "pt" unless kw says otherwise): the budget of
+        render(spp_budget), sent to the highest-error tiles; under the pcg
+        sampler on the kernel routes each round runs the kernels
+        (mk.auto_trace). Replaces the film: mean the image, weight the
+        per-pixel counts, count the largest count (at least 2) so that a
+        later render() draws no (pixel, sample) stream twice, and m2 rebuilt
+        so that variance(film) / count is the variance of the mean."""
+        from .models import adaptive
+
+        img, n, var = adaptive.render_adaptive(
+            self.scene, self.camera, self.md, spp_budget, seed=self.seed, use_bvh=self.use_bvh,
+            sampler=self.sampler, return_variance=True,
+            fused_pack=self._pack if self.sampler == "pcg" else None, **kw)
+        cnt = max(int(np.ceil(float(n.max()))), 2)
+        self.film = film_mod.Film(mean=img, m2=var * cnt * (cnt - 1), weight=n, count=cnt)
+        return img.cpu().numpy()
 
     def render_aovs(self, spp: int = 1) -> dict:
         """First-hit denoiser AOVs (albedo, normal, emission, depth,
@@ -357,6 +397,13 @@ class Renderer:
         from .utils.image import save_png
 
         save_png(path, self.get_image_buffer(gamma))
+
+    def save_checkpoint(self, path: str):
+        film_mod.save_checkpoint(self.film, path)
+
+    def load_checkpoint(self, path: str):
+        """The checkpoint's film, on the Renderer's device."""
+        self.film = film_mod.load_checkpoint(path, device=self.device)
 
     def release(self):
         self.film = None

@@ -1,7 +1,9 @@
-"""Film: sample accumulation, online Welford variance, gamma export
-(port of core/film.py). The film lives on the render device between
-passes; ``accumulate`` returns a new Film (the tensors are not updated in
-place, so a caller may keep the previous film)."""
+"""Film: sample accumulation, online Welford variance, gamma and ACES
+export, checkpoints (port of core/film.py). The film lives on the render
+device between passes; ``accumulate`` returns a new Film (the tensors are
+not updated in place, so a caller may keep the previous film). A
+checkpoint is the reference's .npz (mean, m2, weight as float32, count as
+an int32 scalar), so either package loads the other's."""
 
 from __future__ import annotations
 
@@ -50,12 +52,32 @@ def variance(film: Film) -> torch.Tensor:
     return film.m2 / float(max(film.count - 1, 1))
 
 
-def to_srgb(mean: torch.Tensor, gamma: bool = True) -> torch.Tensor:
-    """Clip to [0, 1] with the reference's gamma 1/2.1."""
+def to_srgb(mean: torch.Tensor, gamma: bool = True, tonemap: str = "gamma") -> torch.Tensor:
+    """Tonemap linear radiance to [0, 1]: tonemap="gamma" clips, "aces"
+    rolls highlights off by Narkowicz's ACES fit first; then the
+    reference's gamma 1/2.1."""
     img = torch.clamp(mean, min=0.0)
+    if tonemap == "aces":
+        a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+        img = (img * (a * img + b)) / (img * (c * img + d) + e)
     if gamma:
         img = torch.pow(torch.clamp(img, 0.0, 1e9), 1.0 / 2.1)
     return torch.clamp(img, 0.0, 1.0)
+
+
+def save_checkpoint(film: Film, path: str):
+    """Write the film to path (np.savez: ".npz" is appended when missing),
+    so a render resumes at pass granularity."""
+    np.savez(path, mean=film.mean.detach().cpu().numpy(), m2=film.m2.detach().cpu().numpy(),
+             weight=film.weight.detach().cpu().numpy(), count=np.asarray(film.count, np.int32))
+
+
+def load_checkpoint(path: str, device="cpu") -> Film:
+    """The film of a checkpoint, on device."""
+    z = np.load(path)
+    return Film(mean=torch.as_tensor(z["mean"], device=device),
+                m2=torch.as_tensor(z["m2"], device=device),
+                weight=torch.as_tensor(z["weight"], device=device), count=int(z["count"]))
 
 
 def export_numpy(film: Film, gamma: bool = True) -> np.ndarray:

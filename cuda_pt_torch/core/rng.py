@@ -3,9 +3,11 @@
 State is a (..., 2) int64 tensor holding u32 values in [0, 2^32): torch
 has no add or shift on uint32 tensors, so the u32 arithmetic runs in int64
 masked with 0xFFFFFFFF. Multiplications by constants below 2^31 cannot
-overflow int64; wider constants go through ``mul32``, which splits the
-constant into 16-bit halves. The u32 -> f32 convert rounds to nearest even
-like JAX's astype, and the scale by 2^-32 is exact.
+overflow int64; wider constants go through ``mul32``, which multiplies by
+the constant less 2^32 (the same low 32 bits, and no overflow). The u32 ->
+f32 convert rounds to nearest even like JAX's astype, and the scale by
+2^-32 is exact. next1d / next2d / discrete1d dispatch a (..., 4) state to
+the Owen-scrambled Sobol sampler (core/qmc.py).
 
 The streams are counter-based (seeded from (seed, lane, sample)), so no
 torch.Generator is involved on the render path.
@@ -30,10 +32,11 @@ def as_u32(x, device=None) -> torch.Tensor:
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for x in [0, 2^32) and a constant c in [0, 2^32)."""
-    lo = c & 0xFFFF
-    hi = c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & MASK32
+    """(x * c) mod 2^32 for x in [0, 2^32) and a constant c in [0, 2^32).
+    A c at or above 2^31 multiplies as c - 2^32: |x * (c - 2^32)| < 2^63,
+    and the two products agree mod 2^32."""
+    c &= MASK32
+    return (x * (c - (1 << 32) if c >> 31 else c)) & MASK32
 
 
 def pcg2d(v: torch.Tensor) -> torch.Tensor:
@@ -69,15 +72,35 @@ def u01(bits: torch.Tensor) -> torch.Tensor:
 
 
 def next2d(state: torch.Tensor):
-    """Two uniforms in [0,1): ((..., 2) float32, new_state)."""
-    if state.shape[-1] != 2:
-        raise NotImplementedError(
-            "only the pcg2d stream sampler is ported (Owen-Sobol waits)")
+    """Two uniforms in [0,1): ((..., 2) float32, new_state). A (..., 4)
+    state draws from the Sobol sampler (core/qmc.py)."""
+    if state.shape[-1] == 4:
+        from . import qmc
+
+        return qmc.next2d(state)
     new_state = pcg2d(state)
     return u01(new_state), new_state
 
 
 def next1d(state: torch.Tensor):
     """One uniform in [0,1): ((...,) float32, new_state)."""
+    if state.shape[-1] == 4:
+        from . import qmc
+
+        return qmc.next1d(state)
     u, new_state = next2d(state)
     return u[..., 0], new_state
+
+
+def to_index(u: torch.Tensor, n) -> torch.Tensor:
+    """floor(u * n) as int32, at most n - 1 (n: an int or a tensor)."""
+    i = (u * n).to(torch.int32)
+    if torch.is_tensor(n):
+        return torch.minimum(i, (n - 1).to(torch.int32))
+    return torch.clamp(i, max=int(n) - 1)
+
+
+def discrete1d(state: torch.Tensor, n):
+    """An integer in [0, n): (int32, new_state). Mirrors TinySampler::discrete1D."""
+    u, new_state = next1d(state)
+    return to_index(u, n), new_state

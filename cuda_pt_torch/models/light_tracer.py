@@ -59,12 +59,18 @@ def render_pass(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, p
                 use_bvh: bool, specular_constraint: int = 0, caustic_scale: float = 1.0,
                 n_paths: int = 0, sampler: str = "pcg") -> torch.Tensor:
     """One light-tracing pass of n_paths paths (default one per pixel) ->
-    the (H*W, 3) splat sum over n_paths."""
-    qmc.check_sampler(sampler)
+    the (H*W, 3) splat sum over n_paths. sampler="sobol" stratifies the
+    light paths' first draws (the emitter point and the emission
+    direction) with Sobol states seeded seed ^ 0x5BD1E995 at sample
+    pass_idx; any other name draws from the pcg streams, as in the
+    reference."""
     B = n_paths or cam.width * cam.height
     dev = scene.device
     lane = torch.arange(B, device=dev)
-    rng = prng.seed((int(seed) + int(pass_idx) * 7919 + 0x5BD1E995) & prng.MASK32, lane)
+    if sampler == "sobol":
+        rng = qmc.seed((int(seed) & prng.MASK32) ^ 0x5BD1E995, lane, pass_idx)
+    else:
+        rng = prng.seed((int(seed) + int(pass_idx) * 7919 + 0x5BD1E995) & prng.MASK32, lane)
     le, rng = emitters.sample_le(scene, rng, B)
     img = torch.zeros((cam.width * cam.height, 3), device=dev)
 

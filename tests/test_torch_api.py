@@ -1,7 +1,8 @@
 """The Renderer's surface against the reference's: the constructor's
-parameters (names, order, defaults), the samplers and options the port
-does not draw from yet, and info()'s keys. No rendering beyond one small
-pass, no JAX kernel call."""
+parameters (names, order, defaults), the options the port does not take
+yet, info()'s keys, and sampler="sobol" on the kernel route (the hybrid
+scheme's inputs bit for bit against JAX's). No rendering beyond a few
+small passes, no JAX kernel call."""
 
 import inspect
 
@@ -47,8 +48,8 @@ def test_positional_call_in_the_reference_order():
     np.testing.assert_array_equal(pos.render(1), kw.render(1))
 
 
-@pytest.mark.parametrize("kw, item", [({"sampler": "sobol"}, "item 1"),
-                                      ({"override_res": (8, 8)}, "item 5")])
+@pytest.mark.parametrize("kw, item", [({"override_res": (8, 8)}, "item 6"),
+                                      ({"traversal": "mxu"}, "item 13")])
 def test_unported_options_raise_naming_their_item(kw, item):
     scene, cam, _ = t_ts.cornell_box(4, 4)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
@@ -81,3 +82,107 @@ def test_info_use_bvh_follows_the_reference_rule(make):
     assert info["use_bvh"] == (info["num_prims"] > j_pt.BRUTE_FORCE_MAX_PRIMS)
     assert info["use_bvh"] == (info["num_prims"] == 68)
     assert info["sampler"] == "pcg"
+
+
+# ---------------------------------------------------------------------------
+# sampler="sobol" on every route
+# ---------------------------------------------------------------------------
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    ia = a.astype(np.float32).view(np.int32).astype(np.int64)
+    ib = b.astype(np.float32).view(np.int32).astype(np.int64)
+    return np.abs(ia - ib)
+
+
+def test_sobol_kernel_route_runs_the_hybrid_scheme():
+    """Renderer(sampler="sobol") on the CPU's kernel route: the Sobol state
+    of the Z-order lanes, its jitter draw and the pcg streams seeded
+    seed ^ 0x9E3779B9 equal JAX's bit for bit (the rays to the camera's
+    ulps, tests/test_torch_core.py); the pass is K2's plain version on
+    those inputs, and a banded pass equals it bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from cuda_pt_torch.core import qmc as t_qmc
+    from cuda_pt_torch.core import rng as t_rng
+    from cuda_pt_torch.ops import megakernel as t_mk
+    from cuda_pt_torch.scene import bridge
+    from cuda_pt_tpu.core import camera as j_cam
+    from cuda_pt_tpu.core import qmc as j_qmc
+    from cuda_pt_tpu.core import rng as j_rng
+    from cuda_pt_tpu.ops.pallas import megakernel as j_mk
+    from cuda_pt_tpu.scene import testscenes as j_ts
+    from test_torch_bridge import flatten_jax_camera, flatten_jax_scene
+
+    sj, cj, _ = j_ts.cornell_box(8, 8)
+    st = bridge.scene_from_numpy(flatten_jax_scene(sj))
+    ct = bridge.camera_from_numpy(flatten_jax_camera(cj))
+    md = MaxDepthParams(max_depth=3)
+    parsed = ParsedScene(st, ct, RenderingConfig(width=8, height=8, md=md, seed=5))
+    r = Renderer(parsed, sampler="sobol", device="cpu")
+    info = r.info()
+    assert (info["sampler"], info["traversal"], info["driver"]) == ("sobol", "fused", "whole_path")
+    perm_j, _ = j_mk.tile_swizzle(8, 8)
+    perm, inv = t_mk.tile_swizzle(8, 8)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(perm_j))
+
+    @jax.jit
+    def hybrid_j(idx):  # the reference's api.py:176-181, one compile
+        rs = j_qmc.make_state("sobol", 5, perm_j, idx)
+        o, d, _ = j_cam.generate_rays(cj, perm_j, rs)
+        pcg = j_qmc.make_state("pcg", jnp.uint32(5) ^ jnp.uint32(0x9E3779B9), perm_j, idx)
+        return rs, j_rng.next2d(rs)[0], o, d, pcg
+
+    for idx in (0, 3):
+        rs_j, u_j, oj, dj, pcg_j = hybrid_j(idx)
+        rs_t = t_qmc.make_state("sobol", 5, perm, idx)
+        np.testing.assert_array_equal(rs_t.numpy(), np.asarray(rs_j).astype(np.int64))
+        np.testing.assert_array_equal(t_rng.next2d(rs_t)[0].numpy(), np.asarray(u_j))
+        o, d, rng = r._hybrid_rays(perm, idx)
+        np.testing.assert_array_equal(rng.numpy(), np.asarray(pcg_j).astype(np.int64))
+        assert _ulps(o.numpy(), np.asarray(oj)).max() <= 1
+        assert _ulps(d.numpy(), np.asarray(dj)).max() <= 2
+    o, d, rng = r._hybrid_rays(perm, 0)
+    want = t_mk.trace_megakernel_reference(r._pack, md, o, d, rng)[inv].reshape(8, 8, 3)
+    assert torch.equal(r.render_raw(), want)
+    banded = Renderer(parsed, sampler="sobol", max_lanes_per_call=24, device="cpu")
+    assert torch.equal(banded.render_raw(), want)
+    with pytest.raises(ValueError, match="rng"):  # a Sobol state never reaches the kernels
+        t_mk.trace_megakernel(r._pack, md, o.to("meta"), d.to("meta"),
+                              t_qmc.make_state("sobol", 5, perm, 0).to("meta"))
+
+
+@pytest.mark.parametrize("rtype", ["pt_xla", "wavefront", "vpt_composed", "vpt_fused"])
+def test_sobol_on_every_family_route(rtype):
+    """The composed routes pass the sampler through: each pass equals its
+    model's Sobol pass; the volume kernel route renders the hybrid."""
+    import torch
+
+    from cuda_pt_torch.models import path_tracer as t_pt
+    from cuda_pt_torch.models import volume_pt as t_vpt
+    from cuda_pt_torch.models import wavefront as t_wf
+
+    md = MaxDepthParams(max_depth=3)
+    if rtype.startswith("vpt"):
+        scene, cam, _ = t_ts.cornell_vpt(6, 6)
+        kw = {"renderer": RendererType.VOLUME_PT}
+        kw.update({"traversal": "xla"} if rtype == "vpt_composed" else {})
+    else:
+        scene, cam, _ = t_ts.cornell_box(6, 6)
+        kw = ({"traversal": "xla"} if rtype == "pt_xla"
+              else {"renderer": RendererType.WAVEFRONT_PT})
+    r = Renderer(_parsed(scene, cam, md), sampler="sobol", device="cpu", **kw)
+    img = r.render_raw()
+    if rtype == "pt_xla":
+        want = t_pt.render_sample(r.scene, r.camera, md, 0, 0, sampler="sobol")
+    elif rtype == "wavefront":
+        want = t_wf.render_sample(r.scene, r.camera, md, 0, 0, compact=True, sampler="sobol")
+    elif rtype == "vpt_composed":
+        want = t_vpt.render(r.scene, r.camera, md, 1, seed=0, sampler="sobol")
+    else:
+        assert r.info()["traversal"] == "fused"
+        want = img
+    assert torch.equal(img, want) and bool(torch.isfinite(img).all())
+    assert not torch.equal(img, Renderer(_parsed(scene, cam, md), device="cpu", **kw).render_raw())

@@ -94,9 +94,21 @@ def test_render_pass_mirror_caustics_match_jax():
 
 
 def test_sobol_raises_naming_the_roadmap(cornell8):
+    """sampler="sobol" on the light tracer: the Renderer's MEGAKERNEL_LT
+    route renders render_pass's Sobol pass (seeded seed ^ 0x5BD1E995 at
+    the pass index), unlike the pcg pass; an unknown sampler raises at
+    the Renderer's construction, naming itself."""
     st, ct = cornell8
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        t_lt.render_pass(st, ct, MaxDepthParams(max_depth=2), 0, 0, False, sampler="sobol")
+    md = MaxDepthParams(max_depth=2)
+    r = Renderer(_parsed(st, ct, md, seed=6), renderer=RendererType.MEGAKERNEL_LT,
+                 sampler="sobol", device="cpu")
+    r.render(2)
+    sobol = t_lt.render_pass(st, ct, md, 6, 2, False, sampler="sobol").reshape(8, 8, 3)
+    assert torch.equal(r.render_raw(), sobol)
+    assert not torch.equal(sobol, t_lt.render_pass(st, ct, md, 6, 2, False).reshape(8, 8, 3))
+    with pytest.raises(NotImplementedError, match="'halton'"):
+        Renderer(_parsed(st, ct, md), renderer=RendererType.MEGAKERNEL_LT, sampler="halton",
+                 device="cpu")
 
 
 def test_render_bidirectional_is_pt_plus_lt(cornell8):
