@@ -247,6 +247,28 @@ Phases (any failure exits non-zero):
      to 2 x CKPT_SPP straight spp under both samplers. The K2 and K5
      entries gain sobol_launches_per_pass; sampling_check joins the
      result line.
+ 19. scene input (the XML path, no scene built in Python): (a) the three
+     host libraries (native SAH and SBVH builders, OBJ parser) built at
+     once with g++, and the native OBJ parser against the Python one on
+     kitchen_stress's OBJ files; (b) full-size kitchen_stress: the NumPy
+     SAH build against the native one (seconds, SAH cost, nodes), the SBVH
+     (seconds, duplicated refs, nodes), and the SBVH walk's closest
+     original prim held to the BVH's on SBVH_RAYS random rays (equal but
+     on exact ties); (c) cornell_box and kitchen_stress written as XML
+     (write_scene_xml: OBJ at %.9g, textures as 8-bit sRGB PNG, the sky
+     as RGBE .hdr, the Au and Glass-BK7 presets) and rendered by
+     Renderer(path, override_res=(1024, 1024)) on K2 (XML_CORNELL_SPP)
+     and K5 (XML_KITCHEN_SPP): the parsed triangles equal the builder's
+     as multisets, launches counted, an XML_BLOCK-lane block held per
+     lane to the plain version, the means beside phases 5 and 6's (no
+     bound); (d) the SBVH kitchen (override_accel) on K5, held likewise,
+     its wall per spp beside (c)'s; (e) traversal="auto" on the XML
+     kitchen (each candidate's ms, the pick, K1's launches while tuning
+     and in one 1-spp pass with the pick) and "mxu" disqualified on the
+     XML cornell; (f) grid_smoke's GRID_N^3 grid as a ZIP-codec .nvdb in
+     an XML scene, VOLUME_PT 1 spp through Renderer(path) on K6, held per
+     lane as phase 8 holds. The K2, K5, K6 and K1 entries gain this
+     path's launches; scene_input_check joins the result line.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
@@ -266,6 +288,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -508,13 +531,13 @@ def phase_walk(mk, tts, dev):
 
 def phase_walk_kitchen(mk, tts, dev):
     """The w8 walk against the skip walk on full-size kitchen_stress; returns
-    (the result row, the scene, its camera, the build seconds)."""
+    (the result row, the scene, its camera, the build seconds, its builder)."""
     from cuda_pt_torch.accel import traverse
     from cuda_pt_torch.ops import cuda_build as cb
     from cuda_pt_torch.ops import intersect as isect
 
     t0 = time.perf_counter()
-    scene, cam, _ = tts.kitchen_stress(1024, 1024, device=dev)
+    scene, cam, kb = tts.kitchen_stress(1024, 1024, device=dev)
     build_s = time.perf_counter() - t0
     pack = mk.make_pack(scene, node_fmt="w8")
     rs = np.random.default_rng(11)
@@ -544,7 +567,7 @@ def phase_walk_kitchen(mk, tts, dev):
         raise SystemExit(f"kitchen walk check failed: {bad} prim ids differ off exact ties")
     k6 = check_k6(mk, pack, k6_state(mk, pack, o_t, d_t), B, "kitchen_stress random rays")
     return {"rays": B, "differ": int(differ.sum()), "exact_ties": ties, "k6": k6}, scene, cam, \
-        build_s
+        build_s, kb
 
 
 def k6_state(mk, pack, o, d):
@@ -831,6 +854,7 @@ def phase_main(mk, tts, dev, args, MaxDepthParams, RenderingConfig, ParsedScene,
         "library_ms": None, "paths_per_s": B / (k_ms * 1e-3), "lanes_differ": frac,
         "mean_differ": dmean,
         "wide_nodes": nodes, "prim_tests": prims, "wall_ms_per_spp": wall * 1e3 / spp,
+        "image_mean": mean,
         "k5_vs_k2_lanes_differ": frac_s, "device_launches_per_pass": launches_pass,
         "instantiations": inst, "stage": stage_ab,
         **({"parent": ab, "parent_ms": ab["parent_ms"]} if ab else {}),
@@ -3306,6 +3330,487 @@ def s4_entry(s4: dict) -> dict:
                     "(--parent)"}
 
 
+# ---- phase 19: scene input (the XML path: writer, parser, native builders) --
+
+# views of the scenes phase 19 writes as XML (their testscenes cameras)
+XML_VIEWS = {
+    "cornell": {"origin": (0.5, 0.5, -1.35), "target": (0.5, 0.5, 0.5), "fov": 40.0},
+    "kitchen": {"origin": (0.0, 7 * 0.85, -7 * 1.45), "target": (0.0, 0.3, 0.0), "fov": 55.0},
+    "grid": {"origin": (0, 0.2, -4), "target": (0, 0, 0), "fov": 35.0},
+}
+# the presets the writer names for kitchen_stress's conductor and dielectric
+XML_PRESETS = {"conductor": "Au", "dispersion": "Glass-BK7"}
+# lanes of each phase-19 main path held per lane to its plain version, the
+# samples per pixel of its renders (cut: spp only) and the random rays of
+# the SBVH walk check
+XML_BLOCK = 16384
+XML_CORNELL_SPP = 16
+XML_KITCHEN_SPP = 4
+XML_SBVH_SPP = 2
+SBVH_RAYS = 16384
+
+
+def _xml_rgb(name: str, v) -> str:
+    return f'<rgb name="{name}" value="{" ".join("%.9g" % float(c) for c in v)}"/>'
+
+
+def _xml_float(name: str, v) -> str:
+    return f'<float name="{name}" value="{"%.9g" % float(v)}"/>'
+
+
+def write_obj(path: str, p: np.ndarray, n: np.ndarray, uv: np.ndarray) -> None:
+    """Triangles (T, 3, 3) with their normals and uvs as an OBJ file: one v,
+    vt and vn line per corner, printed with %.9g (an exact f32 round trip)."""
+    v = p.reshape(-1, 3)
+    lines = ["v %.9g %.9g %.9g" % tuple(r) for r in v]
+    lines += ["vt %.9g %.9g" % tuple(r) for r in uv.reshape(-1, 2)]
+    lines += ["vn %.9g %.9g %.9g" % tuple(r) for r in n.reshape(-1, 3)]
+    lines += [f"f {i}/{i}/{i} {i + 1}/{i + 1}/{i + 1} {i + 2}/{i + 2}/{i + 2}"
+              for i in range(1, len(v) + 1, 3)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_hdr(path: str, rgb: np.ndarray) -> None:
+    """A float (H, W, 3) image as a flat RGBE Radiance file."""
+    rgb = np.asarray(rgb, np.float64)[..., :3]
+    v = rgb.max(axis=-1)
+    m, e = np.frexp(v)
+    scale = np.where(v > 1e-32, m * 256.0 / np.maximum(v, 1e-32), 0.0)
+    rgbe = np.zeros(rgb.shape[:2] + (4,), np.uint8)
+    rgbe[..., :3] = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(v > 1e-32, e + 128, 0).astype(np.uint8)
+    h, w = rgb.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n" + f"-Y {h} +X {w}\n".encode()
+                + rgbe.tobytes())
+
+
+def write_nvdb_zip(path: str, dens: np.ndarray, bmin, bmax) -> None:
+    """A (D, H, W) float grid as a ZIP-codec NanoVDB file of 8^3 leaves (all-zero
+    leaves left out, as a sparse tree leaves them), in the layout
+    media/nvdb.py reads: FileHeader, FileMetaData and name, then the
+    compressed GridData (672 B), TreeData and the leaf segment."""
+    import struct
+    import zlib
+
+    nz, ny, nx = (s // 8 for s in dens.shape)
+    g = np.asarray(dens, np.float32).reshape(nz, 8, ny, 8, nx, 8)
+    vals = g.transpose(4, 2, 0, 5, 3, 1).reshape(-1, 512)  # per leaf [x][y][z]
+    bx, by, bz = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
+    org = (np.stack([bx, by, bz], -1).reshape(-1, 3) * 8).astype(np.int32)
+    keep = vals.any(axis=1)
+    vals, org = vals[keep], org[keep]
+    leaves = np.zeros((len(vals), 2144), np.uint8)
+    leaves[:, :12] = org.view(np.uint8).reshape(-1, 12)
+    leaves[:, 96:] = vals.view(np.uint8).reshape(-1, 2048)
+    grid = bytearray(736)  # GridData (672 B) + TreeData (64 B)
+    struct.pack_into("<4Q", grid, 672, 736, 0, 0, 0)  # leaf, lower, upper, root offsets
+    body = bytes(grid) + leaves.tobytes()
+    name = b"density\0"
+    meta = bytearray(176)
+    struct.pack_into("<QQQQ", meta, 0, len(body), len(body), 0, 512 * len(vals))
+    struct.pack_into("<II", meta, 32, 1, 0)  # a float grid
+    struct.pack_into("<6d", meta, 40, *np.asarray(bmin, float), *np.asarray(bmax, float))
+    struct.pack_into("<6i", meta, 88, 0, 0, 0, 8 * nx - 1, 8 * ny - 1, 8 * nz - 1)
+    struct.pack_into("<3d", meta, 112, 1.0, 1.0, 1.0)
+    struct.pack_into("<I", meta, 136, len(name))
+    struct.pack_into("<4I", meta, 140, len(vals), 0, 0, 1)
+    comp = zlib.compress(body, 1)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<QIHH", 0x304244566F6E614E, 32 << 21, 1, 1) + bytes(meta) + name
+                + struct.pack("<Q", len(comp)) + comp)
+
+
+def write_scene_xml(T, b, d: str, name: str, view: dict, size: int, rtype: str = "pt",
+                    use_sbvh: bool = False) -> str:
+    """The scene of SceneBuilder b as <d>/<name>.xml, a Mitsuba-style file
+    that scene/xml_parser.py reads (the elements of the three scenes phase
+    19 writes: meshes, area and envmap emitters, grid media): one OBJ file
+    per object, textures used
+    as diffuse maps as 8-bit sRGB PNG (utils/image.save_png; the parser
+    linearizes them back), an envmap's texture as a flat RGBE .hdr, grid
+    media as ZIP-codec .nvdb (albedo = sigma_s: the parser's
+    sigma_a = 1 - albedo), GGX conductors and dispersive dielectrics under
+    XML_PRESETS' names. Returns the path."""
+    from cuda_pt_torch.utils.image import save_png
+
+    brdf = {T.BSDF_LAMBERTIAN: "lambertian", T.BSDF_SPECULAR: "specular",
+            T.BSDF_TRANSLUCENT: "det-refraction", T.BSDF_PLASTIC: "plastic",
+            T.BSDF_PLASTIC_FORWARD: "plastic-forward", T.BSDF_GGX_CONDUCTOR: "conductor-ggx",
+            T.BSDF_DISPERSION: "dispersion", T.BSDF_FORWARD: "forward",
+            T.BSDF_GGX_DIELECTRIC: "rough-dielectric", T.BSDF_OREN_NAYAR: "oren-nayar"}
+    emitter = {T.EMITTER_AREA: "area", T.EMITTER_ENVMAP: "envmap"}
+    phase = {T.PHASE_ISOTROPIC: "isotropic", T.PHASE_HG: "hg", T.PHASE_DUAL_HG: "dual-hg",
+             T.PHASE_RAYLEIGH: "rayleigh", T.PHASE_SGGX: "sggx"}
+    out = [f'<scene version="1.2">', f'<renderer type="{rtype}"/>',
+           f'<accelerator type="bvh"><bool name="use_sbvh" value="{str(use_sbvh).lower()}"/>'
+           '</accelerator>']
+    env_tex = {e.tex_id for e in b.emitters if e.etype == T.EMITTER_ENVMAP and e.tex_id >= 0}
+    for tid, img in enumerate(b.textures):
+        if tid in env_tex:
+            write_hdr(os.path.join(d, f"{name}_tex{tid}.hdr"), img)
+            out.append(f'<texture id="tex{tid}"><string name="emission" '
+                       f'value="{name}_tex{tid}.hdr"/></texture>')
+        else:
+            x = np.clip(img[..., :3], 0.0, 1.0)
+            srgb = np.where(x <= 0.0031308, 12.92 * x, 1.055 * x ** (1 / 2.4) - 0.055)
+            save_png(os.path.join(d, f"{name}_tex{tid}.png"), srgb)
+            out.append(f'<texture id="tex{tid}"><string name="diffuse" '
+                       f'value="{name}_tex{tid}.png"/></texture>')
+    for i, m in enumerate(b.media):
+        out.append(f'<phase type="{phase[m.phase_type]}" id="ph{i}">'
+                   + _xml_float("g", m.phase_g[0]) + _xml_float("g2", m.phase_g[1])
+                   + _xml_float("weight", m.phase_w) + "</phase>")
+        if m.mtype != T.MEDIUM_GRID:
+            raise ValueError("the writer takes grid media only")
+        gr = b.grids[m.grid_id]
+        write_nvdb_zip(os.path.join(d, f"{name}_grid{i}.nvdb"), gr["density"], gr["bbox_min"],
+                       gr["bbox_max"])
+        out.append(f'<medium type="grid" id="med{i}">{_xml_rgb("albedo", m.sigma_s)}'
+                   f'<string name="density" value="{name}_grid{i}.nvdb"/>'
+                   f'{_xml_float("scale", m.scale)}<ref type="phase" id="ph{i}"/></medium>')
+    for i, s in enumerate(b.bsdfs):
+        k_d = (s.ior,) * 3 if s.btype == T.BSDF_TRANSLUCENT else s.k_d  # the parser's ior
+        body = (_xml_rgb("k_d", k_d) + _xml_rgb("k_s", s.k_s) + _xml_rgb("k_g", s.k_g)
+                + _xml_float("ior", s.ior) + _xml_float("roughness_x", s.roughness_x)
+                + _xml_float("roughness_y", s.roughness_y) + _xml_float("thickness", s.thickness))
+        if s.btype == T.BSDF_GGX_CONDUCTOR:
+            body += f'<string name="conductor" value="{XML_PRESETS["conductor"]}"/>'
+        if s.btype == T.BSDF_DISPERSION:
+            body += f'<string name="type" value="{XML_PRESETS["dispersion"]}"/>'
+        if s.btype in (T.BSDF_PLASTIC, T.BSDF_PLASTIC_FORWARD):
+            body += _xml_rgb("sigma_a", s.k)
+        if any(t >= 0 for t in s.tex_ids[1:]):
+            raise ValueError("the writer takes diffuse textures only")
+        if s.tex_ids[0] >= 0:
+            body += f'<ref type="texture" id="tex{s.tex_ids[0]}"/>'
+        out.append(f'<brdf type="{brdf[s.btype]}" id="m{i}">{body}</brdf>')
+    for i, e in enumerate(b.emitters[1:], 1):
+        body = _xml_rgb("emission", e.emission) + _xml_float("scaler", e.scaler)
+        if e.etype == T.EMITTER_ENVMAP:
+            body += (_xml_float("scale", e.extra[0])
+                     + _xml_float("azimuth", np.rad2deg(e.extra[1]))
+                     + _xml_float("zenith", np.rad2deg(e.extra[2])))
+        if e.tex_id >= 0:
+            body += f'<ref type="texture" id="tex{e.tex_id}"/>'
+        out.append(f'<emitter type="{emitter[e.etype]}" id="e{i}">{body}</emitter>')
+    for i, ob in enumerate(b.objects):
+        refs = f'<ref type="material" id="m{ob.bsdf_id}"/>'
+        if ob.emitter_id:
+            refs += f'<ref type="emitter" id="e{ob.emitter_id}"/>'
+        if ob.medium_in >= 0:
+            refs += f'<ref type="medium" id="med{ob.medium_in}"/>'
+        refs += f'<bool name="cullable" value="{str(bool(ob.cullable)).lower()}"/>'
+        if ob.is_sphere:
+            raise ValueError("the writer takes triangle meshes only")
+        write_obj(os.path.join(d, f"{name}_{i}.obj"), ob.p, ob.n, ob.uv)
+        out.append(f'<shape type="obj"><string name="filename" value="{name}_{i}.obj"/>{refs}'
+                   "</shape>")
+    lookat = " ".join(f'{k}="{", ".join("%.9g" % c for c in view[k])}"' for k in ("origin",
+                                                                                   "target"))
+    out.append(f'<sensor type="perspective">{_xml_float("fov", view["fov"])}'
+               f'<transform name="toWorld"><lookat {lookat} up="0, 1, 0"/></transform>'
+               f'<film type="hdrfilm"><integer name="width" value="{size}"/>'
+               f'<integer name="height" value="{size}"/></film></sensor>')
+    out.append("</scene>")
+    path = os.path.join(d, f"{name}.xml")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return path
+
+
+def _tri_rows(scene) -> np.ndarray:
+    """A scene's triangles as sorted rows (p0, e1, e2): a multiset to compare."""
+    rows = torch.cat([scene.geom.p0, scene.geom.e1, scene.geom.e2], dim=1).cpu().numpy()
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def _geometry_in(T, p: np.ndarray, nodes: dict, dev):
+    """(Geometry, BVHArrays) of triangles p (N, 3, 3) in a builder's output
+    order (nodes["order"], with SBVH duplicates), normals and uvs zero."""
+    order = nodes["order"]
+    p0 = p[order, 0]
+    e1, e2 = p[order, 1] - p0, p[order, 2] - p0
+    z3 = torch.zeros((len(order), 3), device=dev)
+    z2 = torch.zeros((len(order), 2), device=dev)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    geom = T.Geometry(p0=t(p0), e1=t(e1), e2=t(e2), n0=z3, n1=z3, n2=z3, uv0=z2, uv1=z2,
+                      uv2=z2, obj_idx=torch.zeros(len(order), dtype=torch.int32, device=dev),
+                      is_sphere=torch.zeros(len(order), dtype=torch.bool, device=dev))
+    bvh = T.BVHArrays(**{k: torch.as_tensor(nodes[k], device=dev)
+                         for k in ("node_min", "node_max", "node_skip", "node_base",
+                                   "node_count")}, max_leaf=4)
+    return geom, bvh
+
+
+def scene_input_builds(d: str, kb) -> dict:
+    """(a) The three host libraries (g++, the reference's flags): available,
+    and a fresh build of all three at once timed; the OBJ parsers, native
+    and Python, on kitchen_stress's files (written here first)."""
+    from cuda_pt_torch.accel import native
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cuda_pt_torch.scene import native_obj, obj_loader
+    from cuda_pt_torch.utils import host_build
+
+    srcs = [(native._SRC, ()), (native._SRC_SBVH, ("-pthread",)), (native_obj._SRC, ())]
+    # the package's libraries (built already where phase 3 compiled a scene),
+    # then a fresh build of all three into d at once, timed: a first call's cost
+    paths = [host_build.build(*a) for a in srcs]
+    if not (native.available() and native.sbvh_available() and native_obj.available()):
+        raise SystemExit("a native host library is unavailable")
+
+    def fresh(a):
+        out = os.path.join(d, os.path.basename(host_build.library_path(*a)))
+        subprocess.run(["g++", *host_build.FLAGS, *a[1], "-o", out, a[0]], check=True,
+                       capture_output=True, timeout=300)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as ex:
+        list(ex.map(fresh, srcs))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, ob in enumerate(kb.objects):
+        write_obj(os.path.join(d, f"kitchen_{i}.obj"), ob.p, ob.n, ob.uv)
+    write_s = time.perf_counter() - t0
+    files = [os.path.join(d, f"kitchen_{i}.obj") for i in range(len(kb.objects))]
+    mb = sum(os.path.getsize(f) for f in files) / 2 ** 20
+    times = {}
+    for native_ in (True, False):
+        t0 = time.perf_counter()
+        meshes = [obj_loader.load_obj(f, native=native_) for f in files]
+        times["native" if native_ else "python"] = time.perf_counter() - t0
+        for ob, m in zip(kb.objects, meshes):
+            if not np.array_equal(m["p"], ob.p):
+                raise SystemExit("an OBJ file did not read back its triangles bit for bit")
+    names = [os.path.basename(p) for p in paths]
+    log(f"[19a] host libraries built afresh, at once, in {build_s:.2f} s ({names}); "
+        f"kitchen_stress as {len(files)} OBJ files ({mb:.1f} MiB, written in {write_s:.1f} s): "
+        f"native parser {times['native']:.3f} s, Python parser {times['python']:.3f} s "
+        f"({times['python'] / times['native']:.1f}x); positions read back bit for bit")
+    return {"host_build_s": build_s, "obj_files": len(files), "obj_mib": mb,
+            "obj_native_s": times["native"], "obj_python_s": times["python"]}
+
+
+def scene_input_bvh(T, kb, dev) -> dict:
+    """(b) Full-size kitchen_stress: the NumPy SAH build against the native
+    one (seconds, SAH cost, nodes), the SBVH (seconds, duplicated refs,
+    nodes), and on SBVH_RAYS random rays the SBVH walk's closest original
+    prim held to the BVH's (equal except on exact ties)."""
+    from cuda_pt_torch.accel import bvh_build, native, traverse
+
+    p = np.concatenate([ob.p for ob in kb.objects]).astype(np.float32)
+    p0, e1, e2 = p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
+    sph = np.zeros(len(p), bool)
+    bounds = bvh_build.prim_bounds(p0, e1, e2, sph)
+    out, trees = {"prims": len(p)}, {}
+    for key, run in (("numpy", lambda: bvh_build.build_bvh(*bounds, use_native=False)),
+                     ("native", lambda: native.build_bvh_native(*bounds)),
+                     ("sbvh", lambda: native.build_sbvh_native(p0, e1, e2, sph,
+                                                               dup_budget_frac=1.0))):
+        t0 = time.perf_counter()
+        trees[key] = run()
+        out[key] = {"s": time.perf_counter() - t0, "nodes": int(len(trees[key]["node_min"])),
+                    "sah_cost": bvh_build.sah_cost(trees[key])}
+    out["sbvh"]["dup_refs"] = int(len(trees["sbvh"]["order"]) - len(p))
+    rs = np.random.default_rng(19)
+    lo, hi = trees["native"]["node_min"][0], trees["native"]["node_max"][0]
+    o = torch.as_tensor(rs.uniform(lo, hi, (SBVH_RAYS, 3)).astype(np.float32), device=dev)
+    dd = rs.normal(size=(SBVH_RAYS, 3)).astype(np.float32)
+    d = torch.as_tensor(dd / np.linalg.norm(dd, axis=1, keepdims=True), device=dev)
+    hits = {}
+    for key in ("native", "sbvh"):
+        geom, bvh = _geometry_in(T, p, trees[key], dev)
+        h = traverse.closest_hit_bvh(geom, bvh, o, d)
+        order = torch.as_tensor(trees[key]["order"], device=dev)
+        hits[key] = (torch.where(h["prim"] >= 0, order[h["prim"].clamp(min=0)], -1), h["t"])
+    differ = hits["native"][0] != hits["sbvh"][0]
+    ties = differ & (hits["native"][0] >= 0) & (hits["native"][1] == hits["sbvh"][1])
+    bad = int((differ & ~ties).sum())
+    out["walk"] = {"rays": SBVH_RAYS, "differ": int(differ.sum()), "exact_ties": int(ties.sum()),
+                   "hits": int((hits["sbvh"][0] >= 0).sum())}
+    n, nb, s = out["numpy"], out["native"], out["sbvh"]
+    log(f"[19b] kitchen_stress ({len(p)} triangles): SAH build NumPy {n['s']:.2f} s against "
+        f"native {nb['s']:.3f} s ({n['s'] / nb['s']:.1f}x); SAH cost {n['sah_cost']:.4f} / "
+        f"{nb['sah_cost']:.4f}, nodes {n['nodes']} / {nb['nodes']}; SBVH {s['s']:.3f} s, "
+        f"{s['dup_refs']} duplicated refs, {s['nodes']} nodes, SAH cost {s['sah_cost']:.4f}; "
+        f"walks on {SBVH_RAYS} random rays: {out['walk']['differ']} closest prims differ, "
+        f"{out['walk']['exact_ties']} on exact ties, {bad} otherwise")
+    if bad:
+        raise SystemExit(f"SBVH walk: {bad} closest prims differ from the BVH's off exact ties")
+    return out
+
+
+def scene_input_xml(mk, T, d: str, kb, kscene, kcam, k2_mean: float, k5_mean: float,
+                    k5_wall: float, Renderer) -> dict:
+    """(c) cornell_box and kitchen_stress written as XML and rendered through
+    Renderer(path, override_res=(1024, 1024)): cornell on K2, kitchen on K5;
+    the parsed triangles held to the builder's as multisets and the parsed
+    cameras to the builder's bit for bit; a block of
+    each main path's rays held per lane to the plain version. (d) the SBVH
+    kitchen (override_accel) through the Renderer on K5, held likewise."""
+    from cuda_pt_torch.core.config import MaxDepthParams
+    from cuda_pt_torch.scene import testscenes as tts
+    from cuda_pt_torch.scene import xml_parser
+
+    md = MaxDepthParams()
+    cs, ccam, cb_ = tts.cornell_box(1024, 1024)
+    paths = {"cornell": write_scene_xml(T, cb_, d, "cornell", XML_VIEWS["cornell"], 512),
+             "kitchen": write_scene_xml(T, kb, d, "kitchen", XML_VIEWS["kitchen"], 512)}
+    out, renderers = {}, {}
+    for key, ref_scene, ref_cam, ref_mean, spp, want in (
+            ("cornell", cs, ccam, k2_mean, XML_CORNELL_SPP, None),
+            ("kitchen", kscene, kcam, k5_mean, XML_KITCHEN_SPP,
+             {"launches": ["trace_megakernel_seg"], "instantiations": ["SEG+K3+ALL+CPT"]})):
+        t0 = time.perf_counter()
+        r = Renderer(paths[key], override_res=(1024, 1024))
+        load_s = time.perf_counter() - t0
+        if not np.array_equal(_tri_rows(r.scene), _tri_rows(ref_scene)):
+            raise SystemExit(f"XML {key}: the parsed triangles are not the builder's")
+        if not all(torch.equal(getattr(r.camera, f).cpu(), getattr(ref_cam, f).cpu())
+                   for f in ("R", "t", "focal")):
+            raise SystemExit(f"XML {key}: the parsed camera is not the builder's")
+        info = r.info()
+        if want is None:
+            want = {"launches": ["trace_megakernel"],
+                    "instantiations": ["K2+STAGE" if mk.stages(r._pack) else "K2"]}
+        wall, launches, inst, mean = render_main_path(mk, r, spp, f"XML {key}", want)
+        hold = (hold_main_path if key == "cornell" else hold_swf)(mk, r, md, XML_BLOCK, "19c",
+                                                                  f"XML {key}")
+        hold.pop("L")
+        hold.pop("runs", None)
+        out[key] = {"load_s": load_s, "wall_ms_per_spp": wall * 1e3 / spp, "spp": spp,
+                    "launches": launches, "instantiations": inst, "image_mean": mean,
+                    "builder_mean": ref_mean, "driver": info["driver"],
+                    "num_prims": info["num_prims"], "hold": hold}
+        log(f"[19c] XML {key} ({info['num_prims']} prims, parsed and compiled in {load_s:.2f} s; "
+            f"driver {info['driver']}): {wall * 1e3 / spp:.2f} ms per spp over {spp} spp, "
+            f"launches {launches} {inst}, image mean {mean:.6f} (the builder's scene in phase "
+            f"{5 if key == 'cornell' else 6}: {ref_mean:.6f}; presets and 8-bit textures differ, "
+            "no bound)")
+        renderers[key] = r
+    # (d) the SBVH kitchen
+    t0 = time.perf_counter()
+    r = Renderer(xml_parser.load_xml(paths["kitchen"], override_res=(1024, 1024),
+                                     override_accel={"use_sbvh": True}))
+    load_s = time.perf_counter() - t0
+    n_refs = r.scene.geom.num_prims
+    wall, launches, inst, mean = render_main_path(
+        mk, r, XML_SBVH_SPP, "XML kitchen SBVH",
+        {"launches": ["trace_megakernel_seg"], "instantiations": ["SEG+K3+ALL+CPT"]})
+    hold = hold_swf(mk, r, md, XML_BLOCK, "19d", "XML kitchen SBVH")
+    hold.pop("L")
+    hold.pop("runs", None)
+    out["sbvh"] = {"load_s": load_s, "prim_refs": n_refs, "bvh_nodes": r.scene.bvh.num_nodes,
+                   "wall_ms_per_spp": wall * 1e3 / XML_SBVH_SPP, "launches": launches,
+                   "image_mean": mean, "hold": hold}
+    log(f"[19d] XML kitchen SBVH ({n_refs} prim refs, {r.scene.bvh.num_nodes} nodes; parsed and "
+        f"compiled in {load_s:.2f} s): {wall * 1e3 / XML_SBVH_SPP:.2f} ms per spp against the "
+        f"SAH tree's {out['kitchen']['wall_ms_per_spp']:.2f} (phase 6, builder's scene: "
+        f"{k5_wall:.2f}); K5 {hold['ms']:.3f} ms per spp against "
+        f"{out['kitchen']['hold']['ms']:.3f}; launches {launches}, image mean {mean:.6f}")
+    return out, renderers["kitchen"], paths
+
+
+def scene_input_auto(mk, rk, cornell_path: str, Renderer) -> dict:
+    """(e) traversal="auto" on the XML kitchen: each candidate's time, the
+    pick, then one 1-spp pass with it; and on the XML cornell (8,192 prims
+    or fewer) "mxu"'s disqualification."""
+    from cuda_pt_torch.accel import autotune
+
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    r = Renderer(rk.parsed, traversal="auto")
+    tune_s = time.perf_counter() - t0
+    tune_launches = {k: v for k, v in mk.LAUNCHES.items() if v}
+    # the Renderer's tuning, from the cache (its key: the scene before K1's
+    # forest was attached)
+    res = autotune.autotune_traversal(dataclasses.replace(r.scene, forest=None))
+    pick = r.info()["traversal"]
+    want = {"launches": ["traverse_forest"] if pick == "pallas" else [], "instantiations": []}
+    wall, launches, _, mean = render_main_path(mk, r, 1, "XML kitchen auto", want)
+    rc = Renderer(cornell_path, override_res=(64, 64), traversal="auto")
+    cres = autotune.autotune_traversal(dataclasses.replace(rc.scene, forest=None))
+    if not (res["cached"] and cres["cached"]):
+        raise SystemExit("auto: the Renderer's tuning is not the cached one")
+    out = {"timings_ms": res["timings_ms"], "impl": res["impl"], "traversal": pick,
+           "tune_s": tune_s, "tune_launches": tune_launches, "pass_ms": wall * 1e3,
+           "pass_launches": launches, "image_mean": mean,
+           "mxu_eligible": "mxu" in res["timings_ms"],
+           "cornell": {"timings_ms": cres["timings_ms"], "impl": cres["impl"],
+                       "disqualified": cres["disqualified"]}}
+    log(f"[19e] traversal auto on the XML kitchen: candidates (ms) {res['timings_ms']}, pick "
+        f"{res['impl']} (tuned in {tune_s:.1f} s, launches {tune_launches}); mxu "
+        f"{'eligible' if out['mxu_eligible'] else 'not eligible (more than 8,192 prims)'}; "
+        f"one 1-spp pass {wall * 1e3:.1f} ms, launches {launches}, mean {mean:.6f}; on the XML "
+        f"cornell: {cres['timings_ms']} -> {cres['impl']}, disqualified {cres['disqualified']}")
+    if "mxu" not in cres["disqualified"] or "item 13" not in cres["disqualified"]["mxu"]:
+        raise SystemExit("auto: mxu is not disqualified naming its ROADMAP item")
+    if not np.isfinite(res["timings_ms"][res["impl"]]) or \
+            (pick == "pallas" and launches.get("traverse_forest", 0) <= 0):
+        raise SystemExit("auto: no finite pick, or the K1 pick launched no K1")
+    return out
+
+
+def scene_input_grid(mk, T, d: str, Renderer) -> dict:
+    """(f) grid_smoke's GRID_N^3 grid as a ZIP-codec .nvdb in an XML scene,
+    rendered VOLUME_PT at 1 spp through Renderer(path) on K6 (the split
+    driver), held per lane as phase 8 does."""
+    from cuda_pt_torch.core.config import MaxDepthParams
+    from cuda_pt_torch.scene import testscenes as tts
+
+    _, _, gb = tts.grid_smoke(8, 8, n=GRID_N)
+    t0 = time.perf_counter()
+    path = write_scene_xml(T, gb, d, "grid", XML_VIEWS["grid"], 512, rtype="vpt")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = Renderer(path, override_res=(1024, 1024))
+    load_s = time.perf_counter() - t0
+    info = r.info()
+    if info["renderer"] != "vpt" or info["driver"] != "swf_split":
+        raise SystemExit(f"XML grid: not VOLUME_PT on the split driver: {info}")
+    if not torch.equal(r.scene.grids.density[0].cpu(), torch.as_tensor(gb.grids[0]["density"])):
+        raise SystemExit("XML grid: the .nvdb did not read back the grid bit for bit")
+    wall, launches, inst, mean = render_main_path(
+        mk, r, 1, "XML grid", {"launches": ["trace_megakernel_seg", "traverse_resolve"],
+                               "instantiations": ["SEG+SHADE+ALL+MED+GRID"]})
+    hold = hold_swf(mk, r, MaxDepthParams(), XML_BLOCK, "19f", "XML grid")
+    hold.pop("L")
+    hold.pop("runs", None)
+    mib = os.path.getsize(path.replace(".xml", "_grid0.nvdb")) / 2 ** 20
+    log(f"[19f] XML grid ({GRID_N}^3 grid as a {mib:.1f} MiB ZIP .nvdb, written in {write_s:.1f} "
+        f"s, parsed and compiled in {load_s:.1f} s): VOLUME_PT 1 spp {wall * 1e3:.1f} ms, "
+        f"launches {launches} {inst}, image mean {mean:.6f}")
+    return {"nvdb_mib": mib, "write_s": write_s, "load_s": load_s, "wall_ms": wall * 1e3,
+            "launches": launches, "instantiations": inst, "image_mean": mean, "hold": hold}
+
+
+def phase_scene_input(mk, dev, kb, kscene, kcam, k2_mean: float, k5: dict, Renderer) -> dict:
+    """Phase 19: scene input without JAX, (a)-(f)."""
+    import tempfile
+
+    from cuda_pt_torch.scene import types as T
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        out = {"builds": scene_input_builds(d, kb), "bvh": scene_input_bvh(T, kb, dev)}
+        xml, rk, paths = scene_input_xml(mk, T, d, kb, kscene, kcam, k2_mean,
+                                         k5["image_mean"], k5["wall_ms_per_spp"], Renderer)
+        out["xml"] = xml
+        out["auto"] = scene_input_auto(mk, rk, paths["cornell"], Renderer)
+        del rk
+        out["grid"] = scene_input_grid(mk, T, d, Renderer)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[19] scene input: {out['phase_s']:.1f} s")
+    return out
+
+
 def whole_path_pass(mk, r, md):
     """A pass of the Renderer's scene through the whole-path kernel
     (auto_trace bypassed): sample 0's pcg streams and camera rays over the
@@ -3385,7 +3890,7 @@ def main():
 
 
 def run_phases(args, build: dict, sass_job: dict) -> int:
-    """Phases 2-18 and the result lines, after the build (phase 1)."""
+    """Phases 2-19 and the result lines, after the build (phase 1)."""
     from cuda_pt_torch.api import Renderer
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import extract_ab as ab
@@ -3402,7 +3907,7 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
     dev = torch.device("cuda")
     card = phase_card()
     walk = phase_walk(mk, tts, dev)
-    walk_k, kscene, kcam, build_s = phase_walk_kitchen(mk, tts, dev)
+    walk_k, kscene, kcam, build_s, kbuilder = phase_walk_kitchen(mk, tts, dev)
     # K1's kitchen forests build on the host in two worker processes while
     # phases 4-8 run on the card
     pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
@@ -3455,6 +3960,15 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
                               ParsedScene, Renderer)
     k2["sobol_launches_per_pass"] = sampling["cornell"]["k2_launches_per_pass"]
     k5_kitchen["sobol_launches_per_pass"] = sampling["kitchen"]["k5_launches_per_pass"]
+    scene_input = phase_scene_input(mk, dev, kbuilder, kscene, kcam, k2["image_mean"],
+                                    k5_kitchen, Renderer)
+    xml = scene_input["xml"]
+    k2["xml_launches"] = xml["cornell"]["launches"]["trace_megakernel"]
+    k5_kitchen["xml_launches"] = xml["kitchen"]["launches"]["trace_megakernel_seg"]
+    k5_kitchen["sbvh_launches"] = xml["sbvh"]["launches"]["trace_megakernel_seg"]
+    k5_grid["xml_launches"] = scene_input["grid"]["launches"]["trace_megakernel_seg"]
+    k6["xml_launches"] = scene_input["grid"]["launches"]["traverse_resolve"]
+    auto = scene_input["auto"]
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
@@ -3498,12 +4012,16 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          **({"parent_ms": k1["parent"]["closest"]["parent_ms"],
              "anyhit_parent_ms": k1["parent"]["anyhit"]["parent_ms"]} if "parent" in k1 else {}),
          **k1_wf, **k1_lt, "grad_vpt_launches": grad["vpt"]["k1_launches"],
+         "auto_pass_launches": auto["pass_launches"].get("traverse_forest", 0),
+         "auto_tune_launches": auto["tune_launches"].get("traverse_forest", 0),
          "tof_launches_per_pass": grad["tof"]["ungated"]["k1_launches_per_pass"],
          "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
                  "rays of kitchen_stress; main_path_*: summed over one wavefront spp; lt_*: "
                  "the light tracer's main path, one pass (lt_launches_per_pass over LT_SPP); "
                  "grad_vpt_launches: the VPT gradient render (phase 17, forward and "
-                 "backward); tof_launches_per_pass: the ToF route's ungated passes"},
+                 "backward); tof_launches_per_pass: the ToF route's ungated passes; "
+                 "auto_pass_launches: one 1-spp pass of the XML kitchen under traversal "
+                 "'auto' with its pick, auto_tune_launches: the tuning's own (phase 19)"},
         {"name": "trace_megakernel (K2+BIN: render_megakernel, cornell, binary f32 nodes)",
          "route": "cuda", "source": "cuda_pt_torch/csrc/megakernel_bin.cu",
          "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:802", "library_ms": None,
@@ -3528,6 +4046,7 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
         k.pop("runs", None)
     extra = {"k1_check": {k: v for k, v in k1.items() if k != "timing"}, "routes_check": routes,
              "light_check": light, "grad_check": grad, "sampling_check": sampling,
+             "scene_input_check": scene_input,
              "build": build}
     if args.profile:
         md = MaxDepthParams()

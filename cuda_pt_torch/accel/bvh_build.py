@@ -1,7 +1,10 @@
 """Host-side SAH BVH builder (NumPy) with stackless skip-encoded output.
 
-Port of the NumPy path of cuda_pt_tpu/accel/bvh_build.py (use_native=False),
-kept bit-identical to it:
+Port of cuda_pt_tpu/accel/bvh_build.py: build_bvh dispatches to the native
+C++ builder (accel/native.py) as the reference does, so the default prim
+order is the reference's default; the NumPy path below (use_native=False,
+and the fallback where g++ is missing) is kept bit-identical to the
+reference's NumPy path:
 
 - 16-bin binned SAH over the centroid extent with an overlap-area penalty
   weight and an equal-count fallback.
@@ -43,17 +46,23 @@ def _surface_area(lo, hi):
 
 
 def build_bvh(lo: np.ndarray, hi: np.ndarray, centroid: np.ndarray, max_leaf: int = 4,
-              overlap_w: float = 1.0):
+              overlap_w: float = 1.0, use_native: bool = True):
     """Build the BVH.
 
     Returns dict of numpy arrays: node_min/max (M,3), node_skip/base/count
     (M,), and ``order`` (N,) — the primitive permutation (new order -> old
     index) the caller must apply to every per-prim array.
 
-    This is the NumPy path of the reference builder only; the native C++
-    builders wait for their ROADMAP item.
+    Dispatches to the native C++ builder (accel/native.py) when available;
+    the NumPy path below is the reference implementation and fallback.
     """
     n = lo.shape[0]
+    if use_native and n > 0:
+        from . import native
+
+        out = native.build_bvh_native(lo, hi, centroid, max_leaf, overlap_w)
+        if out is not None:
+            return out
     order = np.arange(n, dtype=np.int64)
 
     # Nodes collected in DFS order during an explicit-stack build.
@@ -181,3 +190,14 @@ def build_bvh(lo: np.ndarray, hi: np.ndarray, centroid: np.ndarray, max_leaf: in
         "node_count": np.asarray(node_count, np.int32),
         "order": reordered,
     }
+
+
+def sah_cost(nodes: dict) -> float:
+    """Total SAH cost of the tree, relative to its root's area (the
+    reference's diagnostic): interior nodes at _TRAV_COST, leaves at their
+    prim count, each weighted by its surface area."""
+    sa = _surface_area(nodes["node_min"], nodes["node_max"])
+    root = max(sa[0], 1e-12)
+    is_leaf = nodes["node_count"] > 0
+    cost = np.where(is_leaf, nodes["node_count"].astype(np.float64), _TRAV_COST)
+    return float((sa * cost).sum() / root)

@@ -26,9 +26,10 @@ from .wide_build import EMPTY
 
 def _child_slabs(wb: WideBVHArrays, nid, o, inv_d, t_best):
     """(n, 8) t_near and hit mask of the children of wide nodes nid; empty
-    slots (inverted boxes pass the slab test) never hit."""
-    t0 = (wb.child_min[nid] - o[:, None, :]) * inv_d[:, None, :]
-    t1 = (wb.child_max[nid] - o[:, None, :]) * inv_d[:, None, :]
+    slots (inverted boxes pass the slab test) never hit. bf16 boxes
+    (rounded outward at build) upcast to f32."""
+    t0 = (wb.child_min[nid].float() - o[:, None, :]) * inv_d[:, None, :]
+    t1 = (wb.child_max[nid].float() - o[:, None, :]) * inv_d[:, None, :]
     tn = torch.amax(torch.minimum(t0, t1), dim=-1)
     tf = torch.amin(torch.maximum(t0, t1), dim=-1)
     hit = (tn <= tf) & (tf > isect.HIT_EPS) & (tn < t_best[:, None]) \

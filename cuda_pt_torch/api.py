@@ -28,7 +28,10 @@ the reference's names:
   full size; only "pallas" walks on a kernel there. A ToF-gated config
   (md.max_time > 0) takes these routes: the fused kernels take no ToF
   window;
-- "auto" and "mxu" wait for ROADMAP Queue 1 items 6 and 13.
+- "auto": each eligible walk timed on the render device
+  (accel/autotune.with_tuned_traversal) and the fastest kept for the
+  composed path; info()["traversal"] reports the pick;
+- "mxu" waits for ROADMAP Queue 1 item 13.
 DEPTH (debug_renderers.render_depth) and BVH_COST (render_bvh_cost) walk
 the skip walk or the brute force whatever ``traversal`` says, as in the
 reference. render_aovs (the first hits through the scene's walk, K1 under
@@ -69,8 +72,11 @@ there it runs the reference's hybrid scheme: Sobol camera jitter on the
 Z-order lanes, and the kernels' path streams from pcg seeded
 seed ^ 0x9E3779B9.
 
+A str source is a Mitsuba-style XML scene (scene/xml_parser.load_xml),
+compiled on the host with override_res applied before the camera is made.
+
 Still to port (ROADMAP Queue 1): emissive grids and the composed volume
-path tracer's grid route, the XML parser (and override_res with it).
+path tracer's grid route.
 """
 
 from __future__ import annotations
@@ -98,7 +104,6 @@ from .scene.xml_parser import ParsedScene, load_xml
 _BANDABLE = (RendererType.MEGAKERNEL_PT, RendererType.VOLUME_PT)
 # traversal -> the ROADMAP Queue 1 item that ports it
 _TRAVERSAL_WAITING = {
-    "auto": "item 6 (accel/autotune.py)",
     "mxu": "item 13 (ops/intersect_mxu.py)",
 }
 
@@ -129,10 +134,11 @@ class Renderer:
                  nee_candidates: int = 1, max_lanes_per_call: int | None = None, device=None):
         """The reference's parameters in the reference's order, then device.
 
-        source: a ParsedScene (scene, camera, RenderingConfig) or an XML
-        path (raises until the parser is ported). override_res: raises
-        unless None (the reference applies it in the XML parser, ROADMAP
-        Queue 1 item 6). traversal: the route (module docstring).
+        source: a ParsedScene (scene, camera, RenderingConfig) or the path
+        of an XML scene (scene/xml_parser.load_xml). override_res: (width,
+        height) for an XML source, applied by the parser; ignored for a
+        ParsedScene, as in the reference. traversal: the route (module
+        docstring).
         sampler: "pcg" (the stream sampler) or "sobol" (Owen-scrambled
         Sobol; on the kernel routes the hybrid scheme of the module
         docstring); any other raises.
@@ -146,18 +152,16 @@ class Renderer:
         per pass; default from CUDA_PT_MAX_LANES_PER_CALL, else 0); only
         MEGAKERNEL_PT and VOLUME_PT are banded. Bands are bit-identical to
         the unbanded pass."""
-        if override_res is not None:
-            raise NotImplementedError("override_res waits for ROADMAP Queue 1 item 6 (the XML "
-                                      "parser applies it)")
         qmc.check_sampler(sampler)
         self.sampler = sampler
-        self.parsed: ParsedScene = load_xml(source) if isinstance(source, str) else source
+        self.parsed: ParsedScene = (load_xml(source, override_res=override_res)
+                                    if isinstance(source, str) else source)
         self.config = self.parsed.config
         self.rtype = RendererType(renderer or self.config.renderer)
         if traversal in _TRAVERSAL_WAITING:
             raise NotImplementedError(f"traversal {traversal!r} waits for ROADMAP Queue 1 "
                                       f"{_TRAVERSAL_WAITING[traversal]}")
-        if traversal not in (None, "fused", *pt.TRAVERSALS):
+        if traversal not in (None, "fused", "auto", *pt.TRAVERSALS):
             raise ValueError(f"unknown traversal {traversal!r}")
         vpt = self.rtype == RendererType.VOLUME_PT
         if vpt and int(nee_candidates) != 1 and traversal == "fused":
@@ -187,15 +191,19 @@ class Renderer:
             raise RuntimeError("Renderer(device=None) renders on CUDA, which is not available; "
                                "pass device='cpu' to render on the CPU")
         self.scene: T.Scene = T.to_device(scene, self.device)
+        self.camera: cam_mod.Camera = self.parsed.camera.to(self.device)
         if traversal in pt.TRAVERSALS:
             self.scene.traversal = traversal
+        elif traversal == "auto":
+            from .accel.autotune import with_tuned_traversal
+
+            self.scene = with_tuned_traversal(self.scene, self.camera)
         if traversal == "wide" and self.scene.wide is None:
             from .accel import wide_build
 
             self.scene.wide = wide_build.from_bvharrays(self.scene.bvh)
         if (self.scene.traversal or pt.TRAVERSAL_IMPL) == "pallas" and not self.fused:
             self.scene.forest = pt.pallas_forest(self.scene)  # packed once, on our copy
-        self.camera: cam_mod.Camera = self.parsed.camera.to(self.device)
         self.seed = int(self.config.seed) + int(seed_offset)
         self.use_bvh = self.scene.geom.num_prims > pt.BRUTE_FORCE_MAX_PRIMS
         self.nee_candidates = int(nee_candidates)

@@ -1,8 +1,7 @@
 """Render configuration dataclasses (port of cuda_pt_tpu/core/config.py).
 
 Static host-side configs: they select bounce caps and resolution, never
-tensors. Fields of the reference configs that only unported code reads
-(the BVH's cache level and SBVH budgets) arrive with that code.
+tensors. The fields, their order and their defaults are the reference's.
 """
 
 from __future__ import annotations
@@ -34,9 +33,15 @@ class MaxDepthParams:
 
 @dataclasses.dataclass(frozen=True)
 class BVHConfig:
-    max_prims_per_leaf: int = 4
+    max_prims_per_leaf: int = 4  # the reference's max_node_num (the XML path caps it at 8)
+    # carried from the XML and read by nothing, as in the reference
+    cache_level: int = 5
     overlap_w: float = 1.0  # SAH overlap-area penalty weight
-    use_sbvh: bool = False  # the SBVH builder is not ported yet: True raises
+    use_sbvh: bool = False  # spatial splits (accel/native.build_sbvh_native)
+    use_ref_unsplit: bool = False
+    # the SBVH's duplicate-reference budget as a fraction of the prim count;
+    # None = 0.5 with reference unsplitting, 1.0 without
+    dup_budget_frac: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,8 @@
 design's python binding: render, variance, counter, avg_frame_time, info,
 release). Arrays come back as NumPy float32.
 
-The source is what api.Renderer takes: a ParsedScene, or an XML path,
-which raises until the XML parser is ported (ROADMAP Queue 1 item 6).
+The source is what api.Renderer takes: a ParsedScene, or the path of an
+XML scene (scene/xml_parser.load_xml; override_res applies to it).
 device_id picks cuda:<device_id> unless the keyword arguments give a
 device; the other keyword arguments (sampler="sobol", traversal=, ...)
 pass through to api.Renderer.

@@ -6,8 +6,9 @@ primitive reordering, emitter-prim remap after reordering) and emits flat
 tensors on the requested device. All arithmetic is NumPy, so the arrays
 equal the JAX builder's for the same BVH. ``compile(forest_chunk=...)``
 also builds kernel K1's chunked forest (ops/traverse_kernel.build_forest).
-The SBVH branch of the reference builder waits for its ROADMAP item and
-raises.
+The BVH is the native SAH build (accel/native.py, the NumPy one where g++
+is missing), or with BVHConfig(use_sbvh=True) the native SBVH, whose
+duplicated references the emitter tables count once.
 """
 
 from __future__ import annotations
@@ -245,14 +246,24 @@ class SceneBuilder:
             inv_area[oi] = 1.0 / max(a, 1e-12)
 
         # BVH / SBVH build + primitive reorder
+        nodes = None
         if cfg.use_sbvh:
-            raise NotImplementedError(
-                "the SBVH builder waits for the native builders (ROADMAP Queue 1 item 6)")
-        lo, hi, cent = bvh_build.prim_bounds(p0, e1, e2, is_sphere)
-        nodes = bvh_build.build_bvh(
-            lo, hi, cent, max_leaf=cfg.max_prims_per_leaf,
-            overlap_w=cfg.overlap_w,
-        )
+            from ..accel import native
+
+            budget = cfg.dup_budget_frac
+            if budget is None:
+                budget = 0.5 if cfg.use_ref_unsplit else 1.0
+            nodes = native.build_sbvh_native(
+                p0, e1, e2, is_sphere,
+                max_leaf=cfg.max_prims_per_leaf, overlap_w=cfg.overlap_w,
+                dup_budget_frac=budget,
+            )
+        if nodes is None:  # the SAH build (native, else NumPy)
+            lo, hi, cent = bvh_build.prim_bounds(p0, e1, e2, is_sphere)
+            nodes = bvh_build.build_bvh(
+                lo, hi, cent, max_leaf=cfg.max_prims_per_leaf,
+                overlap_w=cfg.overlap_w,
+            )
         order = nodes["order"]
         p0, e1, e2 = p0[order], e1[order], e2[order]
         n0, n1, n2 = n0[order], n1[order], n2[order]

@@ -1,26 +1,419 @@
-"""Parsed-scene bundle (port of the ParsedScene type of
-cuda_pt_tpu/scene/xml_parser.py). The Mitsuba XML parser itself waits for
-ROADMAP Queue 1 item 6; scenes reach the Renderer as a ParsedScene built
-from a compiled Scene and Camera (scene/testscenes.py, scene/bridge.py)."""
+"""Mitsuba-v1.2-style XML scene parser (port of
+cuda_pt_tpu/scene/xml_parser.py, element for element and in its order).
+
+Format parity with the reference parser (src/impl/scene.cu:937-1192 and the
+per-element parsers at :170-900): renderer/accelerator/sensor blocks, brdf
+types {lambertian, specular, det-refraction, conductor-ggx, plastic,
+plastic-forward, dispersion, forward}, emitters {point, area, area-spot,
+envmap}, shapes {obj, sphere} with material/emitter/medium refs + cullable,
+texture packs with per-slot image paths, homogeneous/grid media and phase
+functions. Implemented on xml.etree — no tinyxml2. The scene compiles on
+the CPU; the Renderer moves it to its device.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
+import xml.etree.ElementTree as ET
 
+import numpy as np
+
+from ..core import camera as cam_mod
 from ..core.camera import Camera
-from ..core.config import RenderingConfig
+from ..core.config import BVHConfig, MaxDepthParams, RenderingConfig, RendererType
+from ..media.nvdb import load_nvdb_density
+from ..utils.image import load_image
+from . import presets
+from . import types as T
+from .builder import BSDFSpec, EmitterSpec, MediumSpec, SceneBuilder
+from .obj_loader import load_obj
 from .types import Scene
+
+
+def _parse_rgb(txt: str) -> tuple:
+    txt = txt.strip()
+    if txt.startswith("#"):
+        h = txt.lstrip("#")
+        return tuple(int(h[i : i + 2], 16) / 255.0 for i in (0, 2, 4))
+    parts = [p for p in txt.replace(",", " ").split() if p]
+    if len(parts) == 1:
+        v = float(parts[0])
+        return (v, v, v)
+    return tuple(float(p) for p in parts[:3])
+
+
+def _named(elem, tag, name, default=None):
+    for c in elem.findall(tag):
+        if c.get("name") == name:
+            return c.get("value")
+    return default
+
+
+def _get_float(elem, name, default):
+    v = _named(elem, "float", name)
+    return float(v) if v is not None else default
+
+
+def _get_int(elem, name, default):
+    v = _named(elem, "integer", name)
+    return int(v) if v is not None else default
+
+
+def _get_bool(elem, name, default):
+    v = _named(elem, "bool", name)
+    return (v.strip().lower() == "true") if v is not None else default
+
+
+def _get_rgb(elem, name, default):
+    v = _named(elem, "rgb", name)
+    return _parse_rgb(v) if v is not None else default
+
+
+def _refs(elem, rtype):
+    return [r.get("id") for r in elem.findall("ref") if r.get("type") == rtype]
+
+
+_SLOT_NAMES = {
+    "diffuse": T.TEX_DIFFUSE,
+    "specular": T.TEX_SPECULAR,
+    "glossy": T.TEX_GLOSSY,
+    "normal": T.TEX_NORMAL,
+    "rough1": T.TEX_ROUGHNESS,
+    "roughness": T.TEX_ROUGHNESS,
+}
+
+_BRDF_TYPES = {
+    "lambertian": T.BSDF_LAMBERTIAN,
+    "specular": T.BSDF_SPECULAR,
+    "det-refraction": T.BSDF_TRANSLUCENT,
+    "translucent": T.BSDF_TRANSLUCENT,
+    "plastic": T.BSDF_PLASTIC,
+    "plastic-forward": T.BSDF_PLASTIC_FORWARD,
+    "conductor-ggx": T.BSDF_GGX_CONDUCTOR,
+    "dispersion": T.BSDF_DISPERSION,
+    "forward": T.BSDF_FORWARD,
+    # beyond-reference families: GGX rough dielectric (frosted glass),
+    # Oren-Nayar rough diffuse
+    "rough-dielectric": T.BSDF_GGX_DIELECTRIC,
+    "dielectric-ggx": T.BSDF_GGX_DIELECTRIC,
+    "oren-nayar": T.BSDF_OREN_NAYAR,
+}
+
+_PHASE_TYPES = {
+    "isotropic": T.PHASE_ISOTROPIC,
+    "hg": T.PHASE_HG,
+    "mixed-hg": T.PHASE_DUAL_HG,
+    "dual-hg": T.PHASE_DUAL_HG,
+    "rayleigh": T.PHASE_RAYLEIGH,
+    "sggx": T.PHASE_SGGX,
+}
 
 
 @dataclasses.dataclass
 class ParsedScene:
+    """Result bundle: compiled scene + camera + config + builder handle
+    (None for a scene built by hand)."""
+
     scene: Scene
     camera: Camera
     config: RenderingConfig
     builder: object = None
 
 
-def load_xml(path: str, override_res=None) -> ParsedScene:
-    raise NotImplementedError(
-        f"{path}: the XML scene parser waits for ROADMAP Queue 1 item 6; "
-        "pass a ParsedScene(scene, camera, RenderingConfig(...)) instead")
+def load_xml(path: str, override_res=None, override_accel=None) -> ParsedScene:
+    """Parse a Mitsuba-v1.2 scene XML (reference scene.cu:937-1192).
+
+    override_accel: optional dict of BVHConfig field overrides (e.g.
+    {"max_prims_per_leaf": 32}) applied after XML parsing — uncapped, for
+    walk-economics experiments (the XML path caps leaves at 8)."""
+    base = os.path.dirname(os.path.abspath(path))
+    root = ET.parse(path).getroot()
+    if root.tag != "scene":
+        raise ValueError(f"not a scene file: {path}")
+
+    b = SceneBuilder()
+
+    # ---- renderer config -------------------------------------------------
+    rend = root.find("renderer")
+    rtype = {
+        "pt": RendererType.MEGAKERNEL_PT,
+        "wfpt": RendererType.WAVEFRONT_PT,
+        "lt": RendererType.MEGAKERNEL_LT,
+        "vpt": RendererType.VOLUME_PT,
+        "depth": RendererType.DEPTH,
+        "bvh-cost": RendererType.BVH_COST,
+    }.get(rend.get("type", "pt") if rend is not None else "pt", RendererType.MEGAKERNEL_PT)
+    md = MaxDepthParams(
+        max_depth=_get_int(rend, "max_bounce", 16) if rend is not None else 16,
+        max_diffuse=_get_int(rend, "max_diffuse", 8) if rend is not None else 8,
+        max_specular=_get_int(rend, "max_specular", 8) if rend is not None else 8,
+        max_transmit=_get_int(rend, "max_transmit", 12) if rend is not None else 12,
+        max_volume=_get_int(rend, "max_volume", 8) if rend is not None else 8,
+        min_time=_get_float(rend, "min_time", 0.0) if rend is not None else 0.0,
+        max_time=_get_float(rend, "max_time", 0.0) if rend is not None else 0.0,
+    )
+
+    accel = root.find("accelerator")
+    bvh_cfg = BVHConfig(
+        max_prims_per_leaf=min(_get_int(accel, "max_node_num", 4), 8)
+        if accel is not None
+        else 4,
+        cache_level=_get_int(accel, "cache_level", 5) if accel is not None else 5,
+        overlap_w=_get_float(accel, "overlap_w", 1.0) if accel is not None else 1.0,
+        use_sbvh=_get_bool(accel, "use_sbvh", False) if accel is not None else False,
+        use_ref_unsplit=_get_bool(accel, "use_ref_unsplit", False)
+        if accel is not None
+        else False,
+        dup_budget_frac=_get_float(accel, "dup_budget_frac", -1.0)
+        if accel is not None
+        else -1.0,
+    )
+    if bvh_cfg.dup_budget_frac is not None and bvh_cfg.dup_budget_frac < 0:
+        bvh_cfg = dataclasses.replace(bvh_cfg, dup_budget_frac=None)
+    if override_accel:
+        bvh_cfg = dataclasses.replace(bvh_cfg, **override_accel)
+
+    # ---- textures --------------------------------------------------------
+    tex_packs = {}  # id -> {slot: atlas_tex_id}
+    for tex in root.findall("texture"):
+        pack = {}
+        for s in tex.findall("string"):
+            slot = _SLOT_NAMES.get(s.get("name"))
+            pth = s.get("value")
+            if pth is None:
+                continue
+            full = os.path.normpath(os.path.join(base, pth))
+            if slot is None and s.get("name") == "emission":
+                slot = T.TEX_DIFFUSE
+            if slot is None or not os.path.exists(full):
+                continue
+            linear = slot in (T.TEX_DIFFUSE, T.TEX_SPECULAR, T.TEX_GLOSSY)
+            img = load_image(full, to_linear=linear)
+            pack[slot] = b.add_texture(img)
+        tex_packs[tex.get("id")] = pack
+
+    # ---- phase functions -------------------------------------------------
+    phases = {}
+    for ph in root.findall("phase"):
+        phases[ph.get("id")] = {
+            "type": _PHASE_TYPES.get(ph.get("type", "isotropic"), T.PHASE_ISOTROPIC),
+            "g": _get_float(ph, "g", 0.0),
+            "g2": _get_float(ph, "g2", 0.0),
+            "weight": _get_float(ph, "weight", 1.0),
+        }
+
+    # ---- media -----------------------------------------------------------
+    medium_ids = {}
+    for med in root.findall("medium"):
+        mtype = med.get("type", "homogeneous")
+        ph = phases.get((_refs(med, "phase") or [None])[0], None) or {
+            "type": T.PHASE_ISOTROPIC,
+            "g": 0.0,
+            "g2": 0.0,
+            "weight": 1.0,
+        }
+        spec = MediumSpec(
+            phase_type=ph["type"],
+            phase_g=(ph["g"], ph["g2"]),
+            phase_w=ph["weight"],
+            scale=_get_float(med, "scale", 1.0),
+            name=med.get("id", ""),
+        )
+        if mtype == "homogeneous":
+            spec.mtype = T.MEDIUM_HOMOGENEOUS
+            spec.sigma_a = _get_rgb(med, "sigma_a", (0.0, 0.0, 0.0))
+            spec.sigma_s = _get_rgb(med, "sigma_s", (1.0, 1.0, 1.0))
+        else:  # grid
+            spec.mtype = T.MEDIUM_GRID
+            albedo = _get_rgb(med, "albedo", (1.0, 1.0, 1.0))
+            spec.sigma_s = albedo
+            spec.sigma_a = tuple(1.0 - a for a in albedo)
+            spec.emission_scale = _get_float(med, "emission-scale", 0.0)
+            dpath = _named(med, "string", "density")
+            epath = _named(med, "string", "emission")
+            try:
+                dens, bmin, bmax = load_nvdb_density(
+                    os.path.normpath(os.path.join(base, dpath))
+                )
+                emis = None
+                if epath:
+                    try:
+                        emis, _, _ = load_nvdb_density(
+                            os.path.normpath(os.path.join(base, epath))
+                        )
+                        if emis.shape != dens.shape:
+                            emis = None
+                    except Exception:
+                        emis = None
+                spec.grid_id = b.add_grid(dens, bmin, bmax, emission=emis)
+            except Exception as e:  # noqa: BLE001 — the reference's fallback, any load error
+                warnings.warn(f"grid medium {med.get('id')!r}: density {dpath!r} did not load "
+                              f"({type(e).__name__}: {e}); rendered as homogeneous")
+                spec.grid_id = -1  # fallback: treat as homogeneous
+                spec.mtype = T.MEDIUM_HOMOGENEOUS
+        medium_ids[med.get("id")] = b.add_medium(spec)
+
+    # ---- BSDFs -----------------------------------------------------------
+    bsdf_ids = {}
+    for brdf in root.findall("brdf"):
+        btype_name = brdf.get("type", "lambertian")
+        btype = _BRDF_TYPES.get(btype_name, T.BSDF_LAMBERTIAN)
+        spec = BSDFSpec(
+            btype=btype,
+            k_d=_get_rgb(brdf, "k_d", (0.7, 0.7, 0.7)),
+            k_s=_get_rgb(brdf, "k_s",
+                         (1.0, 1.0, 1.0) if btype != T.BSDF_LAMBERTIAN else (0.0, 0.0, 0.0)),
+            k_g=_get_rgb(brdf, "k_g", (1.0, 1.0, 1.0)),
+            ior=_get_float(brdf, "ior", 1.5),
+            roughness_x=_get_float(brdf, "roughness_x", 0.1),
+            roughness_y=_get_float(brdf, "roughness_y", 0.1),
+            thickness=_get_float(brdf, "thickness", 0.0),
+            name=brdf.get("id", ""),
+        )
+        if btype == T.BSDF_TRANSLUCENT:
+            # det-refraction stores IoR in k_d (reference scene convention,
+            # e.g. scene/xml/grid-cbox.xml "glass")
+            spec.ior = _get_rgb(brdf, "k_d", (1.5,) * 3)[0]
+        if btype == T.BSDF_GGX_CONDUCTOR:
+            metal = _named(brdf, "string", "conductor") or "Au"
+            if metal not in presets.CONDUCTORS:
+                raise ValueError(
+                    f"unknown conductor preset {metal!r} in BSDF "
+                    f"{brdf.get('id')!r}; known: {sorted(presets.CONDUCTORS)}"
+                )
+            eta, kk = presets.CONDUCTORS[metal]
+            spec.eta, spec.k = eta, kk
+        if btype == T.BSDF_DISPERSION:
+            name = _named(brdf, "rgb", "type") or _named(brdf, "string", "type") or "Diamond"
+            if name not in presets.DISPERSION:
+                raise ValueError(
+                    f"unknown dispersion preset {name!r} in BSDF "
+                    f"{brdf.get('id')!r}; known: {sorted(presets.DISPERSION)}"
+                )
+            a, bb = presets.DISPERSION[name]
+            spec.cauchy_a, spec.cauchy_b = a, bb
+        if btype == T.BSDF_PLASTIC or btype == T.BSDF_PLASTIC_FORWARD:
+            sig = _get_rgb(brdf, "sigma_a", (0.0, 0.0, 0.0))
+            spec.k = sig  # plastic reuses the conductor-k column for sigma_a
+        # texture pack
+        tref = _refs(brdf, "texture")
+        if tref and tref[0] in tex_packs:
+            tids = [-1] * T.NUM_TEX_SLOTS
+            for slot, tid in tex_packs[tref[0]].items():
+                tids[slot] = tid
+            spec.tex_ids = tuple(tids)
+        bsdf_ids[brdf.get("id")] = b.add_bsdf(spec)
+
+    # ---- emitters (ids in document order, 1-based like the reference) ----
+    emitter_ids = {}
+    for em in root.findall("emitter"):
+        etype_name = em.get("type", "area")
+        emission = _get_rgb(em, "emission", (1.0, 1.0, 1.0))
+        scaler_rgb = _get_rgb(em, "scaler", None)
+        scaler = (
+            float(np.mean(scaler_rgb))
+            if scaler_rgb is not None
+            else _get_float(em, "scaler", 1.0)
+        )
+        spec = EmitterSpec(emission=emission, scaler=scaler, name=em.get("id", ""))
+        if etype_name == "point":
+            spec.etype = T.EMITTER_POINT
+            pt = em.find("point")
+            if pt is not None:
+                spec.pos = (
+                    float(pt.get("x", 0)),
+                    float(pt.get("y", 0)),
+                    float(pt.get("z", 0)),
+                )
+        elif etype_name == "area-spot":
+            spec.etype = T.EMITTER_AREA_SPOT
+            ang = _get_float(em, "half-angle", _get_float(em, "angle", 45.0))
+            spec.extra = (float(np.cos(np.deg2rad(ang))), 0.0, 0.0, 0.0)
+        elif etype_name == "envmap":
+            spec.etype = T.EMITTER_ENVMAP
+            spec.extra = (
+                _get_float(em, "scale", 1.0),
+                float(np.deg2rad(_get_float(em, "azimuth", 0.0))),
+                float(np.deg2rad(_get_float(em, "zenith", 0.0))),
+                0.0,
+            )
+        else:
+            spec.etype = T.EMITTER_AREA
+        tref = _refs(em, "texture")
+        if tref and tref[0] in tex_packs:
+            pack = tex_packs[tref[0]]
+            spec.tex_id = pack.get(T.TEX_DIFFUSE, -1)
+        emitter_ids[em.get("id")] = b.add_emitter(spec)
+
+    # ---- shapes ----------------------------------------------------------
+    for shape in root.findall("shape"):
+        stype = shape.get("type", "obj")
+        mref = _refs(shape, "material")
+        bsdf_id = bsdf_ids.get(mref[0], 0) if mref else 0
+        eref = _refs(shape, "emitter")
+        emitter_id = emitter_ids.get(eref[0], 0) if eref else 0
+        vref = _refs(shape, "medium")
+        medium_in = medium_ids.get(vref[0], T.MEDIUM_NONE) if vref else T.MEDIUM_NONE
+        cullable = _get_bool(shape, "cullable", False)
+        if stype == "sphere":
+            pt = shape.find("point")
+            center = (
+                float(pt.get("x", 0)),
+                float(pt.get("y", 0)),
+                float(pt.get("z", 0)),
+            )
+            radius = _get_float(shape, "radius", 1.0)
+            b.add_sphere(center, radius, bsdf_id, emitter_id, medium_in, cullable)
+        else:
+            fn = _named(shape, "string", "filename")
+            full = os.path.normpath(os.path.join(base, fn))
+            if not os.path.exists(full):
+                warnings.warn(f"shape mesh missing, skipped: {full}")
+                continue
+            mesh = load_obj(full)
+            b.add_mesh(
+                mesh["p"], bsdf_id, n=mesh["n"], uv=mesh["uv"],
+                emitter_id=emitter_id, medium_in=medium_in, cullable=cullable,
+            )
+
+    # ---- sensor ----------------------------------------------------------
+    sensor = root.find("sensor")
+    fov = _get_float(sensor, "fov", 40.0)
+    hflip = _get_bool(sensor, "hflip", False)
+    aperture = _get_float(sensor, "aperture", 0.0)
+    focal_dist = _get_float(sensor, "focal_dist", -1.0)
+    la = sensor.find("transform/lookat")
+    origin = _parse_rgb(la.get("origin"))
+    target = _parse_rgb(la.get("target"))
+    up = _parse_rgb(la.get("up", "0, 1, 0"))
+    film = sensor.find("film")
+    w = _get_int(film, "width", 512)
+    h = _get_int(film, "height", 512)
+    gamma = _get_bool(film, "gamma_correction", True)
+    if override_res is not None:
+        w, h = override_res
+
+    camera = cam_mod.make_camera(
+        origin=origin, target=target, up=up, fov=fov, width=w, height=h,
+        hflip=hflip, aperture=aperture, focal_dist=focal_dist,
+    )
+    config = RenderingConfig(
+        renderer=rtype,
+        spp=_get_int(rend, "sample_count", 64) if rend is not None else 64,
+        width=w,
+        height=h,
+        md=md,
+        bvh=bvh_cfg,
+        gamma=gamma,
+        bidirectional=_get_bool(rend, "bidirectional", False) if rend is not None else False,
+        specular_constraint=_get_int(rend, "specular_constraint", 0)
+        if rend is not None
+        else 0,
+        caustic_scaling=_get_float(rend, "caustic_scaling", 1.0)
+        if rend is not None
+        else 1.0,
+    )
+    scene = b.compile(bvh_cfg)
+    return ParsedScene(scene, camera, config, b)

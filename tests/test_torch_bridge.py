@@ -1,13 +1,15 @@
 """Carrying scenes across: flatten a JAX Scene / Camera into the
 field-path dicts that cuda_pt_torch/scene/bridge.py reads, and check the
-round trip. The other port test files import the two helpers from here."""
+round trip. The other port test files import the helpers from here."""
 
 import dataclasses
 
 import numpy as np
 import torch
 
+from cuda_pt_torch.accel import native as t_native
 from cuda_pt_torch.scene import bridge
+from cuda_pt_tpu.accel import native as j_native
 from cuda_pt_tpu.scene import testscenes as j_ts
 
 # The port's CPU tests run small tensors in several test processes at once
@@ -15,6 +17,15 @@ from cuda_pt_tpu.scene import testscenes as j_ts
 # oversubscribing the cores. Every worker imports this module when it
 # collects the port's tests, so the setting holds for all of them.
 torch.set_num_threads(1)
+
+def numpy_bvh_builds(mp) -> None:
+    """Send both packages' SAH builds down their NumPy paths (mp: a
+    pytest.MonkeyPatch): each native builder patched to give None, as
+    build_bvh(use_native=False) does, so that scenes compiled under it hold
+    the port's NumPy tree against the reference's."""
+    mp.setattr(j_native, "build_bvh_native", lambda *a, **k: None)
+    mp.setattr(t_native, "build_bvh_native", lambda *a, **k: None)
+
 
 TABLES = ("geom", "objects", "emitters", "bsdfs", "textures", "media", "grids", "bvh",
           "env_importance")

@@ -42,3 +42,27 @@ def test_port_imports_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+# the scene-input modules (the XML parser and what it loads, the native
+# builders' bridges, the autotuner): each one is among the files above, so
+# the rule holds for it, and no string in its code (docstrings aside) names
+# the JAX package: its libraries build from the port's own sources
+SCENE_INPUT = ("scene/xml_parser.py", "scene/presets.py", "scene/obj_loader.py",
+               "scene/native_obj.py", "utils/image.py", "utils/host_build.py", "media/nvdb.py",
+               "accel/native.py", "accel/autotune.py")
+
+
+@pytest.mark.parametrize("module", SCENE_INPUT)
+def test_scene_input_module_checked(module):
+    path = os.path.join(REPO, "cuda_pt_torch", module)
+    assert path in _port_files()
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef)) and n.body
+            and isinstance(n.body[0], ast.Expr)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            assert "cuda_pt_tpu" not in node.value, f"{path}:{node.lineno}"

@@ -52,7 +52,7 @@ from cuda_pt_tpu.models import volume_pt as j_vpt
 from cuda_pt_tpu.scene import testscenes as j_ts
 from cuda_pt_tpu.scene import types as JT
 from cuda_pt_tpu.scene.builder import BSDFSpec, MediumSpec, SceneBuilder
-from test_torch_bridge import flatten_jax_camera, flatten_jax_scene
+from test_torch_bridge import flatten_jax_camera, flatten_jax_scene, numpy_bvh_builds
 from test_torch_bsdf_emitters import scenes  # noqa: F401  (module fixture)
 from test_torch_grid import _sides
 from test_torch_media import _media, _phase_inputs
@@ -398,10 +398,12 @@ def test_vpt_pallas_walks_k1_detached(monkeypatch):
     np.testing.assert_allclose(g_p, g_x, rtol=1e-4)
 
 
-def test_forward_render_refuses_gradient_and_keeps_image():
+def test_forward_render_refuses_gradient_and_keeps_image(monkeypatch):
     """A forward render builds no graph, so .backward() raises (as jax.grad
     through the reference's while_loop does), and its images equal, bit for
-    bit, those the forward-only port rendered (tests/golden, read only)."""
+    bit, those the forward-only port rendered (tests/golden, read only; its
+    scenes were compiled on the NumPy BVH path, which they take here)."""
+    numpy_bvh_builds(monkeypatch)
     gold = np.load(GOLDEN)
     scene, cam, _ = t_ts.cornell_box(16, 16)
     a = torch.tensor(0.73, requires_grad=True)

@@ -152,10 +152,10 @@ def test_python_renderer_on_the_cpu():
 
 def test_python_renderer_device_and_xml():
     """device_id picks cuda:<id> unless device= is given (CUDA is absent
-    here, so the Renderer refuses it); an XML path raises the parser's
-    error, naming its ROADMAP item."""
+    here, so the Renderer refuses it); an XML path goes to the parser,
+    which raises for a file that is not there."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PythonRenderer(_parsed(), device_id=0)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError, match="scene.xml"):
         PythonRenderer("scene.xml", device="cpu")

@@ -22,11 +22,10 @@ from cuda_pt_torch.ops import morton as t_morton
 from cuda_pt_torch.ops import traverse_kernel as t_tk
 from cuda_pt_torch.scene import bridge
 from cuda_pt_torch.scene import testscenes as t_ts
-from cuda_pt_tpu.accel import native as j_native
 from cuda_pt_tpu.ops import morton as j_morton
 from cuda_pt_tpu.ops.pallas import traverse_kernel as j_tk
 from cuda_pt_tpu.scene import testscenes as j_ts
-from test_torch_bridge import flatten_jax_scene
+from test_torch_bridge import flatten_jax_scene, numpy_bvh_builds
 
 FOREST = (("f32", 256), ("bf16", 256), ("f32", 64), ("bf16", 64))
 
@@ -34,16 +33,17 @@ FOREST = (("f32", 256), ("bf16", 256), ("f32", 64), ("bf16", 64))
 @pytest.fixture(scope="module")
 def kitchen():
     """kitchen_stress(grid=2) (198 triangles) from the JAX builder with its
-    NumPy BVH, and the same scene bridged to the port."""
+    NumPy BVH, and the same scene bridged to the port; both packages' trees
+    (scenes and forests) take the NumPy path while the module's tests run."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(j_native, "build_bvh_native", lambda *a, **k: None)
+    numpy_bvh_builds(mp)
     try:
         sj, _, _ = j_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
         forests = {key: j_tk.build_forest(sj.geom, chunk_prims=key[1], node_fmt=key[0])
                    for key in FOREST}
+        yield sj, bridge.scene_from_numpy(flatten_jax_scene(sj)), forests
     finally:
         mp.undo()
-    return sj, bridge.scene_from_numpy(flatten_jax_scene(sj)), forests
 
 
 def _bits(x) -> np.ndarray:

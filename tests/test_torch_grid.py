@@ -27,7 +27,6 @@ from cuda_pt_torch.scene import testscenes as t_ts
 from cuda_pt_torch.scene import types as TT
 from cuda_pt_torch.scene.builder import EmitterSpec, MediumSpec
 from cuda_pt_torch.scene.xml_parser import ParsedScene
-from cuda_pt_tpu.accel import native as j_native
 from cuda_pt_tpu.core import camera as j_cam
 from cuda_pt_tpu.core import qmc as j_qmc
 from cuda_pt_tpu.core.config import MaxDepthParams as JMD
@@ -35,7 +34,7 @@ from cuda_pt_tpu.media import grid as j_grid
 from cuda_pt_tpu.ops.pallas import megakernel as j_mk
 from cuda_pt_tpu.scene import testscenes as j_ts
 from cuda_pt_tpu.scene import types as JT
-from test_torch_bridge import TABLES, flatten_jax_scene
+from test_torch_bridge import TABLES, flatten_jax_scene, numpy_bvh_builds
 
 RTOL, ATOL, MAX_LANE_FRAC, MEAN_TOL = 1e-4, 1e-5, 0.02, 5e-3
 B = 512
@@ -125,14 +124,14 @@ def test_tracking_matches_reference():
 
 @pytest.fixture(scope="module")
 def smoke():
-    """grid_smoke 8x8 from both builders (the JAX one with its NumPy BVH)."""
+    """grid_smoke 8x8 from both builders, each with its NumPy BVH."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(j_native, "build_bvh_native", lambda *a, **k: None)
+    numpy_bvh_builds(mp)
     try:
         sj, cj, _ = j_ts.grid_smoke(8, 8)
+        st, ct, _ = t_ts.grid_smoke(8, 8)
     finally:
         mp.undo()
-    st, ct, _ = t_ts.grid_smoke(8, 8)
     return sj, cj, st, ct
 
 

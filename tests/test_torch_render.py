@@ -215,5 +215,6 @@ def test_unported_renderers_raise(rtype):
         scene = b.compile()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(_parsed(scene, cam, MaxDepthParams()), renderer=rtype, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # an XML path goes to the parser (ported), which raises for a missing file
+    with pytest.raises(FileNotFoundError, match="scene.xml"):
         Renderer("scene.xml", device="cpu")

@@ -17,19 +17,18 @@ from cuda_pt_torch.scene import bridge
 from cuda_pt_torch.scene import builder as t_builder
 from cuda_pt_torch.scene import testscenes as t_ts
 from cuda_pt_tpu.accel import bvh_build as j_bvh
-from cuda_pt_tpu.accel import native as j_native
 from cuda_pt_tpu.accel import wide_build as j_wide
 from cuda_pt_tpu.ops.pallas import megakernel as j_mk
 from cuda_pt_tpu.scene import builder as j_builder
 from cuda_pt_tpu.scene import testscenes as j_ts
 from cuda_pt_tpu.scene import types as JT
-from test_torch_bridge import TABLES, flatten_jax_scene
+from test_torch_bridge import TABLES, flatten_jax_scene, numpy_bvh_builds
 
 
 @pytest.fixture
 def numpy_bvh_reference(monkeypatch):
-    """Make the JAX builder take its NumPy BVH path (use_native=False)."""
-    monkeypatch.setattr(j_native, "build_bvh_native", lambda *a, **k: None)
+    """Make both builders take their NumPy BVH paths (use_native=False)."""
+    numpy_bvh_builds(monkeypatch)
 
 
 def _tall_box(kind: str, mod):
@@ -65,7 +64,7 @@ def test_bvh_build_bit_equal_numpy_path(prims):
     bj = j_bvh.prim_bounds(p0, e1, e2, sph)
     for a, b in zip(bt, bj):
         np.testing.assert_array_equal(a, b)
-    nt = t_bvh.build_bvh(*bt, max_leaf=4)
+    nt = t_bvh.build_bvh(*bt, max_leaf=4, use_native=False)
     nj = j_bvh.build_bvh(*bj, max_leaf=4, use_native=False)
     assert nt.keys() == nj.keys()
     for k in nt:
@@ -148,7 +147,7 @@ def test_make_pack_k3_inputs_equal_reference():
 
 
 def test_kitchen_full_tree_fits_the_kernel_stack():
-    """The port's own NumPy tree for full-size kitchen_stress: its w8
+    """The port's own default tree for full-size kitchen_stress: its w8
     traversal stack (+8 for the walk's unconditional write) fits
     MK_MAX_STACK, and its leaves fit the stack entry's 4-bit count."""
     from cuda_pt_torch.ops import cuda_build
@@ -175,5 +174,6 @@ def test_unported_builder_branches_raise():
     b.add_mesh(t_ts.quad([0, 0, 0], [1, 0, 0], [1, 0, 1], [0, 0, 1]), b.add_bsdf(t_builder.BSDFSpec()))
     with pytest.raises(ValueError, match="node_fmt"):  # K1's forest takes f32 or bf16 rows
         b.compile(forest_chunk=64, node_fmt="f16")
-    with pytest.raises(NotImplementedError):
-        b.compile(bvh_cfg=BVHConfig(use_sbvh=True))
+    # the SBVH is ported: it compiles, every prim referenced at least once
+    sbvh = b.compile(bvh_cfg=BVHConfig(use_sbvh=True))
+    assert sbvh.geom.num_prims >= 2 and int(sbvh.bvh.node_count.sum()) == sbvh.geom.num_prims

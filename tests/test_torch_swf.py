@@ -24,14 +24,13 @@ from cuda_pt_torch.core.config import MaxDepthParams as TMD
 from cuda_pt_torch.ops import megakernel as t_mk
 from cuda_pt_torch.scene import bridge
 from cuda_pt_torch.scene import testscenes as t_ts
-from cuda_pt_tpu.accel import native as j_native
 from cuda_pt_tpu.accel import wide_build as j_wide
 from cuda_pt_tpu.core import camera as j_cam
 from cuda_pt_tpu.core import qmc as j_qmc
 from cuda_pt_tpu.core.config import MaxDepthParams as JMD
 from cuda_pt_tpu.ops.pallas import megakernel as j_mk
 from cuda_pt_tpu.scene import testscenes as j_ts
-from test_torch_bridge import flatten_jax_scene
+from test_torch_bridge import flatten_jax_scene, numpy_bvh_builds
 
 EXACT_RTOL, EXACT_ATOL = 1e-5, 1e-7
 
@@ -50,15 +49,15 @@ def _random_state(n=4096, seed=0):
 
 @pytest.fixture(scope="module")
 def kitchen_packs():
-    """kitchen_stress(grid=2) packed by both sides, the JAX scene built with
-    its NumPy BVH as the port's builder does."""
+    """kitchen_stress(grid=2) packed by both sides, both scenes built with
+    their NumPy BVH."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(j_native, "build_bvh_native", lambda *a, **k: None)
+    numpy_bvh_builds(mp)
     try:
         sj, _, _ = j_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+        st, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
     finally:
         mp.undo()
-    st, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
     return j_mk.make_pack(sj, node_fmt="w8"), t_mk.make_pack(st, node_fmt="w8"), sj, st
 
 

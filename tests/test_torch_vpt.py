@@ -26,7 +26,6 @@ from cuda_pt_torch.scene import types as TT
 from cuda_pt_torch.scene.builder import BSDFSpec as TBSDFSpec
 from cuda_pt_torch.scene.builder import MediumSpec as TMediumSpec
 from cuda_pt_torch.scene.xml_parser import ParsedScene
-from cuda_pt_tpu.accel import native as j_native
 from cuda_pt_tpu.core import camera as j_cam
 from cuda_pt_tpu.core import qmc as j_qmc
 from cuda_pt_tpu.core.config import MaxDepthParams as JMD
@@ -36,7 +35,7 @@ from cuda_pt_tpu.scene import testscenes as j_ts
 from cuda_pt_tpu.scene import types as JT
 from cuda_pt_tpu.scene.builder import BSDFSpec, EmitterSpec, MediumSpec, SceneBuilder
 from test_round4_fixes import _medium_box_scene
-from test_torch_bridge import TABLES, flatten_jax_camera, flatten_jax_scene
+from test_torch_bridge import TABLES, flatten_jax_camera, flatten_jax_scene, numpy_bvh_builds
 
 RTOL, ATOL, MIN_LANES, MEAN_REL = 1e-4, 1e-5, 0.95, 1e-3
 FOG = dict(sigma_a=(0.05, 0.08, 0.05), sigma_s=(0.6, 0.5, 0.4), scale=1.5)
@@ -135,8 +134,8 @@ SCENE_PAIRS = {
 
 @pytest.fixture
 def numpy_bvh_reference(monkeypatch):
-    """Make the JAX builder take its NumPy BVH path (use_native=False)."""
-    monkeypatch.setattr(j_native, "build_bvh_native", lambda *a, **k: None)
+    """Make both builders take their NumPy BVH paths (use_native=False)."""
+    numpy_bvh_builds(monkeypatch)
 
 
 @pytest.mark.parametrize("kind", list(SCENE_PAIRS))

@@ -155,10 +155,17 @@ def test_renderer_routes_and_info(route):
     ("auto", NotImplementedError, "item 6"), ("mxu", NotImplementedError, "item 13"),
     ("bvh", ValueError, "unknown traversal"), ("fused_wavefront", ValueError, "megakernel PT")])
 def test_renderer_traversal_errors(traversal, err, match):
+    """Unknown and unported traversals raise; "auto" (item 6) is ported: it
+    pins a tuned walk instead (accel/autotune.py)."""
     scene, cam, _ = t_ts.cornell_box(4, 4)
     rtype = RendererType.MEGAKERNEL_PT
     if traversal == "fused_wavefront":
         traversal, rtype = "fused", RendererType.WAVEFRONT_PT
+    if traversal == "auto":
+        r = Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), renderer=rtype,
+                     device="cpu", traversal=traversal)
+        assert r.info()["traversal"] in ("xla", "wide", "pallas")
+        return
     with pytest.raises(err, match=match):
         Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), renderer=rtype,
                  device="cpu", traversal=traversal)
