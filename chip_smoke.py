@@ -269,6 +269,39 @@ Phases (any failure exits non-zero):
      an XML scene, VOLUME_PT 1 spp through Renderer(path) on K6, held per
      lane as phase 8 holds. The K2, K5, K6 and K1 entries gain this
      path's launches; scene_input_check joins the result line.
+ 20. the volume path tracer's last routes and distributed rendering:
+     (a) full-size kitchen_stress (its HDR sky) with grid_smoke's null
+     container holding a GRID_N^3 density grid with a temperature field
+     and emission_scale GRID_EMISSION (outside the fused envelope twice:
+     envmap, emission), Renderer(VOLUME_PT, traversal="pallas") at
+     1024x1024 x 1 spp on the composed route (K1 alone): the wall, K1's
+     launches and summed ms, the PyTorch (aten) operators per pass
+     (aten_ops: the profiler's count of its device launches takes
+     minutes at this size), the image mean, the allocator's peak; at SMALL^2 on
+     kitchen_stress(grid=2) with the same grid, "pallas" held per lane to
+     "xla" (phase-4 contract, max_depth cut to HOLD_DEPTH); (b) the
+     composed grid estimators on the card at GRID_EST_SIZE^2: the
+     zero-albedo constant-grid absorber against the equivalent
+     homogeneous slab (2 % in the mean), the sigma = 0 null slab's NEE
+     against the slab-free surface render (12 %; ABSORBER_SPP each),
+     grid_smoke (GRID_N^3) on the composed route against the split route
+     (K6 + K5) in the mean (20 %; GRID_EST_SPP each); (c) medium_cbox
+     VOLUME_PT on K1 at 1024x1024 x 1 spp with and without compact=True:
+     walls, K1 launches and live lanes per launch, the images per lane to
+     the phase-4 contract; (d) count_rays on kitchen_stress (K1) and
+     medium_cbox at 1024x1024 x 1 spp: the count, seconds and rays per
+     second, each held equal to the per-lane sum of the render's own
+     streams; (e) two ranks on the one card (gloo; `--dist-worker`
+     processes) and one rank under NCCL, all three at once: "fused" on cornell 1024x1024 x
+     DIST_FUSED_SPP (K2) with (sp, dp) = (1, 2), bit-equal to the
+     single-process kernel on the same streams, and (2, 1), within rtol
+     1e-5; "vpt" on medium_cbox DIST_VPT_SIZE^2 x DIST_VPT_SPP (K1,
+     compacted) held per lane to the single-process uncompacted render;
+     render_train_step(remat=True) on cornell DIST_TRAIN_SIZE^2: loss and
+     gradients equal on both ranks and within rtol 1e-4 of the
+     single-process step. volume_check, count_check and
+     distributed_check join the result line; the K1 and K2 entries gain
+     this phase's launches.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
@@ -1271,6 +1304,24 @@ def device_launches(run) -> int:
             run()
             torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+@contextlib.contextmanager
+def aten_ops():
+    """Counts the PyTorch (aten) operators dispatched in the block, in
+    ["n"]: each launches at most a few device kernels, and the count costs
+    microseconds per operator where the profiler's costs far more."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    box = {"n": 0}
+
+    class _Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            box["n"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with _Count():
+        yield box
 
 
 def hold_swf(mk, r, md, blk: int, phase: str, label: str, ab: bool = False) -> dict:
@@ -3811,6 +3862,510 @@ def phase_scene_input(mk, dev, kb, kscene, kcam, k2_mean: float, k5: dict, Rende
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the volume path tracer's last routes, ray counts, distributed
+# ---------------------------------------------------------------------------
+
+SMOKE_BOX = ((-2.5, 1.2, -2.5), (2.5, 4.2, 2.5))  # the grid's container in full kitchen
+SMOKE_BOX_SMALL = ((-1.0, 0.9, -1.0), (1.0, 2.0, 1.0))  # in kitchen_stress(grid=2)
+GRID_EMISSION = 4.0  # the grid medium's emission_scale
+HOLD_DEPTH = 8  # (a)'s SMALL^2 hold: max_depth cut from 16 to stay under a minute
+GRID_EST_SIZE = 256
+ABSORBER_SPP = 4
+GRID_EST_SPP = 1  # grid_smoke, each route (cut: spp)
+DIST_FUSED_SIZE = 1024
+DIST_FUSED_SPP = 16
+DIST_VPT_SIZE = 512
+DIST_VPT_SPP = 2
+DIST_TRAIN_SIZE = 256
+DIST_TRAIN_DEPTH = 4  # the training step's max_depth (cut from 16: autograd memory)
+DIST_TIMEOUT = 600
+
+
+def _cube(tts, lo, hi):
+    """The 6 quads of the box [lo, hi] (grid_smoke's container)."""
+    (x0, y0, z0), (x1, y1, z1) = lo, hi
+    q = tts.quad
+    return np.concatenate([
+        q([x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0]),
+        q([x1, y0, z1], [x0, y0, z1], [x0, y1, z1], [x1, y1, z1]),
+        q([x0, y0, z1], [x0, y0, z0], [x0, y1, z0], [x0, y1, z1]),
+        q([x1, y0, z0], [x1, y0, z1], [x1, y1, z1], [x1, y1, z0]),
+        q([x0, y1, z0], [x1, y1, z0], [x1, y1, z1], [x0, y1, z1]),
+        q([x0, y0, z1], [x1, y0, z1], [x1, y0, z0], [x0, y0, z0])], axis=0)
+
+
+def add_smoke(tts, T, b, n: int, lo, hi, emission_scale: float = GRID_EMISSION) -> None:
+    """grid_smoke's medium in builder b: an n^3 soft-sphere density (sigma
+    4, albedo 0.9) with the same sphere as its temperature field, in a null
+    (forward, cullable) box [lo, hi]."""
+    from cuda_pt_torch.scene.builder import BSDFSpec, MediumSpec
+
+    g = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+    r = np.sqrt(g[:, None, None] ** 2 + g[None, :, None] ** 2 + g[None, None, :] ** 2)
+    gid = b.add_grid((np.maximum(0.0, 1.0 - r) * 4.0).astype(np.float32), lo, hi,
+                     emission=np.clip(1.0 - r, 0.0, 1.0).astype(np.float32))
+    med = b.add_medium(MediumSpec(mtype=T.MEDIUM_GRID, grid_id=gid, sigma_s=(0.9, 0.9, 0.9),
+                                  scale=1.0, emission_scale=emission_scale))
+    b.add_mesh(_cube(tts, lo, hi), b.add_bsdf(BSDFSpec(btype=T.BSDF_FORWARD)), medium_in=med,
+               cullable=True)
+
+
+def _parsed(scene, cam, md, RenderingConfig, ParsedScene):
+    return ParsedScene(scene, cam, RenderingConfig(width=cam.width, height=cam.height, md=md,
+                                                   seed=0))
+
+
+def grid_route(mk, tk, tts, dev, kb, kcam, T, MaxDepthParams, RendererType, RenderingConfig,
+               ParsedScene, Renderer) -> dict:
+    """(a): the composed grid route at full width, then the SMALL^2 hold."""
+    import copy
+
+    b = copy.deepcopy(kb)
+    add_smoke(tts, T, b, GRID_N, *SMOKE_BOX)
+    t0 = time.perf_counter()
+    scene = b.compile(device=dev)
+    build_s = time.perf_counter() - t0
+    md = MaxDepthParams()
+    if mk.megakernel_ok(scene, md, renderer="vpt"):
+        raise SystemExit("[20] the emissive grid under an envmap is inside the fused envelope")
+    r = Renderer(_parsed(scene, kcam, md, RenderingConfig, ParsedScene),
+                 renderer=RendererType.VOLUME_PT, traversal="pallas")
+    info = r.info()
+    if (info["driver"], info["traversal"], info["has_grid"]) != ("composed", "pallas", True):
+        raise SystemExit(f"[20] grid route: not the composed route on K1: {info}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    wall, launches, _, mean = render_main_path(
+        mk, r, 1, "composed grid route", {"launches": ["traverse_forest"], "instantiations": []})
+    peak = peak_mib(dev, base)
+    B = kcam.width * kcam.height
+
+    def one_pass():
+        return r._composed_band(0, B, 0)
+
+    # K1 over a timed and a counted pass (k1_main_path), the aten operators
+    # of both counted alike: the profiler's count of this pass's device
+    # launches takes minutes
+    with aten_ops() as ops:
+        k1_run = k1_main_path(tk, r.scene.forest, one_pass, "20", "one composed grid pass")
+    k1_run.pop("calls")
+    n_ops = ops["n"] // 2
+    log(f"[20] (a) kitchen_stress + a {GRID_N}^3 emissive grid (built in {build_s:.1f} s), "
+        f"VOLUME_PT traversal=pallas {kcam.width}x{kcam.height}x1spp: {wall:.2f} s wall, "
+        f"launches {launches}, K1 {k1_run['ms']:.3f} ms summed over {k1_run['launches']} "
+        f"launches, {n_ops} PyTorch operators (aten) per pass, image mean {mean:.6f}, peak "
+        f"{peak:.0f} MiB above the scene")
+    # the hold: the same grid in small kitchen, "pallas" against "xla" per lane
+    scene_s, cam_s, bs = tts.kitchen_stress(SMALL, SMALL, grid=2, ns=6, nt=4)
+    add_smoke(tts, T, bs, GRID_N, *SMOKE_BOX_SMALL)
+    parsed = _parsed(bs.compile(device=dev), cam_s.to(dev), MaxDepthParams(max_depth=HOLD_DEPTH),
+                     RenderingConfig, ParsedScene)
+    imgs, ms, launched = {}, {}, {}
+    for trav in ("pallas", "xla"):
+        rr = Renderer(parsed, renderer=RendererType.VOLUME_PT, traversal=trav)
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        imgs[trav] = rr.render_raw().reshape(-1, 3)
+        torch.cuda.synchronize()
+        ms[trav] = (time.perf_counter() - t0) * 1e3
+        launched[trav] = {k: v for k, v in mk.LAUNCHES.items() if v}
+    frac, dmean = check_contract("[20] grid route pallas against xla", imgs["pallas"],
+                                 imgs["xla"])
+    if set(launched["pallas"]) != {"traverse_forest"} or launched["xla"]:
+        raise SystemExit(f"[20] grid hold launched {launched}, K1 expected only under pallas")
+    log(f"[20] (a) hold, kitchen_stress(grid=2) + the grid {SMALL}x{SMALL}x1spp, max_depth "
+        f"{HOLD_DEPTH}: pallas against xla {frac:.7f} lanes differ, means differ by {dmean:.3g}; "
+        f"{launched['pallas']['traverse_forest']} K1 launches; {ms['pallas']:.0f} / "
+        f"{ms['xla']:.0f} ms")
+    return {"wall_s": wall, "k1_launches": launches["traverse_forest"], "k1": k1_run,
+            "aten_ops_per_pass": n_ops, "image_mean": mean, "peak_mib": peak,
+            "build_s": build_s, "grid_n": GRID_N,
+            "hold": {"lanes_differ": frac, "mean_differ": dmean, "max_depth": HOLD_DEPTH,
+                     "k1_launches": launched["pallas"]["traverse_forest"],
+                     "pass_ms_pallas": ms["pallas"], "pass_ms_xla": ms["xla"]}}
+
+
+def absorber_scene(tts, T, kind: str, size: int, dev, sig: float = 2.0):
+    """tests/test_fused_grid.py's slab between a floor and a ceiling light,
+    out of the camera's frustum: kind "grid" (a constant zero-albedo grid),
+    "hom" (the equivalent homogeneous absorber), "vac" (null faces round a
+    sigma = 0 medium) or "none" (no slab)."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.scene.builder import BSDFSpec, EmitterSpec, MediumSpec, SceneBuilder
+
+    b = SceneBuilder()
+    white = b.add_bsdf(BSDFSpec(k_d=(0.7, 0.7, 0.7)))
+    em = b.add_emitter(EmitterSpec(etype=T.EMITTER_AREA, emission=(1, 1, 1), scaler=6.0))
+    q = tts.quad
+    b.add_mesh(q([-1, 2, -1], [1, 2, -1], [1, 2, 1], [-1, 2, 1]), white, emitter_id=em)
+    lo, hi = (-1.0, 0.2, -1.0), (1.0, 1.2, 1.0)
+    if kind != "none":
+        if kind == "grid":
+            gid = b.add_grid(np.full((8, 8, 8), sig, np.float32), lo, hi)
+            med = b.add_medium(MediumSpec(mtype=T.MEDIUM_GRID, grid_id=gid, scale=1.0))
+        else:
+            sa = sig if kind == "hom" else 0.0
+            med = b.add_medium(MediumSpec(sigma_a=(sa, sa, sa), scale=1.0))
+        b.add_mesh(_cube(tts, lo, hi), b.add_bsdf(BSDFSpec(btype=T.BSDF_FORWARD)),
+                   medium_in=med, cullable=True)
+    b.add_mesh(q([-3, -1.2, -3], [3, -1.2, -3], [3, -1.2, 3], [-3, -1.2, 3]), white)
+    cam = cam_mod.make_camera((0, -0.2, -4.0), (0, -1.2, -0.3), fov=22, width=size,
+                              height=size, device=dev)
+    return b.compile(device=dev), cam
+
+
+def grid_estimators(mk, tts, dev, T, MaxDepthParams, RendererType, RenderingConfig,
+                    ParsedScene, Renderer) -> dict:
+    """(b): the absorber, the null slab, grid_smoke composed against split."""
+    from cuda_pt_torch.models import path_tracer as pt
+    from cuda_pt_torch.models import volume_pt
+
+    md = MaxDepthParams(max_depth=1, max_volume=8)
+    n = GRID_EST_SIZE
+    means = {k: float(volume_pt.render(*absorber_scene(tts, T, k, n, dev), md, ABSORBER_SPP,
+                                       seed=0).mean()) for k in ("hom", "grid", "vac")}
+    means["none"] = float(pt.render(*absorber_scene(tts, T, "none", n, dev), md, ABSORBER_SPP,
+                                    seed=0).mean())
+    absorber = abs(means["hom"] - means["grid"]) / means["hom"]
+    null_slab = abs(means["vac"] - means["none"]) / means["none"]
+    log(f"[20] (b) {n}x{n}x{ABSORBER_SPP}spp, max_depth 1: absorber grid {means['grid']:.6f} "
+        f"against the homogeneous slab {means['hom']:.6f} ({absorber:.4f} relative); the sigma=0 "
+        f"null slab {means['vac']:.6f} against the slab-free render {means['none']:.6f} "
+        f"({null_slab:.4f})")
+    if not (means["hom"] > 1e-4 and absorber < 0.02 and means["none"] > 1e-3
+            and null_slab < 0.12):
+        raise SystemExit(f"[20] grid estimators outside the reference's bounds: {means}")
+    scene, cam, _ = tts.grid_smoke(n, n, n=GRID_N, device=dev)
+    parsed = _parsed(scene, cam, MaxDepthParams(), RenderingConfig, ParsedScene)
+    imgs, walls, launched = {}, {}, {}
+    for route, trav in (("split", None), ("composed", "xla")):
+        r = Renderer(parsed, renderer=RendererType.VOLUME_PT, traversal=trav)
+        want = "swf_split" if route == "split" else "composed"
+        if r.info()["driver"] != want:
+            raise SystemExit(f"[20] grid_smoke {route}: driver {r.info()['driver']}")
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        imgs[route] = r.render(GRID_EST_SPP)
+        torch.cuda.synchronize()
+        walls[route] = time.perf_counter() - t0
+        launched[route] = {k: v for k, v in mk.LAUNCHES.items() if v}
+    m_split, m_comp = float(imgs["split"].mean()), float(imgs["composed"].mean())
+    rel = abs(m_split - m_comp) / max(m_comp, 1e-6)
+    log(f"[20] (b) grid_smoke {n}x{n}x{GRID_EST_SPP}spp ({GRID_N}^3): split route (K6 + K5) "
+        f"mean {m_split:.6f} in {walls['split']:.2f} s, launches {launched['split']}; composed "
+        f"route {m_comp:.6f} in {walls['composed']:.2f} s; {rel:.4f} relative")
+    if rel >= 0.2 or not np.isfinite(imgs["composed"]).all():
+        raise SystemExit(f"[20] grid_smoke composed against split: {rel} relative")
+    if set(launched["split"]) != {"trace_megakernel_seg", "traverse_resolve"} \
+            or launched["composed"]:
+        raise SystemExit(f"[20] grid_smoke launched {launched}")
+    return {"absorber_means": {k: means[k] for k in ("hom", "grid")}, "absorber_rel": absorber,
+            "null_slab_means": {k: means[k] for k in ("vac", "none")}, "null_slab_rel": null_slab,
+            "grid_smoke": {"split_mean": m_split, "composed_mean": m_comp, "rel": rel,
+                           "split_wall_s": walls["split"], "composed_wall_s": walls["composed"],
+                           "split_launches": launched["split"]}}
+
+
+def pallas_scene(scene):
+    """The scene on traversal "pallas" with its BVH as K1's one chunk."""
+    from cuda_pt_torch.models import path_tracer as pt
+
+    return dataclasses.replace(scene, traversal="pallas",
+                               forest=pt.pallas_forest(dataclasses.replace(scene, forest=None)))
+
+
+def compaction(mk, tk, vscene, vcam, MaxDepthParams) -> dict:
+    """(c): medium_cbox on K1, compact=False and True."""
+    from cuda_pt_torch.models import volume_pt
+
+    scene = pallas_scene(vscene)
+    md = MaxDepthParams()
+    imgs, rows = {}, {}
+    for compact in (False, True):
+        with k1_calls(tk) as calls:
+            torch.cuda.synchronize()
+            mk.reset_launches()
+            t0 = time.perf_counter()
+            imgs[compact] = volume_pt.render(scene, vcam, md, 1, seed=0, compact=compact)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: v for k, v in mk.LAUNCHES.items() if v}
+        lanes = [c["lanes"] for c in calls if c["lanes"]]
+        if set(launched) != {"traverse_forest"} or launched["traverse_forest"] != len(lanes):
+            raise SystemExit(f"[20] compaction={compact}: launched {launched}, lanes {lanes}")
+        rows[str(compact)] = {"wall_s": wall, "k1_launches": len(lanes), "k1_lanes": lanes,
+                              "k1_lanes_sum": sum(lanes)}
+        log(f"[20] (c) medium_cbox VOLUME_PT on K1 {vcam.width}x{vcam.height}x1spp, "
+            f"compact={compact}: {wall:.2f} s wall, {len(lanes)} K1 launches, live lanes per "
+            f"launch {lanes}")
+    a, b = imgs[True].reshape(-1, 3), imgs[False].reshape(-1, 3)
+    frac, dmean = check_contract("[20] compacted against uncompacted", a, b)
+    bits = int((a != b).any(dim=-1).sum())
+    log(f"[20] (c) compacted against uncompacted: {frac:.7f} lanes outside the contract, {bits} "
+        f"not bit-equal, means differ by {dmean:.3g}")
+    return {"uncompacted": rows["False"], "compacted": rows["True"], "lanes_differ": frac,
+            "lanes_not_bit_equal": bits, "mean_differ": dmean}
+
+
+def ray_counts(mk, tk, dev, kscene, kcam, vscene, vcam, MaxDepthParams) -> dict:
+    """(d): count_rays on kitchen_stress (K1) and medium_cbox, each held to
+    the per-lane sum of the render's own streams."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+    from cuda_pt_torch.models import path_tracer as pt
+    from cuda_pt_torch.models import volume_pt
+
+    md = MaxDepthParams()
+    out = {}
+    for name, mod, scene, cam in (("kitchen_stress", pt, pallas_scene(kscene), kcam),
+                                  ("medium_cbox", volume_pt, pallas_scene(vscene), vcam)):
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        n = mod.count_rays(scene, cam, md, 1, seed=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1 = mk.LAUNCHES["traverse_forest"]
+        lane = torch.arange(cam.width * cam.height, device=dev)
+        o, d, rng = cam_mod.generate_rays(cam, lane, qmc.make_state("pcg", 0, lane, 0))
+        wl_u = pt.wl_stratum_u(0, 0, lane)
+        if mod is pt:  # the render's state, uncompacted
+            held = int(pt.trace_paths_final(scene, md, o, d, rng, wl_u=wl_u).rays.sum())
+        else:  # the compacted render's lanes, permuted: the sum must not change
+            held = int(volume_pt.trace_paths_final(scene, md, o, d, rng, compact=True,
+                                                   wl_u=wl_u)[0].rays.sum())
+        if n != held or k1 == 0:
+            raise SystemExit(f"[20] count_rays {name}: {n} against the render's {held}, "
+                             f"{k1} K1 launches")
+        out[name] = {"rays": n, "seconds": secs, "rays_per_s": n / secs, "k1_launches": k1,
+                     "lanes": cam.width * cam.height}
+        log(f"[20] (d) count_rays {name} {cam.width}x{cam.height}x1spp on K1: {n} rays "
+            f"({n / (cam.width * cam.height):.3f} per pixel) in {secs:.3f} s, "
+            f"{n / secs / 1e6:.3f} Mrays/s, {k1} K1 launches; equal to the render's per-lane sum")
+    return out
+
+
+def _dist_inputs(tts, dev, MaxDepthParams):
+    """(e)'s scenes, alike in the parent and the workers: cornell
+    DIST_FUSED_SIZE^2 with its w8 pack (K2), medium_cbox DIST_VPT_SIZE^2 on K1,
+    cornell DIST_TRAIN_SIZE^2."""
+    from cuda_pt_torch.ops import megakernel as mk
+
+    scene, cam, _ = tts.cornell_box(DIST_FUSED_SIZE, DIST_FUSED_SIZE, device=dev)
+    vscene, vcam, _ = tts.medium_cbox(DIST_VPT_SIZE, DIST_VPT_SIZE, device=dev)
+    tscene, tcam, _ = tts.cornell_box(DIST_TRAIN_SIZE, DIST_TRAIN_SIZE, device=dev)
+    return {"fused": (scene, cam, mk.make_pack(scene, node_fmt="w8"), MaxDepthParams()),
+            "vpt": (pallas_scene(vscene), vcam, MaxDepthParams()),
+            "train": (tscene, tcam, MaxDepthParams(max_depth=DIST_TRAIN_DEPTH))}
+
+
+def dist_worker(rank: int, world: int, port: int, out: str, backend: str,
+                device: str = "cuda") -> int:
+    """One rank of (e): every distributed case on the card (device), its
+    images, gradients and figures under out (rank 0 writes the images)."""
+    import torch.distributed as dist
+
+    from cuda_pt_torch.core.config import MaxDepthParams
+    from cuda_pt_torch.ops import megakernel as mk
+    from cuda_pt_torch.parallel import distributed as pdist
+    from cuda_pt_torch.scene import testscenes as tts
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":  # before the mesh: both ranks share the one card
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    tag = f"{backend}{world}_rank{rank}"
+    rows = {}
+    try:
+        inp = _dist_inputs(tts, dev, MaxDepthParams)
+        arrays = {}
+        scene, cam, pack, md = inp["fused"]
+        for sp in ((1, 2) if world == 2 else (1,)):
+            mesh = pdist.make_mesh(sp=sp, device_type=dev.type)
+            torch.cuda.synchronize()
+            mk.reset_launches()
+            t0 = time.perf_counter()
+            img = pdist.render_distributed(scene, cam, md, DIST_FUSED_SPP, mesh, renderer="fused",
+                                           fused_pack=pack)
+            torch.cuda.synchronize()
+            rows[f"fused_sp{sp}"] = {"wall_s": time.perf_counter() - t0,
+                                     "launches": {k: v for k, v in mk.LAUNCHES.items() if v},
+                                     "instantiations": dict(mk.INSTANTIATION_LAUNCHES),
+                                     "mean": float(img.mean())}
+            arrays[f"fused_sp{sp}"] = img
+        mesh = pdist.make_mesh(sp=1, device_type=dev.type)
+        if world == 2:
+            vs, vc, vmd = inp["vpt"]
+            torch.cuda.synchronize()
+            mk.reset_launches()
+            t0 = time.perf_counter()
+            img = pdist.render_distributed(vs, vc, vmd, DIST_VPT_SPP, mesh, renderer="vpt")
+            torch.cuda.synchronize()
+            rows["vpt"] = {"wall_s": time.perf_counter() - t0,
+                           "launches": {k: v for k, v in mk.LAUNCHES.items() if v},
+                           "mean": float(img.mean())}
+            arrays["vpt"] = img
+        ts, tc, tmd = inp["train"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = pdist.render_train_step(ts, tc, tmd,
+                                              torch.zeros((tc.height, tc.width, 3), device=dev),
+                                              mesh, spp=1, remat=True)
+        torch.cuda.synchronize()
+        rows["train"] = {"wall_s": time.perf_counter() - t0, "loss": float(loss)}
+        arrays.update({f"grad_{k}": g for k, g in grads.items()})
+        arrays["loss"] = loss
+        # every rank its loss and gradients, rank 0 its images too
+        np.savez(os.path.join(out, f"{tag}.npz"),
+                 **{k: v.detach().cpu().numpy() for k, v in arrays.items()
+                    if rank == 0 or k.startswith("grad_") or k == "loss"})
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"{tag}.json"), "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def _spawn_ranks(worlds: dict, out: str) -> dict:
+    """Run worlds[backend] --dist-worker processes of this script per
+    backend, all at once on the card (each backend its own group); the wall
+    seconds per group. Fails if any rank fails; stops them all on the way
+    out."""
+    import socket
+
+    jobs = []
+    for backend, world in worlds.items():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        for r in range(world):
+            # each rank's output to a file: a full pipe would stall a rank inside a collective
+            jobs.append((backend, world, r, port,
+                         os.path.join(out, f"{backend}{world}_rank{r}.log")))
+    t0 = time.perf_counter()
+    procs, walls = [], {}
+    try:
+        for backend, world, r, port, path in jobs:
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                               "--dist-worker", str(r), str(world), str(port),
+                                               out, backend], stdout=f, stderr=subprocess.STDOUT))
+        for (backend, world, *_), p in zip(jobs, procs):
+            p.wait(timeout=DIST_TIMEOUT)
+            walls[f"{backend}{world}"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (backend, world, r, _, path), p in zip(jobs, procs):
+        if p.returncode != 0:
+            with open(path) as f:
+                raise SystemExit(f"[20] {backend} rank {r} of {world} failed:\n{f.read()[-4000:]}")
+    return walls
+
+
+def distributed(mk, tts, dev, MaxDepthParams) -> dict:
+    """(e): two gloo ranks on the one card and one NCCL rank, held to the
+    single-process renders and gradients of the same streams."""
+    import tempfile
+
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+    from cuda_pt_torch.models import path_tracer as pt
+    from cuda_pt_torch.models import volume_pt
+    from cuda_pt_torch.parallel import distributed as pdist
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as out:
+        spawn = _spawn_ranks({"gloo": 2, "nccl": 1}, out)
+        res = {k: np.load(os.path.join(out, f"{k}.npz"))
+               for k in ("gloo2_rank0", "gloo2_rank1", "nccl1_rank0")}
+        res = {k: {a: v[a] for a in v.files} for k, v in res.items()}
+        rows = {k: json.load(open(os.path.join(out, f"{k}.json")))
+                for k in ("gloo2_rank0", "gloo2_rank1", "nccl1_rank0")}
+    inp = _dist_inputs(tts, dev, MaxDepthParams)
+    # the single-process references on the same streams
+    scene, cam, pack, md = inp["fused"]
+    lane = torch.arange(cam.width * cam.height, device=dev)
+    acc = torch.zeros((lane.shape[0], 3), device=dev)
+    for i in range(DIST_FUSED_SPP):
+        o, d, rng = cam_mod.generate_rays(cam, lane, qmc.make_state("pcg", 0, lane, i))
+        acc = acc + mk.trace_megakernel(pack, md, o, d, rng)
+    want = (acc / DIST_FUSED_SPP).reshape(cam.height, cam.width, 3).cpu().numpy()
+    g0 = res["gloo2_rank0"]
+    held = {"fused_dp2_bits_differ": int((g0["fused_sp1"] != want).any(axis=-1).sum()),
+            "nccl1_bits_differ": int((res["nccl1_rank0"]["fused_sp1"] != want).any(axis=-1).sum()),
+            "fused_sp2_max_rel": float(np.max(np.abs(g0["fused_sp2"] - want)
+                                              / np.maximum(np.abs(want), 1e-7)))}
+    if held["fused_dp2_bits_differ"] or held["nccl1_bits_differ"] or not np.allclose(
+            g0["fused_sp2"], want, rtol=1e-5, atol=1e-7):
+        raise SystemExit(f"[20] distributed fused against the single-process kernel: {held}")
+    vs, vc, vmd = inp["vpt"]
+    v_want = volume_pt.render(vs, vc, vmd, DIST_VPT_SPP, seed=0).reshape(-1, 3)
+    frac, dmean = check_contract("[20] distributed vpt (compacted) against the uncompacted "
+                                 "single-process render",
+                                 torch.as_tensor(g0["vpt"], device=dev).reshape(-1, 3), v_want)
+    held.update({"vpt_lanes_differ": frac, "vpt_mean_differ": dmean})
+    ts, tc, tmd = inp["train"]
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in pdist.diff_params(ts).items()}
+    img = pt.render(pdist.with_params(ts, params), tc, tmd, 1, differentiable=True)
+    loss = torch.mean(img ** 2)
+    loss.backward()
+    worst = 0.0
+    for tag in ("gloo2_rank0", "gloo2_rank1", "nccl1_rank0"):
+        r = res[tag]
+        if not np.allclose(r["loss"], float(loss.detach()), rtol=1e-4):
+            raise SystemExit(f"[20] train step {tag}: loss {r['loss']} against {float(loss)}")
+        for k, p in params.items():
+            g = p.grad.cpu().numpy() if p.grad is not None else np.zeros(tuple(p.shape))
+            got = r[f"grad_{k}"]
+            if not np.allclose(got, g, rtol=1e-4, atol=1e-7):
+                raise SystemExit(f"[20] train step {tag}: gradient {k} off the single-process")
+            if tag == "gloo2_rank1" and not np.array_equal(got, res["gloo2_rank0"][f"grad_{k}"]):
+                raise SystemExit(f"[20] train step: gradient {k} differs between the ranks")
+            worst = max(worst, float(np.max(np.abs(got - g))))
+    held["train_grad_max_abs_err"] = worst
+    k2_dp2 = rows["gloo2_rank0"]["fused_sp1"]["launches"].get("trace_megakernel", 0)
+    k2_sp2 = rows["gloo2_rank0"]["fused_sp2"]["launches"].get("trace_megakernel", 0)
+    k1_vpt = rows["gloo2_rank0"]["vpt"]["launches"].get("traverse_forest", 0)
+    if not (k2_dp2 == DIST_FUSED_SPP and k2_sp2 == DIST_FUSED_SPP // 2 and k1_vpt > 0):
+        raise SystemExit(f"[20] distributed launches: K2 {k2_dp2} / {k2_sp2}, K1 {k1_vpt}")
+    for tag, row in rows.items():
+        log(f"[20] (e) {tag}: " + ", ".join(f"{k} {v['wall_s']:.2f} s" for k, v in row.items()))
+    log(f"[20] (e) fused cornell {DIST_FUSED_SIZE}^2 x {DIST_FUSED_SPP}: dp=2 {held['fused_dp2_bits_differ']} "
+        f"pixels off bit-equal, sp=2 max rel {held['fused_sp2_max_rel']:.3g}, NCCL world 1 "
+        f"{held['nccl1_bits_differ']}; K2 launches per rank {k2_dp2} (dp=2) / {k2_sp2} (sp=2); "
+        f"vpt medium_cbox {DIST_VPT_SIZE}^2 compacted on K1 ({k1_vpt} launches on rank 0): "
+        f"{frac:.7f} lanes differ; train step grads within {worst:.3g}; spawns "
+        f"{spawn['gloo2']:.1f} s (gloo, 2 ranks), {spawn['nccl1']:.1f} s (NCCL, 1 rank), at once")
+    return {"ranks": rows, "held": held, "spawn_s": spawn, "k2_launches_dp2": k2_dp2,
+            "k2_launches_sp2": k2_sp2, "k1_launches_vpt": k1_vpt}
+
+
+def phase_slice16(mk, tk, tts, dev, kb, kscene, kcam, vscene, vcam, T, MaxDepthParams,
+                  RendererType, RenderingConfig, ParsedScene, Renderer) -> dict:
+    """Phase 20, (a)-(e)."""
+    t_phase = time.perf_counter()
+    out = {"volume": {
+        "grid_route": grid_route(mk, tk, tts, dev, kb, kcam, T, MaxDepthParams, RendererType,
+                                 RenderingConfig, ParsedScene, Renderer),
+        "grid_estimators": grid_estimators(mk, tts, dev, T, MaxDepthParams, RendererType,
+                                           RenderingConfig, ParsedScene, Renderer),
+        "compaction": compaction(mk, tk, vscene, vcam, MaxDepthParams)}}
+    out["counts"] = ray_counts(mk, tk, dev, kscene, kcam, vscene, vcam, MaxDepthParams)
+    out["distributed"] = distributed(mk, tts, dev, MaxDepthParams)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[20] volume routes, counts, distributed: {out['phase_s']:.1f} s")
+    return out
+
+
 def whole_path_pass(mk, r, md):
     """A pass of the Renderer's scene through the whole-path kernel
     (auto_trace bypassed): sample 0's pcg streams and camera rays over the
@@ -3873,10 +4428,15 @@ def main():
                     help="another checkout (git archive of the parent commit) whose K1-K6, "
                          "S1-S3 and S4 mxu are held to and timed against this tree's on the same "
                          "inputs")
+    ap.add_argument("--dist-worker", nargs=5, default=None, help=argparse.SUPPRESS,
+                    metavar=("RANK", "WORLD", "PORT", "OUT", "BACKEND"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
         return 1
+    if args.dist_worker:  # one rank of phase 20 (e), started by the phase itself
+        rank, world, port, out, backend = args.dist_worker
+        return dist_worker(int(rank), int(world), int(port), out, backend)
     from cuda_pt_torch.ops import cuda_build as cb
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3890,7 +4450,7 @@ def main():
 
 
 def run_phases(args, build: dict, sass_job: dict) -> int:
-    """Phases 2-19 and the result lines, after the build (phase 1)."""
+    """Phases 2-20 and the result lines, after the build (phase 1)."""
     from cuda_pt_torch.api import Renderer
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import extract_ab as ab
@@ -3969,6 +4529,10 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
     k5_grid["xml_launches"] = scene_input["grid"]["launches"]["trace_megakernel_seg"]
     k6["xml_launches"] = scene_input["grid"]["launches"]["traverse_resolve"]
     auto = scene_input["auto"]
+    s16 = phase_slice16(mk, tk, tts, dev, kbuilder, kscene, kcam, rv.scene, rv.camera, T,
+                        MaxDepthParams, RendererType, RenderingConfig, ParsedScene, Renderer)
+    k2["dist_launches_dp2_per_rank"] = s16["distributed"]["k2_launches_dp2"]
+    k2["dist_launches_sp2_per_rank"] = s16["distributed"]["k2_launches_sp2"]
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
@@ -4015,13 +4579,21 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          "auto_pass_launches": auto["pass_launches"].get("traverse_forest", 0),
          "auto_tune_launches": auto["tune_launches"].get("traverse_forest", 0),
          "tof_launches_per_pass": grad["tof"]["ungated"]["k1_launches_per_pass"],
+         "grid_route_launches": s16["volume"]["grid_route"]["k1_launches"],
+         "grid_route_ms": s16["volume"]["grid_route"]["k1"]["ms"],
+         "compaction_launches": s16["volume"]["compaction"]["compacted"]["k1_launches"],
+         "uncompacted_launches": s16["volume"]["compaction"]["uncompacted"]["k1_launches"],
+         "count_rays_launches": {k: v["k1_launches"] for k, v in s16["counts"].items()},
+         "dist_vpt_launches_rank0": s16["distributed"]["k1_launches_vpt"],
          "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
                  "rays of kitchen_stress; main_path_*: summed over one wavefront spp; lt_*: "
                  "the light tracer's main path, one pass (lt_launches_per_pass over LT_SPP); "
                  "grad_vpt_launches: the VPT gradient render (phase 17, forward and "
                  "backward); tof_launches_per_pass: the ToF route's ungated passes; "
                  "auto_pass_launches: one 1-spp pass of the XML kitchen under traversal "
-                 "'auto' with its pick, auto_tune_launches: the tuning's own (phase 19)"},
+                 "'auto' with its pick, auto_tune_launches: the tuning's own (phase 19); "
+                 "grid_route_*, compaction_*, uncompacted_*, count_rays_*, dist_vpt_*: phase "
+                 "20's paths (one pass each; dist_vpt on rank 0 of two)"},
         {"name": "trace_megakernel (K2+BIN: render_megakernel, cornell, binary f32 nodes)",
          "route": "cuda", "source": "cuda_pt_torch/csrc/megakernel_bin.cu",
          "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:802", "library_ms": None,
@@ -4046,7 +4618,8 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
         k.pop("runs", None)
     extra = {"k1_check": {k: v for k, v in k1.items() if k != "timing"}, "routes_check": routes,
              "light_check": light, "grad_check": grad, "sampling_check": sampling,
-             "scene_input_check": scene_input,
+             "scene_input_check": scene_input, "volume_check": s16["volume"],
+             "count_check": s16["counts"], "distributed_check": s16["distributed"],
              "build": build}
     if args.profile:
         md = MaxDepthParams()

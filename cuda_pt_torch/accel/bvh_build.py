@@ -192,6 +192,41 @@ def build_bvh(lo: np.ndarray, hi: np.ndarray, centroid: np.ndarray, max_leaf: in
     }
 
 
+def tree_metrics(nodes: dict) -> dict:
+    """Tree-quality diagnostics of a skip-encoded tree (the reference's
+    TreeMetrics): node and leaf counts, depth, leaf sizes, SAH cost and the
+    children's summed surface area relative to the root's times the node
+    count. Depth comes from a stack walk over the skip encoding."""
+    count = nodes["node_count"]
+    skip = nodes["node_skip"]
+    m = count.shape[0]
+    depth = np.zeros(m, np.int32)
+    stack = [(0, m, 0)]
+    while stack:
+        i, end, d = stack.pop()
+        while i < end:
+            depth[i] = d
+            if count[i] > 0:
+                i = skip[i]
+            else:
+                stack.append((skip[i], end, d))
+                end = skip[i]
+                i += 1
+                d += 1
+    leaf = count > 0
+    sa = _surface_area(nodes["node_min"], nodes["node_max"])
+    total_sa = sa[1:].sum() if m > 1 else 0.0
+    return {
+        "num_nodes": int(m),
+        "num_leaves": int(leaf.sum()),
+        "max_depth": int(depth.max()),
+        "mean_leaf_prims": float(count[leaf].mean()) if leaf.any() else 0.0,
+        "max_leaf_prims": int(count[leaf].max()) if leaf.any() else 0,
+        "sah_cost": sah_cost(nodes),
+        "relative_child_area": float(total_sa / max(sa[0] * m, 1e-9)),
+    }
+
+
 def sah_cost(nodes: dict) -> float:
     """Total SAH cost of the tree, relative to its root's area (the
     reference's diagnostic): interior nodes at _TRAV_COST, leaves at their

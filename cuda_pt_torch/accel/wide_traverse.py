@@ -79,7 +79,7 @@ def closest_hit_wide(geom: Geometry, wb: WideBVHArrays, o: torch.Tensor, d: torc
         if bool(leaf.any()):
             li = torch.nonzero(leaf)[:, 0]
             lanes = idx[li]
-            lid = -e[li] - 1
+            lid = torch.clamp(-e[li] - 1, 0, wb.num_leaves - 1)
             ids = torch.clamp(wb.leaf_base[lid].long()[:, None] + karange, 0, N - 1)
             valid = karange < wb.leaf_count[lid].long()[:, None]
             t_k, hit_k, b1_k, b2_k = isect.intersect_gather(geom, o[lanes], d[lanes], ids, valid)
@@ -128,7 +128,7 @@ def occlusion_wide(geom: Geometry, wb: WideBVHArrays, o: torch.Tensor, d: torch.
         if bool(is_leaf.any()):
             li = torch.nonzero(is_leaf)[:, 0]
             lanes = idx[li]
-            lid = -e[li] - 1
+            lid = torch.clamp(-e[li] - 1, 0, wb.num_leaves - 1)
             ids = torch.clamp(wb.leaf_base[lid].long()[:, None] + karange, 0, N - 1)
             valid = karange < wb.leaf_count[lid].long()[:, None]
             t_k, hit_k, _, _ = isect.intersect_gather(geom, o[lanes], d[lanes], ids, valid)

@@ -63,8 +63,11 @@ The kernel's envelope (megakernel_ok): all surface BSDF families but
 Plastic-forward, area / area-spot / point emitters, envmaps, diffuse
 textures, dispersion; under RendererType.VOLUME_PT (a vpt pack,
 nee_candidates=1) homogeneous media at any size and grid media without
-an envmap or emission. The composed routes render every surface scene;
-VOLUME_PT's composed route takes no grid medium.
+an envmap or emission. The composed routes render every surface scene
+and every media scene: a grid scene outside the envelope (an emissive
+grid, a grid under an envmap) takes VOLUME_PT's composed route on the
+default walk, as in the reference's auto-pick, and any scene does under
+traversal "xla" / "pallas" / "wide".
 
 sampler="sobol" draws from the Owen-scrambled Sobol sampler
 (core/qmc.py) on every route. The kernel routes take pcg streams only, so
@@ -74,9 +77,6 @@ seed ^ 0x9E3779B9.
 
 A str source is a Mitsuba-style XML scene (scene/xml_parser.load_xml),
 compiled on the host with override_res applied before the camera is made.
-
-Still to port (ROADMAP Queue 1): emissive grids and the composed volume
-path tracer's grid route.
 """
 
 from __future__ import annotations
@@ -178,12 +178,6 @@ class Renderer:
                     and (not vpt or int(nee_candidates) == 1)
                     and mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"))
         self.fused = traversal == "fused" or (traversal is None and fused_ok)
-        has_grid = vpt and bool((scene.media.mtype == T.MEDIUM_GRID).any())
-        if has_grid and not (self.fused and fused_ok):
-            raise NotImplementedError(
-                "a grid medium renders on the fused route only, and one with an envmap or "
-                "with emission stays outside it, as in the reference; the composed volume path "
-                "tracer's grid route waits for ROADMAP Queue 1 item 8")
         if (self.fused and not fused_ok) or (not vpt and mk.scene_has_media(scene)):
             raise ValueError(_envelope_message(scene, self.md, vpt))
         self.device = torch.device("cuda" if device is None else device)

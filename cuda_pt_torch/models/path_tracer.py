@@ -12,7 +12,9 @@ lies in [md.min_time, md.max_time]. The pcg draw order of ``pt_bounce`` is
 kept exactly: per bounce, 3 NEE advances per candidate (+1 with envmap
 importance tables, +1 reservoir draw per candidate when RIS is on), 3
 BSDF advances, 1 RR advance. The renderers pass the dispersion wavelength
-stratum ``wl_stratum_u``.
+stratum ``wl_stratum_u``. ``rays`` counts per lane the segments traced
+(one per bounce entered live) and the NEE shadow rays (one per hit lane
+with a valid light sample); count_rays sums it over a render's passes.
 
 Intersection is brute force up to ``BRUTE_FORCE_MAX_PRIMS`` prims; above,
 the walk of ``scene.traversal`` (or ``TRAVERSAL_IMPL``), as in the
@@ -112,6 +114,7 @@ class PTState:
     dist: torch.Tensor  # path length so far (ToF gating)
     wl: torch.Tensor  # locked dispersion wavelength (0 = unset)
     bounce: int
+    rays: torch.Tensor | None = None  # per-lane traced rays (segments + shadow rays)
     wl_u: torch.Tensor | None = None  # per-lane wavelength stratum (None = drawn)
     tex: torch.Tensor | None = None  # fused: running product of diffuse texels
     rec: dict | None = None  # seg: the bounce's records (module docstring)
@@ -422,6 +425,10 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
     survive = u_rr < p_survive
     thp = thp / p_survive[:, None]
 
+    # one segment per lane that entered the bounce live, one shadow ray per
+    # lane that traced one
+    rays = None if s.rays is None else (s.rays + s.active.to(torch.int32)
+                                        + (hit_ok & es["valid"]).to(torch.int32))
     active = hit_ok & depth_ok & survive & (max_thp > 0.0)
     return PTState(
         o=o_new,
@@ -439,6 +446,7 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
         dist=dist_new,
         wl=torch.where(active, bs["wl"], s.wl),
         bounce=s.bounce + 1,
+        rays=rays,
         wl_u=s.wl_u,
         tex=torch.where(hit_ok[:, None], tex_here, s.tex) if (fused and not seg) else None,
         rec=rec if seg else None,
@@ -470,7 +478,8 @@ def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None,
         active=torch.ones(B, dtype=torch.bool, device=dev),
         prev_pdf=torch.ones(B, device=dev),
         prev_delta=torch.ones(B, dtype=torch.bool, device=dev),
-        env_pdf=zf, n_diff=zi, n_spec=zi, n_trans=zi, dist=zf, wl=zf, bounce=0, wl_u=wl_u,
+        env_pdf=zf, n_diff=zi, n_spec=zi, n_trans=zi, dist=zf, wl=zf, bounce=0, rays=zi,
+        wl_u=wl_u,
         tex=torch.ones_like(o) if fused else None)
 
 
@@ -518,6 +527,23 @@ def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, use_bvh: bool | N
     """Radiance (B, 3) for a batch of rays with pcg states (B, 2)."""
     return trace_paths_final(scene, md, o, d, rng, use_bvh, differentiable, wl_u,
                              nee_candidates, fused).L
+
+
+def count_rays(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, spp: int, seed: int = 0,
+               use_bvh: bool | None = None, sampler: str = "pcg") -> int:
+    """Traced rays (path segments + NEE shadow rays) of render's forward
+    passes on the same per-(pixel, sample) streams, summed over spp passes,
+    through the scene's walk backend (kernel K1 under traversal "pallas"):
+    the honest count to divide a wall by."""
+    B = cam.width * cam.height
+    lane = torch.arange(B, device=scene.device)
+    total = 0
+    for i in range(spp):
+        rng = qmc.make_state(sampler, seed, lane, i)
+        o, d, rng = cam_mod.generate_rays(cam, lane, rng)
+        s = trace_paths_final(scene, md, o, d, rng, use_bvh, wl_u=wl_stratum_u(seed, i, lane))
+        total += int(s.rays.sum(dtype=torch.int64))
+    return total
 
 
 def render_band(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, sample_idx,

@@ -1,20 +1,34 @@
-"""Volumetric path tracer with homogeneous media: nested media, free-flight
-distance sampling, transmittance NEE (port of
-cuda_pt_tpu/models/volume_pt.py, homogeneous media).
+"""Volumetric path tracer: nested media, free-flight distance sampling,
+transmittance NEE, homogeneous and grid media (port of
+cuda_pt_tpu/models/volume_pt.py).
 
 Per bounce: closest hit -> free flight through the current medium (the top
 of a per-lane stack of at most MAX_NESTED media, the scene's ``cam_medium``
-when it is empty; channel-MIS homogeneous sampling) -> a medium event or a
-surface event -> environment on an escape, emitter-hit MIS on a surface ->
-NEE from either event kind, its shadow ray walked through null interfaces
-(forward BSDFs and cullable objects, at most MAX_CROSSINGS of them) with
-the analytic transmittance of each segment -> phase sampling (medium) or
-BSDF sampling (surface) -> the medium stack toggled by object identity on
-transmission -> per-lobe and volume depth caps -> RR. pcg draw order per
-bounce: flight (1 advance), NEE (3, +1 with envmap importance tables),
-phase sample (2), BSDF sample (3), RR (1), on every lane. ToF gating
-(``md.max_time > 0``) weights the escape, the emitter hit and NEE by the
-path length, as in models/path_tracer.py.
+when it is empty; channel-MIS sampling in a homogeneous medium, delta
+tracking in a grid, media/grid.py) -> a medium event or a surface event ->
+environment on an escape, emitter-hit MIS on a surface, the grid's
+blackbody emission at a medium event -> NEE from either event kind, its
+shadow ray walked through null interfaces (forward BSDFs and cullable
+objects, at most MAX_CROSSINGS of them) with the transmittance of each
+segment (analytic, or ratio tracking in a grid: GRID_TRANSMITTANCE) ->
+phase sampling (medium) or BSDF sampling (surface) -> the medium stack
+toggled by object identity on transmission -> per-lobe and volume depth
+caps -> RR. pcg draw order per bounce: flight (1 advance, then
+grid.MAX_TRACK_STEPS more in a scene with grids), NEE (3, +1 with envmap
+importance tables; then MAX_CROSSINGS x MAX_TRACK_STEPS for the shadow
+segments in a scene with grids), phase sample (2), BSDF sample (3), RR
+(1), on every lane, as the reference draws them. The tracking itself runs
+only on the lanes in a grid medium (_tracked); the other lanes' streams
+advance by the same draws. ToF gating (``md.max_time > 0``) weights the
+escape, the emitter hit, the grid's emission and NEE by the path length,
+as in models/path_tracer.py. ``rays`` counts per lane the segments traced
+(one per bounce entered live) and the shadow rays (one per NEE tried, its
+crossings of null interfaces included): count_rays sums it.
+
+``compact=True`` runs each bounce on the live prefix of the lanes
+(models/wavefront.compacted_bounce, the ladder of compact_sizes), and
+trace_paths returns (L, pix): L[i] belongs to lane pix[i]. Each lane keeps
+its own stream, so each lane's radiance is the uncompacted one.
 
 The differentiable mode (``differentiable=True`` or ``"remat"``) runs
 exactly ``md.max_depth`` bounces with the fixed roulette schedule, as
@@ -43,16 +57,16 @@ composed estimator in:
 ``seg=True`` (with ``fused``) is one bounce as the segment kernel K5 runs
 it under the sorted-wavefront driver (ops/megakernel.trace_megakernel_swf):
 an escape records its direction and throughput (path_tracer's ``seg``).
-Grid media ride only the driver's split form, around this bounce: the
-closest hit arrives resolved (``hit`` planes, from kernel K6 and a row
-gather), the flight through a grid medium arrives delta-tracked
-(``flight``, media/grid.py), and the NEE contribution is recorded with its
-shadow segment (``rec``: ``gc``, ``gp0``, ``gp1``) for the driver's ratio
-tracking. The kernel's media row holds zero sigmas for a grid medium, so
+In the fused estimator grid media ride only the driver's split form,
+around this bounce: the closest hit arrives resolved (``hit`` planes, from
+kernel K6 and a row gather), the flight through a grid medium arrives
+delta-tracked (``flight``, media/grid.py), and the NEE contribution is
+recorded with its shadow segment (``rec``: ``gc``, ``gp0``, ``gp1``) for
+the driver's ratio tracking. The kernel's media row holds zero sigmas for a grid medium, so
 every analytic factor of a grid lane is 1.
 
-Still narrowed: the composed estimator's grid route (ROADMAP Queue 1 item
-8) and compaction (item 7).
+The fused whole-path loop takes no grid medium (check_supported), as in
+the reference, where grids ride the split driver.
 """
 
 from __future__ import annotations
@@ -70,11 +84,13 @@ from ..core import rng as prng
 from ..core import sampling
 from ..core.config import MaxDepthParams
 from ..emitters import emitters
+from ..media import grid as grid_med
 from ..media import homogeneous as homo
 from ..media import phase as phase_mod
 from ..ops import intersect as isect
 from ..scene import types as T
 from . import path_tracer as pt
+from . import wavefront
 
 MAX_NESTED = 3  # medium stack depth (the reference's BankStack)
 MAX_CROSSINGS = 4  # null interfaces one shadow ray walks through
@@ -83,6 +99,10 @@ MAX_CROSSINGS = 4  # null interfaces one shadow ray walks through
 T_MISS, T_MISS_FUSED = emitters.MAX_DIST, 1e8
 _INV_4PI = 0.07957747154594767
 _TWO_PI = 2.0 * math.pi
+# Grid transmittance estimator: "residual" (residual ratio tracking with the
+# average density as control variate, the reference's default) or "ratio"
+# (plain ratio tracking)
+GRID_TRANSMITTANCE = "residual"
 
 
 @dataclasses.dataclass
@@ -105,6 +125,7 @@ class VPTState:
     med_stack: torch.Tensor  # (B, MAX_NESTED) int32
     med_top: torch.Tensor  # (B,) int32, -1 = empty (the ambient medium)
     bounce: int
+    rays: torch.Tensor | None = None  # per-lane traced rays (segments + shadow rays)
     wl_u: torch.Tensor | None = None
     rec: dict | None = None  # seg: the bounce's records (module docstring)
 
@@ -125,20 +146,30 @@ def _pop(top, do):
     return torch.where(do, torch.clamp(top - 1, min=-1), top)
 
 
-def check_supported(scene: T.Scene, compact=False, fused=False):
-    """Raise for what this slice does not port. Grid media render only on
-    the fused path, through the split sorted-wavefront driver."""
-    if compact:
-        raise NotImplementedError(
-            "live-lane compaction waits for ROADMAP Queue 1 item 7 (models/wavefront.py)")
-    if bool((scene.media.mtype == T.MEDIUM_GRID).any()):
-        if not fused:
-            raise NotImplementedError(
-                "the composed volume path tracer's grid route waits for ROADMAP Queue 1 item 8; "
-                "grid media render fused (RendererType.VOLUME_PT)")
+def check_supported(scene: T.Scene, fused: bool = False):
+    """Raise for the fused whole-path loop on a scene with a grid medium:
+    grids ride the split sorted-wavefront driver there."""
+    if fused and _has_grid_media(scene):
         raise NotImplementedError(
             "grid media ride the split sorted-wavefront driver (kernels K6 and K5's shade "
             "phase, ops/megakernel.trace_megakernel_swf), not the whole-path loop")
+
+
+def _has_grid_media(scene: T.Scene) -> bool:
+    return bool((scene.media.mtype == T.MEDIUM_GRID).any())
+
+
+def _medium_type_masks(scene: T.Scene, mid: torch.Tensor):
+    """(homogeneous, grid) lanes of medium ids mid (-1: none)."""
+    mtype = scene.media.mtype[torch.clamp(mid, min=0).long()]
+    in_med = mid >= 0
+    return in_med & (mtype == T.MEDIUM_HOMOGENEOUS), in_med & (mtype == T.MEDIUM_GRID)
+
+
+def _has_grids(scene: T.Scene) -> bool:
+    """The scene holds grid data (the builder's (1, 1, 1, 1) sentinel when
+    it holds none): the reference's static check, which decides the draws."""
+    return scene.grids.density.numel() > 1
 
 
 # ---------------------------------------------------------------------------
@@ -242,24 +273,57 @@ def _flight_fused(mp: dict, in_med, hit_ok, t_hit, u, flight=None):
 # ---------------------------------------------------------------------------
 
 
-# Every medium here is homogeneous (check_supported refuses grid media), so
-# a lane is in one exactly when its medium id is >= 0.
+def _tracked(fn, scene: T.Scene, mid, o, d, t, rng, lanes: torch.Tensor, fill):
+    """fn (a tracking loop of media/grid.py) on the lanes where ``lanes``
+    (path_tracer._on_lanes: fill, a value or a dict of values, on the
+    others), with every lane's stream advanced by the loop's
+    MAX_TRACK_STEPS next2d draws, as the reference's full-batch loop
+    advances it. Returns (result, rng); the result is None where no lane
+    is tracked (then no lane reads it)."""
+    rng_out = rng
+    for _ in range(grid_med.MAX_TRACK_STEPS):
+        rng_out = prng.next2d(rng_out)[1]
+    if not bool(lanes.any()):
+        return None, rng_out
+    return pt._on_lanes(lambda *a: fn(scene, *a)[0], lanes, fill, mid, o, d, t, rng,
+                        lanes), rng_out
 
 
-def sample_medium_distance(scene: T.Scene, mid, t_surf, rng, active):
-    """Homogeneous free flight (one 2d draw on every lane); vacuum lanes
-    pass with weight 1."""
+def sample_medium_distance(scene: T.Scene, mid, o, d, t_surf, rng, active):
+    """Free flight through medium mid: channel-MIS in a homogeneous medium
+    (one 2d draw on every lane), then, in a scene with grids, delta
+    tracking on the live lanes in a grid medium (MAX_TRACK_STEPS draws on
+    every lane); vacuum lanes pass with weight 1."""
+    is_homo, is_grid = _medium_type_masks(scene, mid)
     u, rng = prng.next2d(rng)
-    is_homo = mid >= 0
     hs = homo.sample_distance(scene.media, mid, t_surf, u)
     t = torch.where(is_homo, hs["t"], t_surf)
+    is_med = is_homo & hs["is_medium"]
     weight = torch.where(is_homo[:, None], hs["weight"], 1.0)
-    return {"t": t, "is_medium": is_homo & hs["is_medium"] & active, "weight": weight}, rng
+    if _has_grids(scene):
+        # the untracked lanes take the values a lane that starts done ends with
+        gs, rng = _tracked(grid_med.sample_distance_grid, scene, mid, o, d, t_surf, rng,
+                           active & is_grid, {"t": 0.0, "is_medium": False, "weight": 1.0})
+        if gs is not None:
+            t = torch.where(is_grid, gs["t"], t)
+            is_med = is_med | (is_grid & gs["is_medium"])
+            weight = torch.where(is_grid[:, None], gs["weight"], weight)
+    return {"t": t, "is_medium": is_med & active, "weight": weight}, rng
 
 
-def segment_transmittance(scene: T.Scene, mid, dist):
-    """Transmittance of one medium segment (no interfaces)."""
-    return torch.where((mid >= 0)[:, None], homo.transmittance(scene.media, mid, dist), 1.0)
+def segment_transmittance(scene: T.Scene, mid, o, d, dist, rng, active):
+    """Transmittance (B, 3) of one medium segment (no interfaces):
+    analytic in a homogeneous medium, tracked (GRID_TRANSMITTANCE) on the
+    live lanes in a grid medium of a scene with grids -> (tr, rng)."""
+    is_homo, is_grid = _medium_type_masks(scene, mid)
+    tr = torch.where(is_homo[:, None], homo.transmittance(scene.media, mid, dist), 1.0)
+    if _has_grids(scene):
+        fn = (grid_med.transmittance_grid_residual if GRID_TRANSMITTANCE == "residual"
+              else grid_med.transmittance_grid)
+        trg, rng = _tracked(fn, scene, mid, o, d, dist, rng, active & is_grid, 1.0)
+        if trg is not None:
+            tr = torch.where(is_grid[:, None], tr * trg[:, None], tr)
+    return tr, rng
 
 
 def _null_hit(scene: T.Scene, hit):
@@ -271,12 +335,14 @@ def _null_hit(scene: T.Scene, hit):
     return scene.objects.medium_in[obj], is_null
 
 
-def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, active, fused: bool = False,
-                           use_bvh: bool | None = None):
+def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, rng, active,
+                           fused: bool = False, use_bvh: bool | None = None):
     """Walk the shadow ray through at most MAX_CROSSINGS null interfaces,
     multiplying per-segment transmittance; an opaque hit gives 0. The
     medium toggles by object identity at each crossing, and the remaining
-    distance drops by the full advance (hit t plus the origin offset)."""
+    distance drops by the full advance (hit t plus the origin offset).
+    Returns (tr, rng): the composed estimator's grid segments draw from
+    rng; the fused one's kernel rows hold no grid, so it draws nothing."""
     tr = torch.ones_like(p)
     cur_p, cur_med, remaining, alive = p, mid0, dist, active
     for _ in range(MAX_CROSSINGS):
@@ -289,7 +355,8 @@ def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, active, fused: b
         else:
             t_hit = torch.minimum(hit["t"], remaining)
             seg = torch.where(torch.isfinite(t_hit), t_hit, remaining)
-            tr = torch.where(alive[:, None], tr * segment_transmittance(scene, cur_med, seg), tr)
+            tr_seg, rng = segment_transmittance(scene, cur_med, cur_p, dirn, seg, rng, alive)
+            tr = torch.where(alive[:, None], tr * tr_seg, tr)
         hit_surface = hit["hit"] & (hit["t"] < remaining * (1.0 - 1e-3)) & alive
         t_step = torch.where(hit["hit"], hit["t"], remaining)
         med_obj, is_null = _null_hit(scene, hit)
@@ -306,7 +373,7 @@ def transmittance_estimate(scene: T.Scene, p, dirn, dist, mid0, active, fused: b
             remaining = torch.where(crossed, remaining - t_step - isect.RAY_OFFSET, remaining)
             cur_p = torch.where(crossed[:, None], p_hit + dirn * isect.RAY_OFFSET, cur_p)
         alive = alive & crossed & (remaining > 1e-4)
-    return tr
+    return tr, rng
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +404,7 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
         thp = torch.where(in_med[:, None], s.thp * w_flight, s.thp)
     else:
         t_surf = torch.where(hit["hit"], hit["t"], T_MISS)
-        ms, rng = sample_medium_distance(scene, cur_med, t_surf, s.rng, s.active)
+        ms, rng = sample_medium_distance(scene, cur_med, s.o, s.d, t_surf, s.rng, s.active)
         thp = torch.where(s.active[:, None], s.thp * ms["weight"], s.thp)
         med_event, t_evt = ms["is_medium"], ms["t"]
     srf_event = s.active & hit["hit"] & ~med_event
@@ -368,6 +435,11 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     emit_mask = srf_event & (eid > 0) & (cos_l > 1e-6)
     L = L + torch.where(emit_mask[:, None], thp * le_hit * w_hit[:, None], 0.0)
 
+    # ---- blackbody emission of a grid medium at a medium event -------------
+    if not fused and _has_grids(scene):
+        emis = grid_med.query_emission(scene, cur_med, p_evt)
+        L = L + torch.where(med_event[:, None], thp * emis * tofw[:, None], 0.0)
+
     # ---- NEE from either event kind, through the media ------------------------
     ctx = bsdf_eval.make_ctx(scene, bid, sf["uv"], sf["n_s"])
     wo = -s.d
@@ -384,8 +456,8 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
     p_shadow = p_evt + sf["n_g"] * off_sign[:, None] * isect.RAY_OFFSET
     dist_shadow = es["dist"] - torch.abs(off_sign * gdir) * isect.RAY_OFFSET
     nee_try = (med_event | srf_event) & es["valid"] & (torch.amax(f_evt, dim=-1) > 0.0)
-    tr_nee = transmittance_estimate(scene, p_shadow, es["dir"], dist_shadow, cur_med, nee_try,
-                                    fused, use_bvh)
+    tr_nee, rng = transmittance_estimate(scene, p_shadow, es["dir"], dist_shadow, cur_med, rng,
+                                         nee_try, fused, use_bvh)
     last_bounce = s.bounce >= (md.max_depth - 1)
     w_nee = torch.where(es["delta"] | last_bounce, 1.0,
                         sampling.power_heuristic(es["pdf"], pdf_evt))
@@ -451,8 +523,10 @@ def vpt_bounce(scene: T.Scene, md: MaxDepthParams, s: VPTState, fused: bool = Fa
         env_pdf=torch.where(active, env_pdf, s.env_pdf),
         n_diff=n_diff, n_spec=n_spec, n_trans=n_trans, n_vol=n_vol, dist=dist_new,
         wl=torch.where(active & srf_event, bs["wl"], s.wl),
-        med_stack=med_stack, med_top=med_top, bounce=s.bounce + 1, wl_u=s.wl_u,
-        rec=rec if seg else None)
+        med_stack=med_stack, med_top=med_top, bounce=s.bounce + 1,
+        rays=None if s.rays is None else s.rays + s.active.to(torch.int32)
+        + nee_try.to(torch.int32),
+        wl_u=s.wl_u, rec=rec if seg else None)
 
 
 def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None) -> VPTState:
@@ -466,41 +540,79 @@ def init_state(o: torch.Tensor, d: torch.Tensor, rng: torch.Tensor, wl_u=None) -
         prev_delta=torch.ones(B, dtype=torch.bool, device=dev), env_pdf=zf,
         n_diff=zi, n_spec=zi, n_trans=zi, n_vol=zi, dist=zf, wl=zf,
         med_stack=torch.full((B, MAX_NESTED), T.MEDIUM_NONE, dtype=torch.int32, device=dev),
-        med_top=zi - 1, bounce=0, wl_u=wl_u)
+        med_top=zi - 1, bounce=0, rays=zi, wl_u=wl_u)
 
 
 def trace_paths(scene: T.Scene, md: MaxDepthParams, o, d, rng, use_bvh: bool | None = None,
                 differentiable: bool | str = False, compact: bool = False, wl_u=None,
-                fused: bool = False) -> torch.Tensor:
-    """Radiance (B, 3) of rays (B, 3) with pcg states (B, 2). A forward
-    render runs the bounce loop until every lane is done or max_depth is
-    reached, under torch.no_grad(); a differentiable one exactly
-    md.max_depth bounces with the fixed roulette schedule, each recomputed
-    in the backward pass under "remat" (module docstring)."""
-    check_supported(scene, compact, fused)
+                fused: bool = False):
+    """Radiance (B, 3) of rays (B, 3) with pcg states (B, 2); with compact
+    (a forward render) (L, pix), L[i] the radiance of lane pix[i] (module
+    docstring), and (L, None) for a differentiable one, as the reference
+    returns. A forward render runs the bounce loop until every lane is
+    done or max_depth is reached, under torch.no_grad(); a differentiable
+    one exactly md.max_depth bounces with the fixed roulette schedule, each
+    recomputed in the backward pass under "remat" (module docstring)."""
+    s = trace_paths_final(scene, md, o, d, rng, use_bvh, differentiable, compact, wl_u, fused)
+    if compact:
+        return s[0].L, s[1]
+    return s.L
+
+
+def trace_paths_final(scene: T.Scene, md: MaxDepthParams, o, d, rng,
+                      use_bvh: bool | None = None, differentiable: bool | str = False,
+                      compact: bool = False, wl_u=None, fused: bool = False):
+    """trace_paths' final VPTState (with compact, (state, pix))."""
+    check_supported(scene, fused)
     s = init_state(o, d, rng, wl_u)
     if not differentiable:
         with torch.no_grad():
+            if compact:
+                pix = torch.arange(o.shape[0], device=o.device)
+                sizes = wavefront.compact_sizes(o.shape[0])
+                while s.bounce < md.max_depth and bool(s.active.any()):
+                    s, pix = wavefront.compacted_bounce(
+                        s, pix, sizes,
+                        lambda st, px: (vpt_bounce(scene, md, st, fused, use_bvh=use_bvh), px))
+                return s, pix
             while s.bounce < md.max_depth and bool(s.active.any()):
                 s = vpt_bounce(scene, md, s, fused, use_bvh=use_bvh)
-        return s.L
+        return s
 
     def bounce(st: VPTState) -> VPTState:
         return vpt_bounce(scene, md, st, use_bvh=use_bvh, fixed_rr=True)
 
     for _ in range(md.max_depth):
         s = pt.remat(bounce, s) if differentiable == "remat" else bounce(s)
-    return s.L
+    return (s, None) if compact else s
+
+
+def count_rays(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, spp: int,
+               seed: int = 0, use_bvh: bool | None = None) -> int:
+    """Traced rays (segments + shadow rays) of render's forward passes on
+    the same pcg streams, summed over spp passes, through the scene's walk
+    backend (kernel K1 under traversal "pallas")."""
+    if use_bvh is None:
+        use_bvh = pt._use_bvh(scene)
+    B = cam.width * cam.height
+    lane = torch.arange(B, device=scene.device)
+    total = 0
+    for i in range(spp):
+        rng = qmc.make_state("pcg", seed, lane, i)
+        o, d, rng = cam_mod.generate_rays(cam, lane, rng)
+        s = trace_paths_final(scene, md, o, d, rng, use_bvh, wl_u=pt.wl_stratum_u(seed, i, lane))
+        total += int(s.rays.sum(dtype=torch.int64))
+    return total
 
 
 def render(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, spp: int, seed: int = 0,
            use_bvh: bool | None = None, differentiable: bool | str = False,
            compact: bool = False, sampler: str = "pcg"):
     """Multi-spp render -> (H, W, 3) mean, with the per-(pixel, sample)
-    streams and wavelength strata of models/path_tracer.render; "remat"
-    recomputes each pass in the backward pass, its bounces unchecked, as
-    path_tracer.render does."""
-    check_supported(scene, compact)
+    streams and wavelength strata of models/path_tracer.render; compact (a
+    forward render) splats each pass's compacted lanes back to their
+    pixels; "remat" recomputes each pass in the backward pass, its bounces
+    unchecked, as path_tracer.render does."""
     if use_bvh is None:
         use_bvh = pt._use_bvh(scene)
     B = cam.width * cam.height
@@ -509,8 +621,11 @@ def render(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, spp: int, se
     def one_pass(i: int) -> torch.Tensor:
         rng = qmc.make_state(sampler, seed, lane, i)
         o, d, rng = cam_mod.generate_rays(cam, lane, rng)
-        return trace_paths(scene, md, o, d, rng, use_bvh, bool(differentiable),
-                           wl_u=pt.wl_stratum_u(seed, i, lane))
+        wl_u = pt.wl_stratum_u(seed, i, lane)
+        if compact and not differentiable:
+            L, pix = trace_paths(scene, md, o, d, rng, use_bvh, compact=True, wl_u=wl_u)
+            return torch.zeros_like(L).index_add_(0, pix, L)
+        return trace_paths(scene, md, o, d, rng, use_bvh, bool(differentiable), wl_u=wl_u)
 
     acc = torch.zeros((B, 3), device=scene.device)
     for i in range(spp):

@@ -33,15 +33,16 @@ from . import path_tracer as pt
 _DEAD_KEY = 0xFFFFFFFF  # sorts after every live key (held in int64)
 
 
-def _lanes(s: pt.PTState, B: int) -> dict:
-    """The per-lane fields of a B-lane state."""
+def lane_fields(s, B: int) -> dict:
+    """The per-lane fields of a B-lane state (a path tracer's or a volume
+    path tracer's)."""
     return {f.name: getattr(s, f.name) for f in dataclasses.fields(s)
             if torch.is_tensor(getattr(s, f.name)) and getattr(s, f.name).shape[:1] == (B,)}
 
 
-def _permute(s: pt.PTState, idx: torch.Tensor) -> pt.PTState:
+def permute_lanes(s, idx: torch.Tensor):
     """The lanes idx of s, in that order."""
-    return dataclasses.replace(s, **{k: v[idx] for k, v in _lanes(s, s.o.shape[0]).items()})
+    return dataclasses.replace(s, **{k: v[idx] for k, v in lane_fields(s, s.o.shape[0]).items()})
 
 
 def _sort_key(scene: T.Scene, s: pt.PTState, hit: dict, spatial: bool = True) -> torch.Tensor:
@@ -66,7 +67,7 @@ def _bounce(scene: T.Scene, md: MaxDepthParams, s: pt.PTState, pix: torch.Tensor
     hit = pt.intersect_stage(scene, s)
     if sort_rays:
         perm = torch.argsort(_sort_key(scene, s, hit), stable=True)
-        s = _permute(s, perm)
+        s = permute_lanes(s, perm)
         hit = {k: v[perm] for k, v in hit.items()}
         pix = pix[perm]
     return pt.shade_stage(scene, md, s, hit, nee_candidates), pix
@@ -82,6 +83,23 @@ def compact_sizes(B: int, compact_levels: int = 7) -> list:
     return sizes
 
 
+def compacted_bounce(s, pix: torch.Tensor, sizes: list, bounce):
+    """One bounce on the live prefix: the live lanes moved to the front
+    (stable: the last sort's coherence stays), then bounce(sub, pix_sub) ->
+    (sub, pix_sub) on the smallest prefix of the ladder sizes that holds
+    them; the lanes past it are carried as they are. Returns (s, pix)."""
+    B = pix.shape[0]
+    perm = torch.argsort((~s.active).to(torch.int8), stable=True)
+    s = permute_lanes(s, perm)
+    pix = pix[perm]
+    n_live = int(s.active.sum())
+    size = min(sz for sz in sizes if sz >= n_live)
+    sub, pix_sub = bounce(permute_lanes(s, torch.arange(size, device=pix.device)), pix[:size])
+    s = dataclasses.replace(sub, **{k: torch.cat([getattr(sub, k), v[size:]])
+                                    for k, v in lane_fields(s, B).items()})
+    return s, torch.cat([pix_sub, pix[size:]])
+
+
 def trace_paths_wavefront(scene: T.Scene, md: MaxDepthParams, o: torch.Tensor,
                           d: torch.Tensor, rng: torch.Tensor, sort_rays: bool = True,
                           compact: bool = False, compact_levels: int = 7, wl_u=None,
@@ -94,21 +112,12 @@ def trace_paths_wavefront(scene: T.Scene, md: MaxDepthParams, o: torch.Tensor,
     s = pt.init_state(o, d, rng, wl_u)
     pix = torch.arange(B, device=o.device)
     sizes = compact_sizes(B, compact_levels)
+
+    def bounce(st, px):
+        return _bounce(scene, md, st, px, sort_rays, nee_candidates)
+
     while s.bounce < md.max_depth and bool(s.active.any()):
-        if not compact:
-            s, pix = _bounce(scene, md, s, pix, sort_rays, nee_candidates)
-            continue
-        # live lanes to the front (stable: the last sort's coherence stays)
-        perm = torch.argsort((~s.active).to(torch.int8), stable=True)
-        s = _permute(s, perm)
-        pix = pix[perm]
-        n_live = int(s.active.sum())
-        size = min(sz for sz in sizes if sz >= n_live)
-        sub = _permute(s, torch.arange(size, device=o.device))
-        sub, pix_sub = _bounce(scene, md, sub, pix[:size], sort_rays, nee_candidates)
-        s = dataclasses.replace(sub, **{k: torch.cat([getattr(sub, k), v[size:]])
-                                        for k, v in _lanes(s, B).items()})
-        pix = torch.cat([pix_sub, pix[size:]])
+        s, pix = compacted_bounce(s, pix, sizes, bounce) if compact else bounce(s, pix)
     return s.L, pix
 
 

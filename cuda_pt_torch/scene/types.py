@@ -194,6 +194,10 @@ class WideBVHArrays:
     def num_nodes(self) -> int:
         return self.child_min.shape[0]
 
+    @property
+    def num_leaves(self) -> int:
+        return self.leaf_base.shape[0]
+
 
 @dataclasses.dataclass
 class TraversalForest:
@@ -239,13 +243,13 @@ class Scene:
     cam_medium: int  # medium containing the camera
     num_emitters: int  # real emitters (excluding slot 0)
     env_importance: EnvImportance | None = None
-    wide: WideBVHArrays | None = None
-    # static set of BSDF families present (dispatch pruning)
-    present_bsdfs: tuple = tuple(range(NUM_BSDF_TYPES))
     # kernel K1's forest (SceneBuilder.compile(forest_chunk=...), or the
     # BVH as one chunk, packed by the Renderer); None: traversal "pallas"
     # packs it per call (models/path_tracer.pallas_forest)
     forest: TraversalForest | None = None
+    wide: WideBVHArrays | None = None
+    # static set of BSDF families present (dispatch pruning)
+    present_bsdfs: tuple = tuple(range(NUM_BSDF_TYPES))
     # the walk backend: "" = models/path_tracer.TRAVERSAL_IMPL, "xla" = the
     # skip walk, "pallas" = kernel K1, "wide" = the 8-wide walk (scene.wide)
     traversal: str = ""

@@ -16,7 +16,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "cuda_pt_tpu"}
 def _port_files():
     files = glob.glob(os.path.join(REPO, "cuda_pt_torch", "**", "*.py"), recursive=True)
     files += glob.glob(os.path.join(REPO, "tools", "*.py"))
-    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+    # the distributed tests' rank worker runs without JAX too
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py"),
+                            os.path.join(REPO, "tests", "torch_dist_worker.py")]
 
 
 def test_codestyle_port_clean():
@@ -26,7 +28,8 @@ def test_codestyle_port_clean():
     spec.loader.exec_module(check)
     tests = sorted(os.path.relpath(p, REPO) for p in
                    glob.glob(os.path.join(REPO, "tests", "test_torch_*.py")))
-    assert check.main(["check", "cuda_pt_torch", "tools", "chip_smoke.py", *tests]) == 0
+    assert check.main(["check", "cuda_pt_torch", "tools", "chip_smoke.py", *tests,
+                       "tests/torch_dist_worker.py"]) == 0
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
@@ -66,3 +69,11 @@ def test_scene_input_module_checked(module):
         if isinstance(node, ast.Constant) and isinstance(node.value, str) \
                 and id(node) not in docs:
             assert "cuda_pt_tpu" not in node.value, f"{path}:{node.lineno}"
+
+
+# the distributed modules and the torchrun entry: each is among the files
+# the no-JAX rule walks
+@pytest.mark.parametrize("module", ["parallel/__init__.py", "parallel/distributed.py",
+                                    "distributed_render.py"])
+def test_distributed_module_checked(module):
+    assert os.path.join(REPO, "cuda_pt_torch", module) in _port_files()

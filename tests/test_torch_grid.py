@@ -193,7 +193,8 @@ def test_renderer_renders_grid_smoke_on_the_cpu():
 
 def test_grid_envelope_rules():
     """As the reference: a grid medium with an envmap or with emission stays
-    outside the fused route; the Renderer names what waits."""
+    outside the fused route; the Renderer renders it on the composed route
+    (tests/test_torch_vpt_grid.py holds that route to the reference)."""
     _, _, b = t_ts.grid_smoke(8, 8)
     b.add_emitter(EmitterSpec(etype=TT.EMITTER_ENVMAP, emission=(1, 1, 1), scaler=1.0,
                               extra=(1.0, 0.0, 0.0, 0.0)))
@@ -203,8 +204,11 @@ def test_grid_envelope_rules():
     b.add_medium(MediumSpec(mtype=TT.MEDIUM_GRID, grid_id=0, emission_scale=1.0))
     scene = b.compile()
     assert not t_mk.megakernel_ok(scene, TMD(), renderer="vpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(_parsed(scene, cam), renderer=RendererType.VOLUME_PT, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_vpt.trace_paths(t_ts.grid_smoke(4, 4)[0], TMD(), torch.zeros((1, 3)),
+    r = Renderer(_parsed(scene, cam), renderer=RendererType.VOLUME_PT, device="cpu")
+    assert r.info()["driver"] == "composed"
+    with pytest.raises(ValueError, match="envelope"):
+        Renderer(_parsed(scene, cam), renderer=RendererType.VOLUME_PT, device="cpu",
+                 traversal="fused")
+    L = t_vpt.trace_paths(t_ts.grid_smoke(4, 4)[0], TMD(), torch.zeros((1, 3)),
                           torch.ones((1, 3)), torch.zeros((1, 2), dtype=torch.int64))
+    assert L.shape == (1, 3) and bool(torch.isfinite(L).all())

@@ -254,3 +254,15 @@ def test_load_obj_missing_file_raises_as_reference(tmp_path, native):
     with pytest.raises(FileNotFoundError):
         t_obj.load_obj(path, native=native)
     assert t_nobj.load_obj_native(path) is None
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["numpy", "native"])
+def test_tree_metrics_equal_reference(native):
+    """accel/bvh_build.tree_metrics on small kitchen_stress's SAH tree, the
+    NumPy and the native build, equals the reference's key for key."""
+    g = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)[0].geom
+    bounds = t_bvh.prim_bounds(*(x.numpy() for x in (g.p0, g.e1, g.e2, g.is_sphere)))
+    got = t_bvh.tree_metrics(t_bvh.build_bvh(*bounds, max_leaf=4, use_native=native))
+    want = j_bvh.tree_metrics(j_bvh.build_bvh(*bounds, max_leaf=4, use_native=native))
+    assert list(got) == list(want) and got == want
+    assert got["num_leaves"] > 1 and got["max_depth"] > 1

@@ -16,6 +16,7 @@ from cuda_pt_torch.ops import megakernel as t_mk
 from cuda_pt_torch.scene import bridge
 from cuda_pt_torch.scene import builder as t_builder
 from cuda_pt_torch.scene import testscenes as t_ts
+from cuda_pt_torch.scene import types as TT
 from cuda_pt_tpu.accel import bvh_build as j_bvh
 from cuda_pt_tpu.accel import wide_build as j_wide
 from cuda_pt_tpu.ops.pallas import megakernel as j_mk
@@ -177,3 +178,25 @@ def test_unported_builder_branches_raise():
     # the SBVH is ported: it compiles, every prim referenced at least once
     sbvh = b.compile(bvh_cfg=BVHConfig(use_sbvh=True))
     assert sbvh.geom.num_prims >= 2 and int(sbvh.bvh.node_count.sum()) == sbvh.geom.num_prims
+
+
+_TYPES = [n for n, c in sorted(vars(TT).items())
+          if isinstance(c, type) and dataclasses.is_dataclass(c) and c.__module__ == TT.__name__]
+
+
+@pytest.mark.parametrize("name", _TYPES)
+def test_types_fields_match_reference(name):
+    """Every dataclass of scene/types.py has its JAX counterpart's field
+    names in its order, so a positional construction or a walk of the
+    fields pairs them as the reference does."""
+    got = [f.name for f in dataclasses.fields(getattr(TT, name))]
+    assert got == [f.name for f in dataclasses.fields(getattr(JT, name))]
+
+
+def test_wide_num_leaves_matches_reference():
+    """WideBVHArrays.num_leaves, which the wide walk clamps its leaf ids
+    to, equals the reference's on small kitchen_stress's wide tree."""
+    st, _, _ = t_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    sj, _, _ = j_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
+    wt, wj = t_wide.from_bvharrays(st.bvh), j_wide.from_bvharrays(sj.bvh)
+    assert wt.num_leaves == wj.num_leaves == int(wt.leaf_base.shape[0]) > 1

@@ -380,8 +380,9 @@ def test_vpt_renderer_errors():
                               torch.zeros((1, 2), dtype=torch.int64), nee_candidates=2)
     o, d = torch.zeros((1, 3)), torch.ones((1, 3))
     rng = torch.zeros((1, 2), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_vpt.trace_paths(scene, TMD(), o, d, rng, compact=True)
+    # compaction is ported: (L, lane permutation); tests/test_torch_vpt_compact.py holds it
+    L, pix = t_vpt.trace_paths(scene, TMD(), o, d, rng, compact=True)
+    assert L.shape == (1, 3) and pix.tolist() == [0]
     # the differentiable mode renders (tests/test_torch_diff.py holds its gradients)
     L = t_vpt.trace_paths(scene, TMD(), o, d, rng, differentiable=True)
     assert L.shape == (1, 3) and bool(torch.isfinite(L).all())
