@@ -264,8 +264,8 @@ Phases (any failure exits non-zero):
      bound); (d) the SBVH kitchen (override_accel) on K5, held likewise,
      its wall per spp beside (c)'s; (e) traversal="auto" on the XML
      kitchen (each candidate's ms, the pick, K1's launches while tuning
-     and in one 1-spp pass with the pick) and "mxu" disqualified on the
-     XML cornell; (f) grid_smoke's GRID_N^3 grid as a ZIP-codec .nvdb in
+     and in one 1-spp pass with the pick) and "mxu" timed on the XML
+     cornell (since the matmul brute force was ported); (f) grid_smoke's GRID_N^3 grid as a ZIP-codec .nvdb in
      an XML scene, VOLUME_PT 1 spp through Renderer(path) on K6, held per
      lane as phase 8 holds. The K2, K5, K6 and K1 entries gain this
      path's launches; scene_input_check joins the result line.
@@ -301,7 +301,39 @@ Phases (any failure exits non-zero):
      gradients equal on both ranks and within rtol 1e-4 of the
      single-process step. volume_check, count_check and
      distributed_check join the result line; the K1 and K2 entries gain
-     this phase's launches.
+     this phase's launches. The gloo pair also
+     runs the torchrun entry (distributed_render.main) with --multihost,
+     the multi-node variables (LOCAL_RANK, LOCAL_WORLD_SIZE, GROUP_RANK)
+     set by the spawner on this one host, on an XML cornell at ENTRY_SIZE^2
+     with sp 2, and --tensorboard: run where torch.utils.tensorboard
+     imports, else the entry must stop naming the package.
+ 21. the tail modules: (a) the web viewer (viewer/server.py) serving
+     cornell_box 1024x1024 on K2 through a real ThreadingHTTPServer on
+     127.0.0.1 (port 0): VIEWER_PASSES passes polled on /info, /frame.png
+     decoded by utils/image.decode_png and bit-equal to the film's sRGB
+     export, an emitter scaler and a material k_d edit posted: the first
+     pass of each new generation bit-equal, lane for lane, to pass 0 of a
+     fresh Renderer on the edited scene (the edit reached K2's pack); the
+     family switched to depth and back, a ToF window on and off, each
+     route read from /info; the same edit hold on kitchen_stress 1024x1024
+     (K5, two viewer passes driven one by one); ms per pass (/info), per
+     PNG encode at 1024^2 and per _reroute (the re-pack), K2's and K5's
+     launches; (b) traversal="mxu" on cornell 1024x1024 x 1 against the
+     brute force on the same streams (camera hits on >= 99.5 % of the
+     1,048,576 rays, the image's q99 below 2e-2 and mean within 1e-3), its
+     chunk, lane band, ms and peak MiB; on a SOUP_PRIMS-triangle soup at
+     SOUP_RAYS rays the closest hit of mxu, K1 and the skip walk timed,
+     each held to mxu's hits, and allow_tf32 as found, the hits unchanged
+     with it on; (c) train_guide on kitchen_stress 1024x1024 on K1 (spp
+     GUIDE_SPP, GUIDE_STEPS steps): loss, seconds, K1 launches; a guided
+     and an unguided wavefront render (GUIDED_SPP) on K1: walls, launches,
+     means within four standard errors; the slot scene at SLOT_SIZE^2 over
+     SLOT_SEEDS seeds: guided over unguided per-pixel variance; (d)
+     utils/timing.timeit_stats of a cornell K2 pass beside its CUDA-events
+     time, and loop_cost of a small step; (e) in phase 20's spawn.
+     viewer_check, mxu_check and guide_check join the kernels line,
+     timing_check the result line; the K1, K2 and K5 entries gain this
+     phase's launches.
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
@@ -327,6 +359,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -3770,7 +3803,7 @@ def scene_input_xml(mk, T, d: str, kb, kscene, kcam, k2_mean: float, k5_mean: fl
 def scene_input_auto(mk, rk, cornell_path: str, Renderer) -> dict:
     """(e) traversal="auto" on the XML kitchen: each candidate's time, the
     pick, then one 1-spp pass with it; and on the XML cornell (8,192 prims
-    or fewer) "mxu"'s disqualification."""
+    or fewer) "mxu" timed beside the walks."""
     from cuda_pt_torch.accel import autotune
 
     torch.cuda.synchronize()
@@ -3793,15 +3826,14 @@ def scene_input_auto(mk, rk, cornell_path: str, Renderer) -> dict:
            "tune_s": tune_s, "tune_launches": tune_launches, "pass_ms": wall * 1e3,
            "pass_launches": launches, "image_mean": mean,
            "mxu_eligible": "mxu" in res["timings_ms"],
-           "cornell": {"timings_ms": cres["timings_ms"], "impl": cres["impl"],
-                       "disqualified": cres["disqualified"]}}
+           "cornell": {"timings_ms": cres["timings_ms"], "impl": cres["impl"]}}
     log(f"[19e] traversal auto on the XML kitchen: candidates (ms) {res['timings_ms']}, pick "
         f"{res['impl']} (tuned in {tune_s:.1f} s, launches {tune_launches}); mxu "
         f"{'eligible' if out['mxu_eligible'] else 'not eligible (more than 8,192 prims)'}; "
         f"one 1-spp pass {wall * 1e3:.1f} ms, launches {launches}, mean {mean:.6f}; on the XML "
-        f"cornell: {cres['timings_ms']} -> {cres['impl']}, disqualified {cres['disqualified']}")
-    if "mxu" not in cres["disqualified"] or "item 13" not in cres["disqualified"]["mxu"]:
-        raise SystemExit("auto: mxu is not disqualified naming its ROADMAP item")
+        f"cornell: {cres['timings_ms']} -> {cres['impl']}")
+    if not np.isfinite(cres["timings_ms"].get("mxu", np.inf)):
+        raise SystemExit("auto: mxu is not timed on the XML cornell")
     if not np.isfinite(res["timings_ms"][res["impl"]]) or \
             (pick == "pallas" and launches.get("traverse_forest", 0) <= 0):
         raise SystemExit("auto: no finite pick, or the K1 pick launched no K1")
@@ -3880,6 +3912,9 @@ DIST_VPT_SPP = 2
 DIST_TRAIN_SIZE = 256
 DIST_TRAIN_DEPTH = 4  # the training step's max_depth (cut from 16: autograd memory)
 DIST_TIMEOUT = 600
+# the torchrun entry in (e)'s gloo pair (phase 21 (e)): side and spp
+ENTRY_SIZE = 64
+ENTRY_SPP = 4
 
 
 def _cube(tts, lo, hi):
@@ -4220,6 +4255,8 @@ def dist_worker(rank: int, world: int, port: int, out: str, backend: str,
         rows["train"] = {"wall_s": time.perf_counter() - t0, "loss": float(loss)}
         arrays.update({f"grad_{k}": g for k, g in grads.items()})
         arrays["loss"] = loss
+        if world == 2:
+            rows["entry"] = dist_entry(rank, out)
         # every rank its loss and gradients, rank 0 its images too
         np.savez(os.path.join(out, f"{tag}.npz"),
                  **{k: v.detach().cpu().numpy() for k, v in arrays.items()
@@ -4229,6 +4266,38 @@ def dist_worker(rank: int, world: int, port: int, out: str, backend: str,
     with open(os.path.join(out, f"{tag}.json"), "w") as f:
         json.dump(rows, f)
     return 0
+
+
+def dist_entry(rank: int, out: str) -> dict:
+    """(e) the torchrun entry on this group with --multihost (the spawner
+    set the multi-node variables on this one host) at ENTRY_SIZE^2; then
+    --tensorboard: run where torch.utils.tensorboard imports, else the
+    entry must stop at once naming the package."""
+    from cuda_pt_torch import distributed_render
+
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        has_tb = True
+    except ImportError:
+        has_tb = False
+    tb_dir = os.path.join(out, "tb")
+    args = ["--xml", os.path.join(out, "entry.xml"), "--spp", str(ENTRY_SPP), "--sp", "2",
+            "--width", str(ENTRY_SIZE), "--height", str(ENTRY_SIZE), "--report-interval", "1",
+            "--out", os.path.join(out, f"entry_rank{rank}.png"), "--multihost"]
+    t0 = time.perf_counter()
+    distributed_render.main(args + (["--tensorboard", tb_dir] if has_tb else []))
+    row = {"wall_s": time.perf_counter() - t0, "multihost": True,
+           "local_rank": os.environ["LOCAL_RANK"], "tensorboard": has_tb}
+    if has_tb:
+        row["tensorboard_files"] = sorted(os.listdir(tb_dir)) if rank == 0 else []
+    else:
+        try:
+            distributed_render.main(args + ["--tensorboard", tb_dir])
+        except SystemExit as e:
+            row["tensorboard_error"] = str(e)
+        else:
+            raise SystemExit("--tensorboard without the package did not stop the entry")
+    return row
 
 
 def _spawn_ranks(worlds: dict, out: str) -> dict:
@@ -4251,10 +4320,15 @@ def _spawn_ranks(worlds: dict, out: str) -> dict:
     procs, walls = [], {}
     try:
         for backend, world, r, port, path in jobs:
+            # torchrun's multi-node variables, set by hand on this one host (the
+            # entry's --multihost)
+            env = dict(os.environ, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                       GROUP_RANK="0")
             with open(path, "w") as f:
                 procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                                "--dist-worker", str(r), str(world), str(port),
-                                               out, backend], stdout=f, stderr=subprocess.STDOUT))
+                                               out, backend], stdout=f, stderr=subprocess.STDOUT,
+                                              env=env))
         for (backend, world, *_), p in zip(jobs, procs):
             p.wait(timeout=DIST_TIMEOUT)
             walls[f"{backend}{world}"] = time.perf_counter() - t0
@@ -4281,9 +4355,14 @@ def distributed(mk, tts, dev, MaxDepthParams) -> dict:
     from cuda_pt_torch.models import volume_pt
     from cuda_pt_torch.parallel import distributed as pdist
 
+    from cuda_pt_torch.scene import types as T
+
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as out:
+        _, _, b = tts.cornell_box(ENTRY_SIZE, ENTRY_SIZE)
+        write_scene_xml(T, b, out, "entry", XML_VIEWS["cornell"], ENTRY_SIZE)
         spawn = _spawn_ranks({"gloo": 2, "nccl": 1}, out)
+        entry_png = os.path.exists(os.path.join(out, "entry_rank0.png"))
         res = {k: np.load(os.path.join(out, f"{k}.npz"))
                for k in ("gloo2_rank0", "gloo2_rank1", "nccl1_rank0")}
         res = {k: {a: v[a] for a in v.files} for k, v in res.items()}
@@ -4332,6 +4411,13 @@ def distributed(mk, tts, dev, MaxDepthParams) -> dict:
                 raise SystemExit(f"[20] train step: gradient {k} differs between the ranks")
             worst = max(worst, float(np.max(np.abs(got - g))))
     held["train_grad_max_abs_err"] = worst
+    entry = [rows[f"gloo2_rank{k}"]["entry"] for k in (0, 1)]
+    tb_ok = (entry[0]["tensorboard"] and any("tfevents" in f for f in entry[0]["tensorboard_files"])
+             or not entry[0]["tensorboard"] and all("tensorboard package" in e.get(
+                 "tensorboard_error", "") for e in entry))
+    if not (entry_png and tb_ok and [e["local_rank"] for e in entry] == ["0", "1"]):
+        raise SystemExit(f"[20] the torchrun entry with --multihost / --tensorboard: {entry}")
+    held["entry"] = entry
     k2_dp2 = rows["gloo2_rank0"]["fused_sp1"]["launches"].get("trace_megakernel", 0)
     k2_sp2 = rows["gloo2_rank0"]["fused_sp2"]["launches"].get("trace_megakernel", 0)
     k1_vpt = rows["gloo2_rank0"]["vpt"]["launches"].get("traverse_forest", 0)
@@ -4339,6 +4425,10 @@ def distributed(mk, tts, dev, MaxDepthParams) -> dict:
         raise SystemExit(f"[20] distributed launches: K2 {k2_dp2} / {k2_sp2}, K1 {k1_vpt}")
     for tag, row in rows.items():
         log(f"[20] (e) {tag}: " + ", ".join(f"{k} {v['wall_s']:.2f} s" for k, v in row.items()))
+    log(f"[20] (e) / [21] (e) the entry on the gloo pair, --multihost (LOCAL_RANK 0 and 1 on "
+        f"one card), cornell {ENTRY_SIZE}^2 x {ENTRY_SPP}, sp 2: {entry[0]['wall_s']:.2f} s; "
+        f"--tensorboard: " + (f"ran, {entry[0]['tensorboard_files']}" if entry[0]["tensorboard"]
+                             else f"absent, the entry stopped: {entry[0]['tensorboard_error']}"))
     log(f"[20] (e) fused cornell {DIST_FUSED_SIZE}^2 x {DIST_FUSED_SPP}: dp=2 {held['fused_dp2_bits_differ']} "
         f"pixels off bit-equal, sp=2 max rel {held['fused_sp2_max_rel']:.3g}, NCCL world 1 "
         f"{held['nccl1_bits_differ']}; K2 launches per rank {k2_dp2} (dp=2) / {k2_sp2} (sp=2); "
@@ -4363,6 +4453,442 @@ def phase_slice16(mk, tk, tts, dev, kb, kscene, kcam, vscene, vcam, T, MaxDepthP
     out["distributed"] = distributed(mk, tts, dev, MaxDepthParams)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[20] volume routes, counts, distributed: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the tail modules: the viewer's hot reload on K2 / K5, the matmul
+# brute force, path guiding on K1, the timing helpers
+# ---------------------------------------------------------------------------
+
+VIEWER_SIZE = 1024
+VIEWER_PASSES = 8  # passes the cornell viewer accumulates before the frame hold
+VIEWER_WAIT_S = 120.0  # the longest wait for a viewer state
+# the emitter and material edits of (a): cornell's light and its red wall
+VIEWER_EDITS = ({"kind": "emitter", "id": 1, "field": "scaler", "value": 20.0},
+                {"kind": "bsdf", "id": 1, "field": "k_d", "value": [0.2, 0.6, 0.9]})
+TOF_WINDOW = {"kind": "tof", "min_time": 0.5, "max_time": 6.0}
+SOUP_PRIMS = 8192  # the autotuner's bound for "mxu"
+SOUP_RAYS = 1 << 20
+MXU_HIT_FRAC = 0.995
+GUIDE_SPP = 6  # train_guide's defaults, the reference's
+GUIDE_STEPS = 50
+GUIDED_SPP = 2
+SLOT_SIZE = 256
+SLOT_SEEDS = 8
+SLOT_SPP = 6
+SLOT_DEPTH = 3
+TIMING_REPS = 5
+
+
+def _http(port: int, path: str, body=None) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method="GET" if body is None
+                                 else "POST", data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=VIEWER_WAIT_S) as r:
+        return r.read()
+
+
+def _until(cond, label: str) -> None:
+    deadline = time.perf_counter() + VIEWER_WAIT_S
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise SystemExit(f"[21] viewer: no {label} within {VIEWER_WAIT_S:.0f} s")
+        time.sleep(0.02)
+
+
+def _edited_scene(scene, msg: dict):
+    """scene with msg's table row set (the viewer's edit, applied here on
+    its own)."""
+    name = {"emitter": "emitters", "bsdf": "bsdfs", "medium": "media"}[msg["kind"]]
+    table = getattr(scene, name)
+    col = getattr(table, msg["field"]).clone()
+    col[msg["id"]] = torch.as_tensor(msg["value"], dtype=col.dtype, device=col.device)
+    return dataclasses.replace(scene, **{name: dataclasses.replace(table, **{msg["field"]: col})})
+
+
+def _pause(state) -> None:
+    state.stop.set()
+    state.thread.join(timeout=VIEWER_WAIT_S)
+
+
+def edit_hold(mk, state, msg: dict, Renderer, ParsedScene, label: str, port=None) -> dict:
+    """msg posted (over HTTP where port is given, else to the state), then
+    the first pass of the new generation against pass 0 of a fresh Renderer
+    built on the pre-edit scene with msg applied here, lane for lane: the
+    edit reached the kernel's pack."""
+    r = state.renderer
+    before, g0 = r.scene, state.generation
+    pack0 = r._pack
+    if port is None:
+        state.update(msg)
+        state.step()
+    else:
+        _http(port, "/update", msg)
+        _until(lambda: state.first_pass is not None and state.first_pass[0] > g0,
+               f"first pass after the {label} edit")
+        _pause(state)
+    gen, img = state.first_pass
+    want_scene = _edited_scene(before, msg)
+    fresh = Renderer(ParsedScene(want_scene, r.parsed.camera, r.config))
+    launches0 = dict(mk.LAUNCHES)
+    want = fresh.render_raw()
+    torch.cuda.synchronize()
+    fresh_launches = {k: v - launches0.get(k, 0) for k, v in mk.LAUNCHES.items()
+                      if v != launches0.get(k, 0)}
+    bits = int((img != want).any(dim=-1).sum())
+    if gen <= g0 or r._pack is pack0 or not r.fused or bits:
+        raise SystemExit(f"[21] viewer {label}: generation {g0} -> {gen}, repacked "
+                         f"{r._pack is not pack0}, fused {r.fused}, {bits} pixels off the fresh "
+                         "Renderer's pass 0")
+    if port is not None:
+        state.start()
+    return {"generation": gen, "pixels_not_bit_equal": bits, "fresh_launches": fresh_launches,
+            "mean": float(img.mean())}
+
+
+def viewer_cornell(mk, tts, MaxDepthParams, RenderingConfig, ParsedScene, Renderer) -> dict:
+    """(a) cornell through the real server: passes accumulated, the frame
+    against the film's sRGB export, the edits on K2, the family switch and
+    the ToF window."""
+    from cuda_pt_torch.utils.image import decode_png, encode_png
+    from cuda_pt_torch.viewer.server import (ThreadingHTTPServer, ViewerState, frame_pixels,
+                                             make_handler)
+
+    scene, cam, _ = tts.cornell_box(VIEWER_SIZE, VIEWER_SIZE)
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=VIEWER_SIZE, height=VIEWER_SIZE,
+                                                     md=MaxDepthParams(), seed=0))
+    r = Renderer(parsed)
+    state = ViewerState(r)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    out = {}
+    try:
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        state.start()
+        # waits read the state, not /info: a poll's host copy of the film's
+        # variance would queue behind and beside the passes it times
+        _until(lambda: r.counter() >= VIEWER_PASSES, f"{VIEWER_PASSES} passes")
+        info = json.loads(_http(port, "/info"))
+        _pause(state)
+        frame = decode_png(_http(port, "/frame.png"))
+        want = frame_pixels(r.film.mean, r.config.gamma, state.tonemap)
+        if not np.array_equal(frame, want) or info["traversal"] != "fused":
+            raise SystemExit(f"[21] viewer: /frame.png is not the film's sRGB export "
+                             f"({int((frame != want).any(axis=-1).sum())} pixels differ) or the "
+                             f"route is {info['traversal']}")
+        out["frame"] = {"spp": r.counter(), "ms_per_pass": info["ms_per_pass"],
+                        "seconds_to_passes": time.perf_counter() - t0}
+        srgb = frame_pixels(r.film.mean, r.config.gamma, state.tonemap)
+        out["png_encode_ms"] = host_ms(lambda: encode_png(srgb))[1]
+        out["frame_export_ms"] = host_ms(lambda: frame_pixels(r.film.mean, r.config.gamma,
+                                                              state.tonemap))[1]
+        out["reroute_ms"] = host_ms(r._reroute)[1]
+        state.start()
+        for msg in VIEWER_EDITS:
+            out[msg["kind"]] = edit_hold(mk, state, msg, Renderer, ParsedScene, msg["kind"], port)
+        routes = {}
+        for msg, want_route in (({"kind": "renderer", "value": "depth"}, ("composed", "depth")),
+                                ({"kind": "renderer", "value": "pt"}, ("whole_path", "pt")),
+                                (TOF_WINDOW, ("composed", "pt")),
+                                ({**TOF_WINDOW, "max_time": 0.0}, ("whole_path", "pt"))):
+            g0 = state.generation
+            _http(port, "/update", msg)
+            _until(lambda: state.generation > g0 and r.counter() >= 1,
+                   f"a pass after {msg}")
+            info = json.loads(_http(port, "/info"))
+            if (info["driver"], info["renderer"]) != want_route or info["error"]:
+                raise SystemExit(f"[21] viewer {msg}: route {info['driver']} / "
+                                 f"{info['renderer']}, not {want_route} ({info['error']})")
+            routes[json.dumps(msg)] = {"traversal": info["traversal"], "driver": info["driver"],
+                                       "last_pass_ms": r._frame_times[-1]}
+        out["routes"] = routes
+        _pause(state)
+        fresh = [out[m["kind"]]["fresh_launches"] for m in VIEWER_EDITS]
+        out["launches"] = {k: v - sum(f.get(k, 0) for f in fresh)
+                           for k, v in mk.LAUNCHES.items() if v}
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        state.stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+    return out, r
+
+
+def viewer_kitchen(mk, kscene, kcam, MaxDepthParams, RenderingConfig, ParsedScene,
+                   Renderer) -> dict:
+    """(a) the edit hold on kitchen_stress (K5), the viewer's passes driven
+    here one by one."""
+    from cuda_pt_torch.viewer.server import ViewerState
+
+    parsed = ParsedScene(kscene, kcam, RenderingConfig(width=kcam.width, height=kcam.height,
+                                                       md=MaxDepthParams(), seed=0))
+    r = Renderer(parsed)
+    state = ViewerState(r)
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    state.step()
+    msg = {"kind": "emitter", "id": 1, "field": "scaler",
+           "value": 2.0 * float(kscene.emitters.scaler[1])}
+    t_re = time.perf_counter()
+    hold = edit_hold(mk, state, msg, Renderer, ParsedScene, "kitchen emitter")
+    launches = {k: v - hold["fresh_launches"].get(k, 0) for k, v in mk.LAUNCHES.items() if v}
+    if r.info()["driver"] != "swf" or launches.get("trace_megakernel_seg", 0) <= 0:
+        raise SystemExit(f"[21] viewer kitchen: driver {r.info()['driver']}, launches {launches}")
+    reroute_ms = host_ms(r._reroute)[1]
+    return {"hold": hold, "launches": launches, "reroute_ms": reroute_ms, "passes": 2,
+            "wall_s": time.perf_counter() - t0, "edit_and_pass_s": time.perf_counter() - t_re,
+            "ms_per_pass": r.avg_frame_time()}
+
+
+def _soup(n: int, dev, seed: int = 3):
+    """n random triangles in a unit cloud (the reference mxu test's cloud,
+    n of them) and SOUP_RAYS rays aimed at it from outside, on dev."""
+    from cuda_pt_torch.scene import types as T
+    from cuda_pt_torch.scene.builder import BSDFSpec, SceneBuilder
+
+    rs = np.random.default_rng(seed)
+    b = SceneBuilder()
+    mat = b.add_bsdf(BSDFSpec())
+    center = rs.uniform(-1, 1, size=(n, 1, 3))
+    b.add_mesh((center + rs.normal(scale=0.15, size=(n, 3, 3))).astype(np.float32), mat)
+    scene = T.to_device(b.compile(), dev)
+    u = rs.normal(size=(SOUP_RAYS, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True) + 1e-12
+    o = (2.5 * u).astype(np.float32)
+    d = rs.uniform(-0.8, 0.8, size=(SOUP_RAYS, 3)) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return scene, torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+
+
+def _hits_agree(a: dict, b: dict) -> float:
+    """Share of rays whose hit flag and (where both hit) prim agree."""
+    same = (a["hit"] == b["hit"]) & (~a["hit"] | (a["prim"].long() == b["prim"].long()))
+    return float(same.float().mean())
+
+
+def mxu_check(mk, tk, tts, dev, MaxDepthParams, RenderingConfig, ParsedScene, Renderer) -> dict:
+    """(b) cornell 1024x1024 on traversal "mxu" against "xla" (the brute
+    force at 32 prims) on the same streams; the 8,192-triangle soup's
+    closest hit by mxu, K1 and the skip walk; the TF32 switch."""
+    from cuda_pt_torch.accel import traverse
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core import qmc
+    from cuda_pt_torch.ops import intersect as isect
+    from cuda_pt_torch.ops import intersect_mxu as mxu
+
+    scene, cam, _ = tts.cornell_box(VIEWER_SIZE, VIEWER_SIZE)
+    parsed = ParsedScene(scene, cam, RenderingConfig(width=VIEWER_SIZE, height=VIEWER_SIZE,
+                                                     md=MaxDepthParams(), seed=0))
+    rm, rx = Renderer(parsed, traversal="mxu"), Renderer(parsed, traversal="xla")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    img_m = rm.render_raw()
+    torch.cuda.synchronize()
+    ms_m = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    launched = {k: v for k, v in mk.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    img_x = rx.render_raw()
+    torch.cuda.synchronize()
+    ms_x = (time.perf_counter() - t0) * 1e3
+    diff = (img_m - img_x).abs().flatten()
+    q99 = float(torch.quantile(diff[torch.randperm(diff.numel(), device=dev)[:1 << 24]], 0.99))
+    dmean = abs(float(img_m.mean()) - float(img_x.mean()))
+    lane = torch.arange(VIEWER_SIZE * VIEWER_SIZE, device=dev)
+    o, d, _ = cam_mod.generate_rays(rm.camera, lane, qmc.make_state("pcg", 0, lane, 0))
+    agree = _hits_agree(mxu.closest_hit_mxu(rm.scene.geom, o, d),
+                        isect.closest_hit_brute(rx.scene.geom, o, d))
+    chunk = min(mxu.DEFAULT_CHUNK, rm.scene.geom.num_prims)
+    out = {"cornell": {"ms_per_pass": ms_m, "xla_ms_per_pass": ms_x, "peak_mib": peak,
+                       "chunk": chunk, "band_lanes": mxu.band_lanes(chunk), "q99": q99,
+                       "mean_differ": dmean, "camera_hits_agree": agree, "launches": launched}}
+    log(f"[21] (b) cornell {VIEWER_SIZE}^2 x 1 on mxu: {ms_m:.1f} ms a pass (brute force "
+        f"'xla' {ms_x:.1f}), peak {peak:.0f} MiB, chunk {chunk}, bands of "
+        f"{mxu.band_lanes(chunk)} lanes; camera hits agree on {agree:.6f}, image q99 "
+        f"{q99:.3g}, means differ by {dmean:.3g}, kernels launched {launched}")
+    if agree < MXU_HIT_FRAC or q99 >= 2e-2 or dmean >= 1e-3 or launched:
+        raise SystemExit("[21] mxu on cornell: outside the reference test's bounds, or a "
+                         "kernel launched")
+    soup, so, sd = _soup(SOUP_PRIMS, dev)
+    g, bvh = soup.geom, soup.bvh
+    h_m = mxu.closest_hit_mxu(g, so, sd)
+    forest = tk.single_chunk_forest(g, bvh)
+    h_k = tk.traverse_forest(forest, so, sd, max_leaf=bvh.max_leaf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_w = traverse.closest_hit_bvh(g, bvh, so, sd)
+    torch.cuda.synchronize()
+    walk_ms = (time.perf_counter() - t0) * 1e3
+    mxu_ms = events_ms(lambda: mxu.closest_hit_mxu(g, so, sd), 2)
+    k1_ms = events_ms(lambda: tk.traverse_forest(forest, so, sd, max_leaf=bvh.max_leaf), 5)
+    m = torch.backends.cuda.matmul
+    tf32_found = m.allow_tf32
+    try:
+        m.allow_tf32 = True
+        h_t = mxu.closest_hit_mxu(g, so, sd)
+    finally:
+        m.allow_tf32 = tf32_found
+    tf32_same = all(torch.equal(h_t[k], h_m[k]) for k in h_m)
+    soup_out = {"prims": SOUP_PRIMS, "rays": SOUP_RAYS, "hit_share": float(h_m["hit"].float().mean()),
+                "mxu_ms": mxu_ms, "k1_ms": k1_ms, "skip_walk_ms": walk_ms,
+                "k1_agree": _hits_agree(h_k, h_m), "skip_walk_agree": _hits_agree(h_w, h_m),
+                "allow_tf32_found": tf32_found, "tf32_on_hits_unchanged": tf32_same}
+    log(f"[21] (b) {SOUP_PRIMS}-triangle soup, {SOUP_RAYS} rays (hit {soup_out['hit_share']:.3f}): "
+        f"closest hit mxu {mxu_ms:.2f} ms, K1 {k1_ms:.4f} ms, skip walk {walk_ms:.1f} ms (one "
+        f"call, host clock); against mxu's hits K1 agrees on {soup_out['k1_agree']:.6f}, the "
+        f"skip walk on {soup_out['skip_walk_agree']:.6f}; allow_tf32 as found {tf32_found}, "
+        f"hits with it True unchanged: {tf32_same}")
+    if min(soup_out["k1_agree"], soup_out["skip_walk_agree"]) < MXU_HIT_FRAC or not tf32_same:
+        raise SystemExit("[21] mxu on the soup: hits off K1 / the skip walk, or TF32 moved them")
+    out["soup"] = soup_out
+    return out
+
+
+def slot_scene(tts, size: int, dev):
+    """The reference's guiding test scene (tests/test_guiding.py::
+    _slot_scene): a light seen from the floor through a narrow slot."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.scene import types as T
+    from cuda_pt_torch.scene.builder import BSDFSpec, EmitterSpec, SceneBuilder
+
+    b = SceneBuilder()
+    white = b.add_bsdf(BSDFSpec(k_d=(0.75, 0.75, 0.75)))
+    dark = b.add_bsdf(BSDFSpec(k_d=(0, 0, 0)))
+    em = b.add_emitter(EmitterSpec(emission=(1, 1, 1), scaler=60.0))
+    q = tts.quad
+    b.add_mesh(q([-1, 0, -1], [-1, 0, 1], [1, 0, 1], [1, 0, -1]), white)
+    b.add_mesh(q([-1, 1.6, -1], [1, 1.6, -1], [1, 1.6, 1], [-1, 1.6, 1]), dark, emitter_id=em)
+    b.add_mesh(q([-1, 1.0, -1], [0.05, 1.0, -1], [0.05, 1.0, 1], [-1, 1.0, 1]), white)
+    b.add_mesh(q([0.25, 1.0, -1], [1, 1.0, -1], [1, 1.0, 1], [0.25, 1.0, 1]), white)
+    cam = cam_mod.make_camera((0, 0.7, -2.6), (0, 0.3, 0), fov=35, width=size, height=size,
+                              device=dev)
+    return T.to_device(b.compile(), dev), cam
+
+
+def guide_check(mk, tts, dev, kscene, kcam, MaxDepthParams) -> dict:
+    """(c) train_guide on kitchen_stress (K1), a guided and an unguided
+    wavefront render on K1, and the slot scene's variance ratio."""
+    from cuda_pt_torch.models import guiding, wavefront
+
+    gs = pallas_scene(kscene)
+    md = MaxDepthParams()
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    guide, loss = guiding.train_guide(gs, kcam, md, seed=0, use_bvh=True, spp=GUIDE_SPP,
+                                      steps=GUIDE_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_k1 = mk.LAUNCHES["traverse_forest"]
+    launched = {k: v for k, v in mk.LAUNCHES.items() if v}
+    if set(launched) != {"traverse_forest"} or not np.isfinite(loss):
+        raise SystemExit(f"[21] train_guide: launched {launched}, loss {loss}")
+    out = {"train": {"loss": loss, "seconds": train_s, "k1_launches": train_k1, "spp": GUIDE_SPP,
+                     "steps": GUIDE_STEPS}}
+    log(f"[21] (c) train_guide kitchen_stress {kcam.width}x{kcam.height} (spp {GUIDE_SPP}, "
+        f"{GUIDE_STEPS} steps) on K1: loss {loss:.6f}, {train_s:.2f} s, {train_k1} K1 launches")
+    renders = {}
+    for name, g in (("unguided", None), ("guided", guide)):
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        img = wavefront.render(gs, kcam, md, GUIDED_SPP, seed=0, compact=True, guide=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in mk.LAUNCHES.items() if v}
+        if set(launched) != {"traverse_forest"} or not bool(torch.isfinite(img).all()):
+            raise SystemExit(f"[21] {name} wavefront: launched {launched}, or not finite")
+        lum = img.mean(dim=-1).flatten()
+        renders[name] = {"wall_s": wall, "k1_launches": launched["traverse_forest"],
+                         "mean": float(img.mean()),
+                         "mean_se": float(lum.std() / np.sqrt(lum.numel()))}
+    u, gd = renders["unguided"], renders["guided"]
+    gap, se = abs(gd["mean"] - u["mean"]), float(np.hypot(gd["mean_se"], u["mean_se"]))
+    log(f"[21] (c) wavefront kitchen {kcam.width}x{kcam.height} x {GUIDED_SPP} on K1: unguided "
+        f"{u['wall_s']:.2f} s ({u['k1_launches']} K1 launches, mean {u['mean']:.6f}), guided "
+        f"{gd['wall_s']:.2f} s ({gd['k1_launches']} K1 launches, mean {gd['mean']:.6f}); means "
+        f"differ by {gap:.3g} against a standard error of {se:.3g}")
+    if gap > 4.0 * se:
+        raise SystemExit("[21] guided and unguided wavefront means disagree beyond 4 standard "
+                         "errors")
+    out["wavefront"] = {**renders, "mean_gap": gap, "mean_se": se}
+    scene, cam = slot_scene(tts, SLOT_SIZE, dev)
+    smd = MaxDepthParams(max_depth=SLOT_DEPTH)
+    sguide, sloss = guiding.train_guide(scene, cam, smd, seed=3, use_bvh=False)
+    stats = {}
+    for name, g in (("unguided", None), ("guided", sguide)):
+        t0 = time.perf_counter()
+        imgs = torch.stack([wavefront.render(scene, cam, smd, SLOT_SPP, seed=50 + s, guide=g)
+                            for s in range(SLOT_SEEDS)])
+        torch.cuda.synchronize()
+        stats[name] = {"mean": float(imgs.mean()), "pixel_variance": float(imgs.var(dim=0,
+                       unbiased=False).mean()), "wall_s": time.perf_counter() - t0}
+    ratio = stats["guided"]["pixel_variance"] / stats["unguided"]["pixel_variance"]
+    drift = abs(stats["guided"]["mean"] / stats["unguided"]["mean"] - 1.0)
+    log(f"[21] (c) slot scene {SLOT_SIZE}^2, max_depth {SLOT_DEPTH}, {SLOT_SEEDS} seeds x "
+        f"{SLOT_SPP} spp: guided over unguided per-pixel variance {ratio:.4f}, mean drift "
+        f"{drift:.4f} (guide loss {sloss:.4f})")
+    if not np.isfinite(ratio) or drift > 0.15:
+        raise SystemExit("[21] slot scene: the guided mean drifts past the reference test's 15 %")
+    out["slot"] = {**stats, "variance_ratio": ratio, "mean_drift": drift, "loss": sloss}
+    return out
+
+
+def timing_check(r) -> dict:
+    """(d) utils/timing on a cornell K2 pass beside CUDA events, and
+    loop_cost of a small step."""
+    from cuda_pt_torch.utils import timing
+
+    st = timing.timeit_stats(r.render_raw, reps=TIMING_REPS)
+    ev = events_ms(r.render_raw, TIMING_REPS)
+    x = torch.zeros(1 << 20, device=r.device)
+    per, t_n, t_half = timing.loop_cost(lambda s: s * 1.0000001 + 1e-7, x, 200)
+    out = {"pass_median_ms": st["median"] * 1e3, "pass_std_ms": st["std"] * 1e3,
+           "samples_s": st["samples"], "events_ms": ev, "loop_cost_us": per * 1e6,
+           "loop_T_n_ms": t_n * 1e3, "loop_T_half_ms": t_half * 1e3}
+    log(f"[21] (d) timeit_stats of a cornell K2 pass: median {out['pass_median_ms']:.3f} ms, "
+        f"std {out['pass_std_ms']:.3f} (CUDA events around the same pass {ev:.3f} ms); "
+        f"loop_cost of a 1M-float axpy: {out['loop_cost_us']:.2f} us per iteration "
+        f"(T(200) {out['loop_T_n_ms']:.2f} ms, T(100) {out['loop_T_half_ms']:.2f} ms)")
+    return out
+
+
+def phase_tail(mk, tk, tts, dev, kscene, kcam, MaxDepthParams, RenderingConfig,
+                  ParsedScene, Renderer) -> dict:
+    """Phase 21, (a)-(d); (e) runs in phase 20's spawn."""
+    t_phase = time.perf_counter()
+    viewer, rc = viewer_cornell(mk, tts, MaxDepthParams, RenderingConfig, ParsedScene, Renderer)
+    kitchen = viewer_kitchen(mk, kscene, kcam, MaxDepthParams, RenderingConfig, ParsedScene,
+                             Renderer)
+    viewer["kitchen"] = kitchen
+    k2_view = viewer["launches"].get("trace_megakernel", 0)
+    k5_view = kitchen["launches"].get("trace_megakernel_seg", 0)
+    log(f"[21] (a) viewer cornell {VIEWER_SIZE}^2 on K2: {viewer['frame']['ms_per_pass']:.2f} ms "
+        f"per pass (/info), {VIEWER_PASSES} passes in {viewer['frame']['seconds_to_passes']:.1f} "
+        f"s, /frame.png bit-equal to the film's sRGB export; PNG encode "
+        f"{viewer['png_encode_ms']:.1f} ms at {VIEWER_SIZE}^2 (export {viewer['frame_export_ms']:.1f} "
+        f"ms), _reroute {viewer['reroute_ms']:.2f} ms (kitchen {kitchen['reroute_ms']:.1f} ms); "
+        f"emitter and material edits: first pass bit-equal to a fresh Renderer's pass 0 "
+        f"(generations {viewer['emitter']['generation']}, {viewer['bsdf']['generation']}); routes "
+        f"{viewer['routes']}; kitchen (K5) edit hold bit-equal, {kitchen['ms_per_pass']:.1f} ms "
+        f"per pass; launches K2 {k2_view} (cornell viewer), K5 {k5_view} (kitchen, 2 passes)")
+    out = {"viewer": viewer, "mxu": mxu_check(mk, tk, tts, dev, MaxDepthParams, RenderingConfig,
+                                              ParsedScene, Renderer),
+           "guide": guide_check(mk, tts, dev, kscene, kcam, MaxDepthParams),
+           "timing": timing_check(rc), "k2_viewer_launches": k2_view,
+           "k5_viewer_launches": k5_view}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[21] viewer, mxu, guiding, timing: {out['phase_s']:.1f} s")
     return out
 
 
@@ -4450,7 +4976,7 @@ def main():
 
 
 def run_phases(args, build: dict, sass_job: dict) -> int:
-    """Phases 2-20 and the result lines, after the build (phase 1)."""
+    """Phases 2-21 and the result lines, after the build (phase 1)."""
     from cuda_pt_torch.api import Renderer
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import extract_ab as ab
@@ -4533,6 +5059,10 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
                         MaxDepthParams, RendererType, RenderingConfig, ParsedScene, Renderer)
     k2["dist_launches_dp2_per_rank"] = s16["distributed"]["k2_launches_dp2"]
     k2["dist_launches_sp2_per_rank"] = s16["distributed"]["k2_launches_sp2"]
+    p21 = phase_tail(mk, tk, tts, dev, kscene, kcam, MaxDepthParams, RenderingConfig,
+                        ParsedScene, Renderer)
+    k2["viewer_launches"] = p21["k2_viewer_launches"]
+    k5_kitchen["viewer_launches"] = p21["k5_viewer_launches"]
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
@@ -4585,6 +5115,9 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          "uncompacted_launches": s16["volume"]["compaction"]["uncompacted"]["k1_launches"],
          "count_rays_launches": {k: v["k1_launches"] for k, v in s16["counts"].items()},
          "dist_vpt_launches_rank0": s16["distributed"]["k1_launches_vpt"],
+         "guide_train_launches": p21["guide"]["train"]["k1_launches"],
+         "guided_wavefront_launches": p21["guide"]["wavefront"]["guided"]["k1_launches"],
+         "unguided_wavefront_launches": p21["guide"]["wavefront"]["unguided"]["k1_launches"],
          "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
                  "rays of kitchen_stress; main_path_*: summed over one wavefront spp; lt_*: "
                  "the light tracer's main path, one pass (lt_launches_per_pass over LT_SPP); "
@@ -4593,7 +5126,9 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
                  "auto_pass_launches: one 1-spp pass of the XML kitchen under traversal "
                  "'auto' with its pick, auto_tune_launches: the tuning's own (phase 19); "
                  "grid_route_*, compaction_*, uncompacted_*, count_rays_*, dist_vpt_*: phase "
-                 "20's paths (one pass each; dist_vpt on rank 0 of two)"},
+                 "20's paths (one pass each; dist_vpt on rank 0 of two); guide_train_*: "
+                 "train_guide on kitchen (phase 21), *guided_wavefront_*: its GUIDED_SPP "
+                 "wavefront renders"},
         {"name": "trace_megakernel (K2+BIN: render_megakernel, cornell, binary f32 nodes)",
          "route": "cuda", "source": "cuda_pt_torch/csrc/megakernel_bin.cu",
          "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:802", "library_ms": None,
@@ -4620,7 +5155,7 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
              "light_check": light, "grad_check": grad, "sampling_check": sampling,
              "scene_input_check": scene_input, "volume_check": s16["volume"],
              "count_check": s16["counts"], "distributed_check": s16["distributed"],
-             "build": build}
+             "timing_check": p21["timing"], "build": build}
     if args.profile:
         md = MaxDepthParams()
         for key, run in (("profile", r.render_raw), ("profile_kitchen", rk.render_raw),
@@ -4632,8 +5167,9 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
             log(f"[profile] {key}")
             extra[key] = phase_profile(run)
     # the two result lines carry no time prefix: each is one JSON object
-    print(json.dumps({"kernels": kernels, "card": card, "walk_check": walk,
-                      "walk_check_kitchen": walk_k, "kernel_check": res4,
+    print(json.dumps({"kernels": kernels, "viewer_check": p21["viewer"],
+                      "mxu_check": p21["mxu"], "guide_check": p21["guide"], "card": card,
+                      "walk_check": walk, "walk_check_kitchen": walk_k, "kernel_check": res4,
                       "kernel_check_media": res4_media, **extra}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,8 @@ kept: "xla" (the skip walk) and "wide" / "wide_bf16" (the 8-wide walk over
 f32 or outward-rounded bf16 boxes) always; "pallas" (kernel K1) where the
 scene ships a forest, on a card (K1 reads its rows from global memory,
 models/path_tracer.pallas_forest), and on the CPU where the scene fits
-the reference's VMEM rule; "mxu" at 8,192 prims or fewer, which is
-disqualified (infinite time) with its reason until ROADMAP Queue 1 item 13
-ports it, as the reference disqualifies a candidate that fails. Times come
+the reference's VMEM rule; "mxu" (the matmul brute force,
+ops/intersect_mxu.py) at 8,192 prims or fewer. Times come
 from CUDA events (utils/timing.events_ms) on a card, from perf_counter
 around a call on the CPU. The result is cached per scene key, as in the
 reference, with the device type in place of its backend name.
@@ -102,9 +101,9 @@ def _timed_ms(fn, device: torch.device, reps: int) -> float:
 def autotune_traversal(scene: T.Scene, cam=None, n_rays: int = 4096, reps: int = 3,
                        verbose: bool = False) -> dict:
     """Time each eligible traversal backend on this scene; return
-    {"impl": best, "timings_ms": {impl: median ms}, "disqualified":
-    {impl: reason}, "cached": bool}. A backend the port does not have
-    (NotImplementedError) is disqualified; any other failure raises."""
+    {"impl": best, "timings_ms": {impl: median ms}, "cached": bool}. A
+    candidate that fails raises (the reference disqualifies it: every
+    candidate of the port runs)."""
     from ..models import path_tracer as pt
     from . import wide_build
 
@@ -115,7 +114,6 @@ def autotune_traversal(scene: T.Scene, cam=None, n_rays: int = 4096, reps: int =
     o, d = _probe_rays(scene, cam, n_rays)
     live = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     timings: dict[str, float] = {}
-    disqualified: dict[str, str] = {}
     for impl in candidates(scene):
         sc = dataclasses.replace(scene, traversal="wide" if impl.startswith("wide") else impl)
         if impl.startswith("wide"):
@@ -128,18 +126,10 @@ def autotune_traversal(scene: T.Scene, cam=None, n_rays: int = 4096, reps: int =
             # the any-hit walk too: NEE shadow rays are about half the load
             return res["t"], pt.occluded(sc, o, d, res["t"], live, use_bvh=True)
 
-        try:
-            timings[impl] = _timed_ms(hot, o.device, reps)
-        except NotImplementedError as e:
-            timings[impl] = float("inf")
-            disqualified[impl] = str(e)
-            if verbose:
-                print(f"[autotune] {impl} disqualified: {e}")
+        timings[impl] = _timed_ms(hot, o.device, reps)
 
     best = min(timings, key=timings.get)
-    if not np.isfinite(timings[best]):
-        best = "xla"
-    out = {"impl": best, "timings_ms": timings, "disqualified": disqualified}
+    out = {"impl": best, "timings_ms": timings}
     _CACHE[key] = out
     if verbose:
         print(f"[autotune] {key[0]}: {timings} -> {best}")

@@ -31,7 +31,8 @@ the reference's names:
 - "auto": each eligible walk timed on the render device
   (accel/autotune.with_tuned_traversal) and the fastest kept for the
   composed path; info()["traversal"] reports the pick;
-- "mxu" waits for ROADMAP Queue 1 item 13.
+- "mxu": the composed path on the matmul-form brute force
+  (ops/intersect_mxu.py, torch.matmul in full f32), at any prim count.
 DEPTH (debug_renderers.render_depth) and BVH_COST (render_bvh_cost) walk
 the skip walk or the brute force whatever ``traversal`` says, as in the
 reference. render_aovs (the first hits through the scene's walk, K1 under
@@ -81,6 +82,7 @@ compiled on the host with override_res applied before the camera is made.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from collections import deque
@@ -102,10 +104,6 @@ from .scene.xml_parser import ParsedScene, load_xml
 # the families whose pass may be split into row bands, and the only ones
 # the kernel routes take (the reference's _BANDABLE and auto-pick)
 _BANDABLE = (RendererType.MEGAKERNEL_PT, RendererType.VOLUME_PT)
-# traversal -> the ROADMAP Queue 1 item that ports it
-_TRAVERSAL_WAITING = {
-    "mxu": "item 13 (ops/intersect_mxu.py)",
-}
 
 
 def _envelope_message(scene: T.Scene, md: MaxDepthParams, vpt: bool) -> str:
@@ -158,33 +156,17 @@ class Renderer:
                                     if isinstance(source, str) else source)
         self.config = self.parsed.config
         self.rtype = RendererType(renderer or self.config.renderer)
-        if traversal in _TRAVERSAL_WAITING:
-            raise NotImplementedError(f"traversal {traversal!r} waits for ROADMAP Queue 1 "
-                                      f"{_TRAVERSAL_WAITING[traversal]}")
         if traversal not in (None, "fused", "auto", *pt.TRAVERSALS):
             raise ValueError(f"unknown traversal {traversal!r}")
-        vpt = self.rtype == RendererType.VOLUME_PT
-        if vpt and int(nee_candidates) != 1 and traversal == "fused":
-            raise ValueError("the fused volume path tracer takes nee_candidates=1, as in the "
-                             "reference")
-        if traversal == "fused" and self.rtype not in _BANDABLE:
-            raise ValueError("traversal='fused' requires the megakernel PT or volume PT "
-                             f"renderer, got {self.rtype}")
-        scene = self.parsed.scene
+        self._traversal = traversal
+        self.nee_candidates = int(nee_candidates)
         self.md: MaxDepthParams = self.config.md
-        # the volume path tracer with nee_candidates > 1 takes the composed
-        # route, which ignores it (the reference's auto-pick, api.py:106-110)
-        fused_ok = (self.rtype in _BANDABLE
-                    and (not vpt or int(nee_candidates) == 1)
-                    and mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"))
-        self.fused = traversal == "fused" or (traversal is None and fused_ok)
-        if (self.fused and not fused_ok) or (not vpt and mk.scene_has_media(scene)):
-            raise ValueError(_envelope_message(scene, self.md, vpt))
+        self.fused = self._fused_route(self.parsed.scene)
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device=None) renders on CUDA, which is not available; "
                                "pass device='cpu' to render on the CPU")
-        self.scene: T.Scene = T.to_device(scene, self.device)
+        self.scene: T.Scene = T.to_device(self.parsed.scene, self.device)
         self.camera: cam_mod.Camera = self.parsed.camera.to(self.device)
         if traversal in pt.TRAVERSALS:
             self.scene.traversal = traversal
@@ -196,19 +178,57 @@ class Renderer:
             from .accel import wide_build
 
             self.scene.wide = wide_build.from_bvharrays(self.scene.bvh)
-        if (self.scene.traversal or pt.TRAVERSAL_IMPL) == "pallas" and not self.fused:
-            self.scene.forest = pt.pallas_forest(self.scene)  # packed once, on our copy
         self.seed = int(self.config.seed) + int(seed_offset)
         self.use_bvh = self.scene.geom.num_prims > pt.BRUTE_FORCE_MAX_PRIMS
-        self.nee_candidates = int(nee_candidates)
         if max_lanes_per_call is None:
             max_lanes_per_call = int(os.environ.get("CUDA_PT_MAX_LANES_PER_CALL", "0"))
         self.max_lanes_per_call = int(max_lanes_per_call)
-        # w8 nodes, attr and prim formats by the reference's rule (make_pack)
-        self._pack = mk.make_pack(self.scene, node_fmt="w8", vpt=vpt) if self.fused else None
+        self._repack()
         self.film = film_mod.make_film(self.camera.height, self.camera.width, self.device)
         self._frame_times = deque(maxlen=32)
         self._swizzles = {}  # (width, rows) -> Z-order (perm, inv) on the device
+
+    # -- the route ----------------------------------------------------------
+    def _fused_route(self, scene: T.Scene) -> bool:
+        """Whether scene, self.md, self.rtype and self.nee_candidates take
+        the kernel routes under the requested traversal; ValueError where
+        the request cannot be met (an explicit "fused" outside the envelope
+        or off MEGAKERNEL_PT / VOLUME_PT, media off VOLUME_PT)."""
+        traversal, vpt = self._traversal, self.rtype == RendererType.VOLUME_PT
+        if vpt and self.nee_candidates != 1 and traversal == "fused":
+            raise ValueError("the fused volume path tracer takes nee_candidates=1, as in the "
+                             "reference")
+        if traversal == "fused" and self.rtype not in _BANDABLE:
+            raise ValueError("traversal='fused' requires the megakernel PT or volume PT "
+                             f"renderer, got {self.rtype}")
+        # the volume path tracer with nee_candidates > 1 takes the composed
+        # route, which ignores it (the reference's auto-pick, api.py:106-110)
+        fused_ok = (self.rtype in _BANDABLE and (not vpt or self.nee_candidates == 1)
+                    and mk.megakernel_ok(scene, self.md, renderer="vpt" if vpt else "pt"))
+        fused = traversal == "fused" or (traversal is None and fused_ok)
+        if (fused and not fused_ok) or (not vpt and mk.scene_has_media(scene)):
+            raise ValueError(_envelope_message(scene, self.md, vpt))
+        return fused
+
+    def _repack(self):
+        """The route's device tables from the current scene: K1's forest on
+        the composed "pallas" route (packed once, on our copy), the kernel
+        routes' pack (w8 nodes, attr and prim formats by the reference's
+        rule, make_pack)."""
+        if (self.scene.traversal or pt.TRAVERSAL_IMPL) == "pallas" and not self.fused \
+                and self.scene.forest is None:
+            self.scene = dataclasses.replace(self.scene, forest=pt.pallas_forest(self.scene))
+        vpt = self.rtype == RendererType.VOLUME_PT
+        self._pack = mk.make_pack(self.scene, node_fmt="w8", vpt=vpt) if self.fused else None
+
+    def _reroute(self):
+        """Re-decide the route and rebuild its tables from the current
+        scene, md, family and sampler (the rule of __init__): after an edit
+        of any of them (the viewer's hot reload), so the next pass sees the
+        edit on the kernel routes too. Swaps references only: a pass in
+        flight keeps the tables it started with."""
+        self.fused = self._fused_route(self.scene)
+        self._repack()
 
     # -- one pass ---------------------------------------------------------
     def _swizzle(self, width: int, rows: int):
@@ -350,7 +370,8 @@ class Renderer:
 
     def avg_frame_time(self) -> float:
         """Mean wall ms of the last passes (kernel + host, synchronized)."""
-        return float(np.mean(self._frame_times)) if self._frame_times else 0.0
+        times = list(self._frame_times)
+        return float(np.mean(times)) if times else 0.0
 
     def info(self) -> dict:
         return {

@@ -123,3 +123,33 @@ def splat_pixel(cam: Camera, p: torch.Tensor):
     py = 0.5 * cam.height - y
     valid = (z > 1e-5) & (px >= 0.0) & (px < cam.width) & (py >= 0.0) & (py < cam.height)
     return px, py, valid
+
+
+def _matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B of two (3, 3) matrices as an explicit sum: full f32 on every
+    device, whatever the process's TF32 setting."""
+    return (A[:, :, None] * B[None, :, :]).sum(dim=1)
+
+
+def move(cam: Camera, delta_local) -> Camera:
+    """Translate in the camera frame (x right, y up, z forward): the
+    viewer's WASD. A new Camera on the camera's device."""
+    delta = torch.as_tensor(delta_local, dtype=torch.float32, device=cam.t.device)
+    return dataclasses.replace(cam, t=cam.t + _rotate(delta, cam.R))
+
+
+def rotate(cam: Camera, yaw: float, pitch: float) -> Camera:
+    """Yaw about world up, then pitch about the camera's right axis
+    (Rodrigues): the viewer's mouse drag. A new Camera on the camera's
+    device, in float32."""
+    dev = cam.R.device
+    y, p = (torch.tensor(float(a), dtype=torch.float32, device=dev) for a in (yaw, pitch))
+    cy, sy, cp, sp = torch.cos(y), torch.sin(y), torch.cos(p), torch.sin(p)
+    zero, one = torch.zeros((), device=dev), torch.ones((), device=dev)
+    Ry = torch.stack([torch.stack([cy, zero, sy]), torch.stack([zero, one, zero]),
+                      torch.stack([-sy, zero, cy])])
+    r = cam.R[:, 0]
+    K = torch.stack([torch.stack([zero, -r[2], r[1]]), torch.stack([r[2], zero, -r[0]]),
+                     torch.stack([-r[1], r[0], zero])])
+    Rp = torch.eye(3, device=dev) + sp * K + (1.0 - cp) * _matmul3(K, K)
+    return dataclasses.replace(cam, R=_matmul3(_matmul3(Rp, Ry), cam.R))

@@ -26,7 +26,7 @@ class MaxDepthParams:
     max_specular: int = 8
     max_transmit: int = 12
     max_volume: int = 8
-    # Time-of-flight gating window; <= 0 disables it (ToF waits in the port).
+    # Time-of-flight gating window; <= 0 disables it.
     min_time: float = 0.0
     max_time: float = 0.0
 

@@ -10,8 +10,19 @@ MASTER_ADDR and MASTER_PORT):
       --xml scene.xml --spp 64 --sp 2 --out render.png
 
 Renders on CUDA (NCCL, one device per rank) unless ``--device cpu`` is
-passed (gloo); without a GPU the default raises. The reference's
---tensorboard and --multihost flags are not ported yet (ROADMAP).
+passed (gloo); without a GPU the default raises.
+
+``--tensorboard DIR``: rank 0 writes the reference's scalars
+(render/mean_variance, render/ms_per_pass) and the image (render/image,
+CHW) at each report, through torch.utils.tensorboard, imported only when
+the flag is given; where the tensorboard package is absent the entry
+stops at once, naming the flag and the package.
+
+``--multihost``: one process per GPU on several hosts, as torchrun's
+multi-node launch starts them (``--nnodes N --node-rank R
+--rdzv-endpoint HOST:PORT``): the entry requires torchrun's multi-node
+variables LOCAL_RANK, LOCAL_WORLD_SIZE and GROUP_RANK, raises naming any
+that is missing, and renders on the GPU of LOCAL_RANK.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -29,6 +41,21 @@ from .parallel import distributed as pdist
 from .scene import types as T
 from .scene.xml_parser import load_xml
 from .utils.image import save_png
+
+
+# torchrun's multi-node variables, which --multihost requires
+MULTIHOST_VARS = ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK")
+
+
+def _summary_writer():
+    """torch.utils.tensorboard.SummaryWriter, or SystemExit naming the flag
+    and the package where tensorboard is not installed."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise SystemExit(f"--tensorboard needs the tensorboard package, which is not installed "
+                         f"({e})") from None
+    return SummaryWriter
 
 
 def _device(arg: str | None) -> torch.device:
@@ -55,23 +82,35 @@ def main(argv=None) -> int:
                     help="sobol = Owen-scrambled QMC (lower equal-spp error)")
     ap.add_argument("--denoise", action="store_true",
                     help="variance-guided a-trous denoise of the final image")
+    ap.add_argument("--tensorboard", default="",
+                    help="log dir for TensorBoard image and variance curves (rank 0)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="torchrun multi-node launch: needs LOCAL_RANK, LOCAL_WORLD_SIZE, "
+                         "GROUP_RANK")
     ap.add_argument("--device", default=None, help="cpu: render on the CPU (default: CUDA)")
     args = ap.parse_args(argv)
 
+    writer_cls = _summary_writer() if args.tensorboard else None
+    if args.multihost:
+        missing = [k for k in MULTIHOST_VARS if k not in os.environ]
+        if missing:
+            raise RuntimeError(f"--multihost needs torchrun's multi-node variables; missing "
+                               f"{', '.join(missing)} (launch with torchrun --nnodes ...)")
     dev = _device(args.device)
     own_group = not dist.is_initialized()
     if own_group:
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
     try:
-        _render(args, dev)
+        _render(args, dev, writer_cls)
     finally:
         if own_group:
             dist.destroy_process_group()
     return 0
 
 
-def _render(args, dev: torch.device) -> None:
+def _render(args, dev: torch.device, writer_cls=None) -> None:
     rank0 = dist.get_rank() == 0
+    tb = writer_cls(args.tensorboard) if (writer_cls is not None and rank0) else None
     res = (args.width, args.height) if args.width and args.height else None
     ps = load_xml(args.xml, override_res=res)
     scene = T.to_device(ps.scene, dev)
@@ -91,11 +130,18 @@ def _render(args, dev: torch.device) -> None:
         film = film_mod.accumulate(film, img)
         if rank0 and ((i + 1) % args.report_interval == 0 or i == passes - 1):
             dt = time.perf_counter() - t0
+            var = float(film_mod.variance(film).mean())
             print(json.dumps({"pass": i + 1, "elapsed_s": round(dt, 2),
                               "ms_per_pass": round(dt / (i + 1) * 1e3, 1),
-                              "mean_variance": float(film_mod.variance(film).mean())}),
-                  flush=True)
-            save_png(args.out, film_mod.export_numpy(film, ps.config.gamma))
+                              "mean_variance": var}), flush=True)
+            img8 = film_mod.export_numpy(film, ps.config.gamma)
+            save_png(args.out, img8)
+            if tb is not None:
+                tb.add_scalar("render/mean_variance", var, i + 1)
+                tb.add_scalar("render/ms_per_pass", dt / (i + 1) * 1e3, i + 1)
+                tb.add_image("render/image", np.transpose(img8, (2, 0, 1)), i + 1)
+    if tb is not None:
+        tb.close()
     if args.denoise:
         from .models import debug_renderers
         from .models import denoise as dn

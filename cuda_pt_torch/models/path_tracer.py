@@ -23,7 +23,9 @@ reference: "xla" the skip walk of accel/traverse.py, "pallas" kernel K1
 version on CPU ones) over the scene's forest, or over the scene's BVH as
 one chunk (on the CPU only where scene_fits_vmem holds, else the skip
 walk, as the reference routes it), "wide" the
-8-wide walk of accel/wide_traverse.py over ``scene.wide``.
+8-wide walk of accel/wide_traverse.py over ``scene.wide``, "mxu" the
+matmul-form brute force of ops/intersect_mxu.py (at any prim count, as
+the reference takes it; differentiable in the vertices).
 
 ``fused=True`` computes the estimator of the fused TPU kernel instead,
 which has the same expectation and differs per lane in two places (the
@@ -92,7 +94,7 @@ from ..scene import types as T
 BRUTE_FORCE_MAX_PRIMS = 64
 # The walk backend where scene.traversal is "" (module docstring).
 TRAVERSAL_IMPL = "xla"
-TRAVERSALS = ("xla", "pallas", "wide")
+TRAVERSALS = ("xla", "pallas", "wide", "mxu")
 # Golden-ratio conjugate in u32 fixed point: round((sqrt(5) - 1) / 2 * 2^32).
 _WL_PHI_U32 = 0x9E3779B9
 
@@ -193,8 +195,10 @@ def _walks(scene: T.Scene, use_bvh: bool | None = None):
     closest_hit(..., use_bvh) does."""
     impl = scene.traversal or TRAVERSAL_IMPL
     if impl == "mxu":  # the reference takes it at any prim count
-        raise NotImplementedError("the matmul brute force (traversal 'mxu') waits for ROADMAP "
-                                  "Queue 1 item 13")
+        from ..ops import intersect_mxu as mxu
+
+        return (lambda o, d: mxu.closest_hit_mxu(scene.geom, o, d),
+                lambda o, d, t: mxu.occlusion_mxu(scene.geom, o, d, t))
     if not (_use_bvh(scene) if use_bvh is None else use_bvh):
         return None
     ml = scene.bvh.max_leaf  # the tree's leaf capacity, as the reference passes it
@@ -299,11 +303,18 @@ def survival(bounce: int, thp: torch.Tensor, fixed_rr: bool):
 
 def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
                 nee_candidates: int = 1, fused: bool = False, seg: bool = False,
-                use_bvh: bool | None = None, fixed_rr: bool = False) -> PTState:
+                use_bvh: bool | None = None, fixed_rr: bool = False, guide=None) -> PTState:
     """Emitter MIS, NEE, BSDF scatter and RR of every lane at its hit.
     fused / seg: the fused kernel's estimator (module docstring); use_bvh:
     the shadow walk's pick (_walks); fixed_rr: the differentiable renders'
-    roulette schedule (survival)."""
+    roulette schedule (survival). guide: a path-guiding guide
+    (models/guiding.make_guide): the scatter becomes a one-sample-MIS
+    mixture of BSDF sampling and the guide's vMF lobe on Lambertian and
+    GGX-conductor lanes (the purely smooth families, whose mixture density
+    is exact), and the mixture pdf replaces the BSDF pdf in NEE's MIS
+    weight too, so the estimator stays unbiased. The lobe is computed
+    before NEE; its draws (one next1d, one next2d) follow sample_bsdf's.
+    guide=None draws and computes exactly what it did without it."""
     B = s.o.shape[0]
     t = hit["t"]
     hit_ok = hit["hit"] & s.active
@@ -356,10 +367,26 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
         tex_here = 1.0
     wo = -s.d
 
+    # ---- path-guiding lobe, before NEE: NEE's MIS weight must use the
+    # scatter step's density (the mixture), or the two strategies' weights
+    # no longer sum to 1 toward the light -------------------------------------
+    if guide is not None:
+        from . import guiding
+
+        g_axis, g_kappa, g_sel = guiding.guide_lobe(guide, p, ctx["n"])
+        guidable = (ctx["btype"] == T.BSDF_LAMBERTIAN) | (ctx["btype"] == T.BSDF_GGX_CONDUCTOR)
+        g_sel = torch.where(guidable, g_sel, 0.0)
+
+    def eval_candidate(wi):
+        f_k, bp_k = bsdf_eval.eval_bsdf(ctx, wo, wi)
+        if guide is not None:
+            bp_k = (1.0 - g_sel) * bp_k + g_sel * guiding.vmf_pdf(g_axis, g_kappa, wi)
+        return f_k, bp_k
+
     # ---- NEE -------------------------------------------------------------
     if nee_candidates <= 1:
         es, rng = emitters.sample_emitter(scene, p, ctx["n"], s.rng)
-        f_cos, bpdf = bsdf_eval.eval_bsdf(ctx, wo, es["dir"])
+        f_cos, bpdf = eval_candidate(es["dir"])
         inv_density = 1.0 / torch.clamp(es["pdf"], min=1e-12)
     else:
         # RIS: weighted reservoir over M candidates with target
@@ -369,7 +396,7 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
         res = None
         for _ in range(nee_candidates):
             es_k, rng = emitters.sample_emitter(scene, p, ctx["n"], rng)
-            f_k, bp_k = bsdf_eval.eval_bsdf(ctx, wo, es_k["dir"])
+            f_k, bp_k = eval_candidate(es_k["dir"])
             phat_k = vm.luminance(f_k * es_k["le"])
             w_k = torch.where(es_k["valid"] & (phat_k > 0.0),
                               phat_k / torch.clamp(es_k["pdf"], min=1e-12), 0.0)
@@ -406,6 +433,17 @@ def shade_stage(scene: T.Scene, md: MaxDepthParams, s: PTState, hit,
 
     # ---- BSDF sampling -----------------------------------------------------
     bs, rng = bsdf_eval.sample_bsdf(ctx, wo, rng, wl=s.wl, u_wl=s.wl_u)
+    if guide is not None:
+        u_g, rng = prng.next1d(rng)
+        u2_g, rng = prng.next2d(rng)
+        use_g = u_g < g_sel  # g_sel is 0 on lanes that are not guided
+        wi = torch.where(use_g[:, None], guiding.vmf_sample(g_axis, g_kappa, u2_g), bs["wi"])
+        f_cos_g, bpdf_g = bsdf_eval.eval_bsdf(ctx, wo, wi)
+        mix_pdf = (1.0 - g_sel) * bpdf_g + g_sel * guiding.vmf_pdf(g_axis, g_kappa, wi)
+        w_mix = f_cos_g / torch.clamp(mix_pdf, min=1e-12)[:, None]
+        can_mix = g_sel > 0.0
+        bs = {**bs, "wi": wi, "pdf": torch.where(can_mix, mix_pdf, bs["pdf"]),
+              "weight": torch.where(can_mix[:, None], w_mix, bs["weight"])}
     thp = s.thp * bs["weight"]
     thp = torch.where(torch.isfinite(thp), thp, 0.0)  # NaN guard
     off2 = torch.sign(vm.dot(sf["n_g"], bs["wi"], keepdim=True))

@@ -5,7 +5,8 @@ The lanes of a pass live in one PTState (structure of arrays); each bounce
 finds every live lane's closest hit (path_tracer.intersect_stage, which
 takes the scene's walk backend: kernel K1 under traversal "pallas"), sorts
 the lanes by (dead last, material type, Morton code of the hit point), and
-shades them in that order (path_tracer.shade_stage). ``compact=True`` first
+shades them in that order (path_tracer.shade_stage, with a path-guiding
+``guide`` where one is given: models/guiding.py). ``compact=True`` first
 moves the live lanes to the front and runs the bounce only on the smallest
 power-of-two prefix that holds them (128 lanes at least), so dead lanes
 stop costing work. Radiance goes back to the pixels at the end by
@@ -63,14 +64,14 @@ def _sort_key(scene: T.Scene, s: pt.PTState, hit: dict, spatial: bool = True) ->
 
 
 def _bounce(scene: T.Scene, md: MaxDepthParams, s: pt.PTState, pix: torch.Tensor,
-            sort_rays: bool, nee_candidates: int):
+            sort_rays: bool, nee_candidates: int, guide=None):
     hit = pt.intersect_stage(scene, s)
     if sort_rays:
         perm = torch.argsort(_sort_key(scene, s, hit), stable=True)
         s = permute_lanes(s, perm)
         hit = {k: v[perm] for k, v in hit.items()}
         pix = pix[perm]
-    return pt.shade_stage(scene, md, s, hit, nee_candidates), pix
+    return pt.shade_stage(scene, md, s, hit, nee_candidates, guide=guide), pix
 
 
 def compact_sizes(B: int, compact_levels: int = 7) -> list:
@@ -102,11 +103,12 @@ def compacted_bounce(s, pix: torch.Tensor, sizes: list, bounce):
 
 def trace_paths_wavefront(scene: T.Scene, md: MaxDepthParams, o: torch.Tensor,
                           d: torch.Tensor, rng: torch.Tensor, sort_rays: bool = True,
-                          compact: bool = False, compact_levels: int = 7, wl_u=None,
-                          nee_candidates: int = 1):
+                          compact: bool = False, compact_levels: int = 7, guide=None,
+                          wl_u=None, nee_candidates: int = 1):
     """The bounce loop with a sort per bounce -> (L, pix): L[i] belongs to
     the original lane pix[i]. compact: the live-prefix ladder of
-    compact_sizes (module docstring)."""
+    compact_sizes (module docstring). guide: path guiding
+    (models/guiding.py, path_tracer.shade_stage)."""
     pt.check_supported(scene)
     B = o.shape[0]
     s = pt.init_state(o, d, rng, wl_u)
@@ -114,7 +116,7 @@ def trace_paths_wavefront(scene: T.Scene, md: MaxDepthParams, o: torch.Tensor,
     sizes = compact_sizes(B, compact_levels)
 
     def bounce(st, px):
-        return _bounce(scene, md, st, px, sort_rays, nee_candidates)
+        return _bounce(scene, md, st, px, sort_rays, nee_candidates, guide)
 
     while s.bounce < md.max_depth and bool(s.active.any()):
         s, pix = compacted_bounce(s, pix, sizes, bounce) if compact else bounce(s, pix)
@@ -122,14 +124,14 @@ def trace_paths_wavefront(scene: T.Scene, md: MaxDepthParams, o: torch.Tensor,
 
 
 def render_sample(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed, sample_idx,
-                  sort_rays: bool = True, compact: bool = False, sampler: str = "pcg",
-                  nee_candidates: int = 1) -> torch.Tensor:
-    """One 1-spp wavefront pass -> (H, W, 3)."""
+                  sort_rays: bool = True, compact: bool = False, guide=None,
+                  sampler: str = "pcg", nee_candidates: int = 1) -> torch.Tensor:
+    """One 1-spp wavefront pass -> (H, W, 3); guide: path guiding."""
     B = cam.width * cam.height
     lane = torch.arange(B, device=scene.device)
     rng = qmc.make_state(sampler, seed, lane, sample_idx)
     o, d, rng = cam_mod.generate_rays(cam, lane, rng)
-    L, pix = trace_paths_wavefront(scene, md, o, d, rng, sort_rays, compact,
+    L, pix = trace_paths_wavefront(scene, md, o, d, rng, sort_rays, compact, guide=guide,
                                    wl_u=pt.wl_stratum_u(seed, sample_idx, lane),
                                    nee_candidates=nee_candidates)
     img = torch.zeros((B, 3), device=scene.device).index_add_(0, pix, L)
@@ -137,11 +139,12 @@ def render_sample(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, seed,
 
 
 def render(scene: T.Scene, cam: cam_mod.Camera, md: MaxDepthParams, spp: int, seed: int = 0,
-           sort_rays: bool = True, compact: bool = False, sampler: str = "pcg",
+           sort_rays: bool = True, compact: bool = False, guide=None, sampler: str = "pcg",
            nee_candidates: int = 1) -> torch.Tensor:
-    """Multi-spp wavefront render -> (H, W, 3) mean."""
+    """Multi-spp wavefront render -> (H, W, 3) mean; guide: path guiding
+    (models/guiding.train_guide or make_guide), on the scene's device."""
     acc = torch.zeros((cam.height, cam.width, 3), device=scene.device)
     for i in range(spp):
-        acc = acc + render_sample(scene, cam, md, seed, i, sort_rays, compact, sampler,
-                                  nee_candidates)
+        acc = acc + render_sample(scene, cam, md, seed, i, sort_rays, compact, guide=guide,
+                                  sampler=sampler, nee_candidates=nee_candidates)
     return acc / spp

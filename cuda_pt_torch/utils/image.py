@@ -132,10 +132,15 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarra
 
 
 def _load_png(path: str) -> np.ndarray:
-    """A PNG's samples as PIL's np.asarray(Image.open(path)) gives them:
-    (H, W) or (H, W, C), uint8, or uint16 for 16-bit gray."""
+    """A PNG file's samples (decode_png)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """A PNG's samples as PIL's np.asarray(Image.open(...)) gives them:
+    (H, W) or (H, W, C), uint8, or uint16 for 16-bit gray. path names the
+    source in errors."""
     if not data.startswith(_PNG_SIG):
         raise ValueError(f"{path}: not a PNG file")
     pos, ihdr, idat = len(_PNG_SIG), None, []
@@ -220,9 +225,10 @@ def load_image(path: str, to_linear: bool = True) -> np.ndarray:
     return np.ascontiguousarray(arr, dtype=np.float32)
 
 
-def save_png(path: str, img: np.ndarray):
-    """Write an (H, W, 3) RGB or (H, W, 4) RGBA image as an 8-bit PNG:
-    uint8 as it is, floats in [0, 1] rounded as the reference rounds them."""
+def encode_png(img: np.ndarray) -> bytes:
+    """An (H, W, 3) RGB or (H, W, 4) RGBA image as the bytes of an 8-bit
+    PNG file (no filter, zlib level 6): uint8 as it is, floats in [0, 1]
+    rounded as the reference rounds them."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
@@ -230,14 +236,20 @@ def save_png(path: str, img: np.ndarray):
     if img.ndim != 3 or img.shape[2] not in (3, 4):
         raise ValueError(f"expected (H, W, 3) or (H, W, 4), got {img.shape}")
     h, w, c = img.shape
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    # each scanline is its filter byte (0, none) and its samples
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1).tobytes()
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
+    return b"".join([_PNG_SIG,
+                     chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)),
+                     chunk(b"IDAT", zlib.compress(raw, 6)), chunk(b"IEND", b"")])
+
+
+def save_png(path: str, img: np.ndarray):
+    """Write an image as an 8-bit PNG (encode_png)."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_PNG_SIG)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(data)

@@ -51,16 +51,18 @@ def test_positional_call_in_the_reference_order():
 @pytest.mark.parametrize("kw, item", [({"override_res": (8, 8)}, "item 6"),
                                       ({"traversal": "mxu"}, "item 13")])
 def test_unported_options_raise_naming_their_item(kw, item):
-    """An option still to port raises naming its ROADMAP item; item 6's
-    override_res is ported (the XML parser applies it) and, as in the
-    reference, a ParsedScene source ignores it."""
+    """The options that once raised naming their ROADMAP item are ported:
+    item 6's override_res (the XML parser applies it; as in the reference,
+    a ParsedScene source ignores it) and item 13's traversal="mxu" (the
+    composed route on the matmul brute force, ops/intersect_mxu.py)."""
     scene, cam, _ = t_ts.cornell_box(4, 4)
+    r = Renderer(_parsed(scene, cam), device="cpu", **kw)
     if item == "item 6":
-        r = Renderer(_parsed(scene, cam), device="cpu", **kw)
         assert (r.camera.width, r.camera.height) == (4, 4)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        Renderer(_parsed(scene, cam), device="cpu", **kw)
+    assert (r.info()["traversal"], r.info()["driver"], r._pack) == ("mxu", "composed", None)
+    img = r.render(1)
+    assert img.shape == (4, 4, 3) and np.isfinite(img).all() and img.mean() > 0.0
 
 
 def test_unknown_sampler_raises_at_construction():

@@ -3,6 +3,7 @@ field-path dicts that cuda_pt_torch/scene/bridge.py reads, and check the
 round trip. The other port test files import the helpers from here."""
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -17,6 +18,16 @@ from cuda_pt_tpu.scene import testscenes as j_ts
 # oversubscribing the cores. Every worker imports this module when it
 # collects the port's tests, so the setting holds for all of them.
 torch.set_num_threads(1)
+
+def concurrently(**thunks) -> dict:
+    """Each thunk in a thread of its own, all at once: the JAX references a
+    module's tests share, traced and compiled side by side (XLA compiles
+    outside Python's lock, so two interpret-mode references take about
+    three quarters of their time in turn). Returns {name: result}."""
+    with ThreadPoolExecutor(len(thunks)) as ex:
+        futures = {k: ex.submit(f) for k, f in thunks.items()}
+        return {k: f.result() for k, f in futures.items()}
+
 
 def numpy_bvh_builds(mp) -> None:
     """Send both packages' SAH builds down their NumPy paths (mp: a

@@ -1,6 +1,6 @@
 """Codestyle gate for the port, and the rule that the port imports no JAX:
-neither cuda_pt_torch/, its tools/ nor chip_smoke.py may import jax, flax
-or cuda_pt_tpu (only the tests import both packages)."""
+neither cuda_pt_torch/, its tools/ nor chip_smoke.py may import jax, flax,
+optax or cuda_pt_tpu (only the tests import both packages)."""
 
 import ast
 import glob
@@ -10,7 +10,7 @@ import os
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "cuda_pt_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cuda_pt_tpu"}
 
 
 def _port_files():

@@ -50,30 +50,50 @@ def _free_port() -> int:
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """The two ranks' results (dicts of arrays), from one spawn."""
+def spawned(tmp_path_factory):
+    """The two ranks started (one spawn): (processes, their logs, the output
+    directory); stopped at the module's end if they still run."""
     out = str(tmp_path_factory.mktemp("dist"))
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE))
     # each rank's output to a file: a full pipe would stall a rank inside a collective
     logs = [os.path.join(out, f"rank{r}.log") for r in range(2)]
     procs = []
-    for r, path in enumerate(logs):
-        with open(path, "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.join(HERE, "torch_dist_worker.py"), str(r), "2",
-                 str(port), out], env=env, stdout=f, stderr=subprocess.STDOUT))
     try:
-        for p in procs:
-            p.wait(timeout=300)
+        for r, path in enumerate(logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(HERE, "torch_dist_worker.py"), str(r), "2",
+                     str(port), out], env=env, stdout=f, stderr=subprocess.STDOUT))
+        yield procs, logs, out
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
+                p.wait()
+
+
+@pytest.fixture(scope="module")
+def ranks(spawned, single, jax_mesh):
+    """The two ranks' results (dicts of arrays). It asks for the module's
+    single-process and JAX references first, so that they are computed here
+    while the ranks run."""
+    procs, logs, out = spawned
+    for p in procs:
+        p.wait(timeout=300)
     for p, path in zip(procs, logs):
         with open(path) as f:
             assert p.returncode == 0, f.read()[-3000:]
     return [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(2)]
+
+
+@pytest.fixture(scope="module")
+def jax_mesh():
+    """The reference's render_distributed on its 8-device mesh (1 x 8: 195
+    lanes padded to 200), the ranks' streams."""
+    sj, cj, _ = j_ts.cornell_box(width=wk.W, height=wk.H)
+    return np.asarray(j_dist.render_distributed(sj, cj, JMD(max_depth=wk.MD.max_depth), wk.SPP,
+                                                j_dist.make_mesh(sp=1), seed=wk.SEED))
 
 
 @pytest.fixture(scope="module")
@@ -103,12 +123,10 @@ def test_dp_and_sp_match_single_process(ranks, single, renderer):
     np.testing.assert_array_equal(ranks[0][f"{renderer}_sp2"], ranks[1][f"{renderer}_sp2"])
 
 
-def test_dp_matches_jax_mesh(ranks):
-    """The reference's render_distributed on its 8-device mesh (1 x 8: 195
-    lanes padded to 200) against the port's two dp bands."""
-    sj, cj, _ = j_ts.cornell_box(width=wk.W, height=wk.H)
-    want = np.asarray(j_dist.render_distributed(sj, cj, JMD(max_depth=wk.MD.max_depth), wk.SPP,
-                                                j_dist.make_mesh(sp=1), seed=wk.SEED))
+def test_dp_matches_jax_mesh(ranks, jax_mesh):
+    """The reference's render_distributed on its 8-device mesh (jax_mesh)
+    against the port's two dp bands."""
+    want = jax_mesh
     got = ranks[0]["pt_sp1"]
     close = np.isclose(got, want, rtol=1e-4, atol=1e-5).all(axis=-1)
     assert close.mean() >= 0.95, close.mean()

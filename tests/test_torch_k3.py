@@ -23,7 +23,7 @@ from cuda_pt_tpu.ops.pallas import megakernel as j_mk
 from cuda_pt_tpu.scene import testscenes as j_ts
 from cuda_pt_tpu.scene import types as JT
 from cuda_pt_tpu.scene.builder import BSDFSpec, EmitterSpec, SceneBuilder
-from test_torch_bridge import flatten_jax_scene
+from test_torch_bridge import concurrently, flatten_jax_scene
 
 RTOL, ATOL, MIN_LANES, MEAN_REL = 1e-4, 1e-5, 0.95, 1e-3
 
@@ -53,13 +53,30 @@ def four_families(width=8, height=8):
     return scene, cam
 
 
-def _hold(sj, cj, md_j, md_t, seed):
+def _jax_ref(sj, cj, depth, seed):
+    """JAX's kernel (interpret mode) on the scene's camera rays: (scene,
+    o, d, rng, pack, L)."""
     W, H = int(cj.width), int(cj.height)
     lane = jnp.arange(W * H, dtype=jnp.int32)
     rng = j_qmc.make_state("pcg", seed, lane, 1)
     o, d, rng = j_cam.generate_rays(cj, lane, rng)
     pack_j = j_mk.make_pack(sj, node_fmt="w8")
-    Lj = np.asarray(j_mk.trace_megakernel(pack_j, md_j, o, d, rng, interpret=True))
+    Lj = np.asarray(j_mk.trace_megakernel(pack_j, JMD(max_depth=depth), o, d, rng,
+                                          interpret=True))
+    return sj, o, d, rng, pack_j, Lj
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The file's two interpret calls, run at once (concurrently): kitchen
+    at max_depth 3, seed 5; the four families at max_depth 4, seed 9."""
+    return concurrently(
+        kitchen=lambda: _jax_ref(*j_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)[:2], 3, 5),
+        four=lambda: _jax_ref(*four_families(), 4, 9))
+
+
+def _hold(ref, md_t):
+    sj, o, d, rng, pack_j, Lj = ref
     st = bridge.scene_from_numpy(flatten_jax_scene(sj))
     pack_t = t_mk.make_pack(st, node_fmt="w8")
     Lt = t_mk.trace_megakernel(pack_t, md_t, torch.tensor(np.asarray(o)),
@@ -72,24 +89,23 @@ def _hold(sj, cj, md_j, md_t, seed):
     return pack_j, pack_t
 
 
-def test_kernel_estimator_kitchen_matches_jax_interpret():
+def test_kernel_estimator_kitchen_matches_jax_interpret(jax_refs):
     """kitchen_stress 8x8 (grid 2, 198 triangles) at max_depth 3: envmap
     misses, deferred diffuse texels and the locked dispersion wavelength."""
-    sj, cj, _ = j_ts.kitchen_stress(8, 8, grid=2, ns=6, nt=4)
-    pack_j, pack_t = _hold(sj, cj, JMD(max_depth=3), TMD(max_depth=3), seed=5)
+    pack_j, pack_t = _hold(jax_refs["kitchen"], TMD(max_depth=3))
     assert pack_j.has_env and pack_j.textured and pack_j.has_disp
     assert pack_t.flags == {"has_env": True, "textured": True, "has_disp": True}
 
 
-def test_kernel_estimator_four_families_matches_jax_interpret():
+def test_kernel_estimator_four_families_matches_jax_interpret(jax_refs):
     """Specular, rough GGX dielectric, Oren-Nayar and Forward under an
     area-spot light, max_depth 4."""
-    sj, cj = four_families()
+    sj = jax_refs["four"][0]
     present = set(sj.present_bsdfs)
     assert {JT.BSDF_SPECULAR, JT.BSDF_GGX_DIELECTRIC, JT.BSDF_OREN_NAYAR,
             JT.BSDF_FORWARD} <= present
     assert JT.EMITTER_AREA_SPOT in set(np.asarray(sj.emitters.etype).tolist())
-    _hold(sj, cj, JMD(max_depth=4), TMD(max_depth=4), seed=9)
+    _hold(jax_refs["four"], TMD(max_depth=4))
 
 
 @pytest.fixture(scope="module")

@@ -150,9 +150,17 @@ def host_lib(tmp_path_factory):
     out = d / "libmegakernel_host.so"
     host_units = [str(d / (os.path.basename(u)[:-3] + "_host.cpp")) for u in cb.units()
                   if os.path.basename(u) not in CARD_ONLY]
-    res = subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                          f"-I{d}", *defines, *host_units, "-o", str(out)],
-                         capture_output=True, text=True)
+    # one g++ per unit, all started together, then the link
+    flags = ["-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", f"-I{d}", *defines]
+    objs = [u[:-4] + ".o" for u in host_units]
+    procs = [subprocess.Popen([gxx, *flags, "-c", u, "-o", o], stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for u, o in zip(host_units, objs)]
+    for u, p in zip(host_units, procs):
+        err = p.communicate()[1]
+        assert p.returncode == 0, f"{u}: {err[-4000:]}"
+    res = subprocess.run([gxx, "-shared", "-fPIC", *objs, "-o", str(out)], capture_output=True,
+                         text=True)
     assert res.returncode == 0, res.stderr[-4000:]
     lib = ctypes.CDLL(str(out))  # the entry points of the host-runnable units
     for name, argtypes in cb._SIGNATURES.items():

@@ -8,6 +8,7 @@ SBVH scene arrays, the bf16 wide collapse and the OBJ parsers."""
 import dataclasses
 import os
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -66,9 +67,13 @@ def _equal(a: dict, b: dict):
 
 
 def test_native_libraries_build_under_the_build_dir():
+    srcs = [(t_native._SRC, ()), (t_native._SRC_SBVH, ("-pthread",)), (t_nobj._SRC, ())]
+    with ThreadPoolExecutor(len(srcs)) as ex:  # the three g++ at once
+        built = list(ex.map(lambda a: host_build.build(*a), srcs))
     assert t_native.available() and t_native.sbvh_available() and t_nobj.available()
-    for src in (t_native._SRC, t_native._SRC_SBVH, t_nobj._SRC):
-        path = host_build.library_path(src, ("-pthread",) if src == t_native._SRC_SBVH else ())
+    for (src, extra), b in zip(srcs, built):
+        path = host_build.library_path(src, extra)
+        assert path == b
         assert os.path.exists(path) and os.path.dirname(path) == host_build.HOST_DIR
         assert host_build.HOST_DIR.endswith(os.path.join("build", "cuda_pt_torch", "host"))
     # the name hashes the source and the flags

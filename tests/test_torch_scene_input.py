@@ -482,10 +482,10 @@ def test_probe_rays_equal_reference():
 
 
 def test_autotune_cornell(monkeypatch):
-    """The candidates are the reference's ("mxu" disqualified naming its
-    ROADMAP item), the result is cached per scene key, the Renderer's
-    "auto" pins the pick, and each pinned composed walk renders the same
-    image."""
+    """The candidates are the reference's, each timed ("mxu", the matmul
+    brute force, too: ported), the result is cached per scene key, the
+    Renderer's "auto" pins the pick, and each pinned composed walk renders
+    the same image."""
     from cuda_pt_tpu.utils import timing as j_timing
 
     monkeypatch.setattr(t_auto, "_CACHE", {})
@@ -497,9 +497,8 @@ def test_autotune_cornell(monkeypatch):
     got = t_auto.autotune_traversal(scene, cam, n_rays=256, reps=1)
     assert list(got["timings_ms"]) == list(want["timings_ms"]) == [
         "xla", "wide", "wide_bf16", "pallas", "mxu"]
-    assert got["timings_ms"]["mxu"] == float("inf") and "item 13" in got["disqualified"]["mxu"]
-    assert list(got["disqualified"]) == ["mxu"] and not got["cached"]
-    assert np.isfinite(got["timings_ms"][got["impl"]]) and got["impl"] != "mxu"
+    assert all(np.isfinite(v) for v in got["timings_ms"].values()) and not got["cached"]
+    assert got["impl"] == min(got["timings_ms"], key=got["timings_ms"].get)
     again = t_auto.autotune_traversal(scene, cam)
     assert again["cached"] and again["impl"] == got["impl"]
     parsed = t_xml.ParsedScene(scene, cam, t_xml.RenderingConfig(

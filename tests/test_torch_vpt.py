@@ -35,7 +35,8 @@ from cuda_pt_tpu.scene import testscenes as j_ts
 from cuda_pt_tpu.scene import types as JT
 from cuda_pt_tpu.scene.builder import BSDFSpec, EmitterSpec, MediumSpec, SceneBuilder
 from test_round4_fixes import _medium_box_scene
-from test_torch_bridge import TABLES, flatten_jax_camera, flatten_jax_scene, numpy_bvh_builds
+from test_torch_bridge import (TABLES, concurrently, flatten_jax_camera, flatten_jax_scene,
+                               numpy_bvh_builds)
 
 RTOL, ATOL, MIN_LANES, MEAN_REL = 1e-4, 1e-5, 0.95, 1e-3
 FOG = dict(sigma_a=(0.05, 0.08, 0.05), sigma_s=(0.6, 0.5, 0.4), scale=1.5)
@@ -242,16 +243,42 @@ def test_composed_vpt_matches_jax(kind):
 SEED, MD_FUSED = 3, 4
 
 
-@pytest.fixture(scope="module")
-def jax_kernel_image():
+def _jax_kernel_image():
     """JAX render_pack of the nested-media scene through the fused kernel
-    (interpret mode), 8x8, one spp: the first of the file's two interpret
-    calls."""
+    (interpret mode), 8x8, one spp."""
     sj, cj = j_nested_media(8)
     pack = j_mk.make_pack(sj, node_fmt="w8", vpt=True)
     assert pack.has_media
     img = np.asarray(j_mk.render_pack(pack, cj, JMD(max_depth=MD_FUSED), 1, SEED, interpret=True))
     return sj, cj, img
+
+
+# the two phase functions of the fused kernel that nested_media leaves out
+DUAL_HG = dict(phase_type=JT.PHASE_DUAL_HG, phase_g=(0.7, -0.4), phase_w=0.6)
+RAYLEIGH = dict(phase_type=JT.PHASE_RAYLEIGH)
+DUAL_MD = 6
+
+
+def _jax_kernel_dual_hg_rayleigh():
+    """JAX trace_megakernel (interpret mode) on the 64 lanes of nested_media
+    with a Rayleigh fog around a dual-HG medium behind null faces."""
+    sj, cj = j_nested_media(8, outer=RAYLEIGH, inner=DUAL_HG, inner_null=True)
+    perm, _ = j_mk.tile_swizzle(8, 8)
+    o, d, rng = _jax_rays(cj, SEED + 1, perm)
+    Lj = np.asarray(j_mk.trace_megakernel(j_mk.make_pack(sj, node_fmt="w8", vpt=True),
+                                          JMD(max_depth=DUAL_MD), o, d, rng, interpret=True))
+    return sj, o, d, rng, Lj
+
+
+@pytest.fixture(scope="module")
+def jax_kernels():
+    """The file's two interpret calls, run at once (concurrently)."""
+    return concurrently(image=_jax_kernel_image, dual=_jax_kernel_dual_hg_rayleigh)
+
+
+@pytest.fixture(scope="module")
+def jax_kernel_image(jax_kernels):
+    return jax_kernels["image"]
 
 
 def test_fused_vpt_matches_jax_kernel(jax_kernel_image):
@@ -266,12 +293,7 @@ def test_fused_vpt_matches_jax_kernel(jax_kernel_image):
     _hold(Lt[np.asarray(inv)], img.reshape(-1, 3))
 
 
-# the two phase functions of the fused kernel that nested_media leaves out
-DUAL_HG = dict(phase_type=JT.PHASE_DUAL_HG, phase_g=(0.7, -0.4), phase_w=0.6)
-RAYLEIGH = dict(phase_type=JT.PHASE_RAYLEIGH)
-
-
-def test_fused_vpt_matches_jax_kernel_dual_hg_rayleigh():
+def test_fused_vpt_matches_jax_kernel_dual_hg_rayleigh(jax_kernels):
     """The same hold on nested_media with a Rayleigh fog around a dual-HG
     medium behind null faces (so light reaches both by NEE): the kernel's
     exp(log(x)/3) cube root in the Rayleigh sample (megakernel.py:2057-2059)
@@ -279,16 +301,11 @@ def test_fused_vpt_matches_jax_kernel_dual_hg_rayleigh():
     (trace_megakernel on the 64 lanes, max_depth 6). On these lanes a
     mirrored Rayleigh sample moves 16 % of them and swapped dual-HG
     weights 8 %, both past the 5 % the contract allows."""
-    sj, cj = j_nested_media(8, outer=RAYLEIGH, inner=DUAL_HG, inner_null=True)
-    perm, _ = j_mk.tile_swizzle(8, 8)
-    o, d, rng = _jax_rays(cj, SEED + 1, perm)
-    md = 6
-    Lj = np.asarray(j_mk.trace_megakernel(j_mk.make_pack(sj, node_fmt="w8", vpt=True),
-                                          JMD(max_depth=md), o, d, rng, interpret=True))
+    sj, o, d, rng, Lj = jax_kernels["dual"]
     st = bridge.scene_from_numpy(flatten_jax_scene(sj))
     assert st.media.phase_type.tolist() == [TT.PHASE_RAYLEIGH, TT.PHASE_DUAL_HG]
     pack = t_mk.make_pack(st, node_fmt="w8", vpt=True)
-    _hold(t_mk.trace_megakernel(pack, TMD(max_depth=md), *_torch(o, d, rng)).numpy(), Lj)
+    _hold(t_mk.trace_megakernel(pack, TMD(max_depth=DUAL_MD), *_torch(o, d, rng)).numpy(), Lj)
 
 
 def test_vpt_renderer_cpu_matches_jax_kernel(jax_kernel_image):

@@ -155,8 +155,9 @@ def test_renderer_routes_and_info(route):
     ("auto", NotImplementedError, "item 6"), ("mxu", NotImplementedError, "item 13"),
     ("bvh", ValueError, "unknown traversal"), ("fused_wavefront", ValueError, "megakernel PT")])
 def test_renderer_traversal_errors(traversal, err, match):
-    """Unknown and unported traversals raise; "auto" (item 6) is ported: it
-    pins a tuned walk instead (accel/autotune.py)."""
+    """Unknown traversals raise; "auto" (item 6) and "mxu" (item 13) are
+    ported: "auto" pins a tuned walk (accel/autotune.py), "mxu" renders
+    the WAVEFRONT_PT image of the brute force on the same streams."""
     scene, cam, _ = t_ts.cornell_box(4, 4)
     rtype = RendererType.MEGAKERNEL_PT
     if traversal == "fused_wavefront":
@@ -164,7 +165,13 @@ def test_renderer_traversal_errors(traversal, err, match):
     if traversal == "auto":
         r = Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), renderer=rtype,
                      device="cpu", traversal=traversal)
-        assert r.info()["traversal"] in ("xla", "wide", "pallas")
+        assert r.info()["traversal"] in ("xla", "wide", "pallas", "mxu")
+        return
+    if traversal == "mxu":
+        imgs = [Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)),
+                         renderer=RendererType.WAVEFRONT_PT, device="cpu",
+                         traversal=trav).render(1) for trav in ("mxu", "xla")]
+        assert np.abs(imgs[0] - imgs[1]).max() < 2e-2 and np.isfinite(imgs[0]).all()
         return
     with pytest.raises(err, match=match):
         Renderer(_parsed(scene, cam, MaxDepthParams(max_depth=2)), renderer=rtype,
