@@ -334,11 +334,42 @@ Phases (any failure exits non-zero):
      viewer_check, mxu_check and guide_check join the kernels line,
      timing_check the result line; the K1, K2 and K5 entries gain this
      phase's launches.
+ 22. the command-line tools (cuda_pt_torch/scripts/), each driven
+     through its main(argv) or its factored function, every output in a
+     temporary directory; (a), (h) and (j) in this process, the tools that
+     launch no kernel, (i) and the slow holds in TOOL_WORKERS card worker
+     processes and one CPU worker at once (host-bound, so each tool's time
+     is taken beside the others): (a) serial_render at 1 spp on
+     phase 19's XMLs (rewritten here): static cornell x 2 frames (K2) and
+     kitchen x 2 (K5) at TOOLS_SIZE^2, the grid x 3 frames, each a
+     ZIP-NanoVDB density (write_nvdb_zip), at SERIAL_VOLUME_SIZE^2 (cut; K6
+     and K5's shade form), a ToF sweep on cornell x 3 (the composed route,
+     no kernel); each frame's film bit-equal to a fresh Renderer's pass on
+     that frame's input (a volume frame's grid loaded straight from its
+     file), a second call over each directory rendering nothing and
+     launching nothing; (b) analyze_rays at its defaults (RAYS_ARGS) on
+     cornell and the XML kitchen, held to the same call on the CPU (a
+     worker process started at the phase's start) within 2 / res^2 per
+     bounce; (c) showcase, (d) quality_bench, (e) guiding_study (--seeds
+     GUIDING_SEEDS, cut), (f) compaction_sweep (CUDA_PT_REFERENCE_XML
+     cleared: its VPT half on cornell) and (g) sbvh_budget_sweep
+     on the XML kitchen through their entries (none launches a kernel);
+     (h) packet_divergence on cornell through main and on kitchen_stress
+     through measure (PACKET_KITCHEN^2 rays, the tool's default), K1's
+     packet form, the node fetches bit-equal to the plain packet form
+     (cornell's every tile on the card; the kitchen's per-tile counts
+     summing to measure's rows, and held_tiles' sample of its tiles in a
+     worker process); (i) profile_render --impl pallas on
+     cornell, its trace naming K1's kernel; (j) interactive_probe at 512^2
+     x 30 frames (K2), the film after its camera edit equal to a fresh
+     Renderer's first pass. tools_check joins the kernels line; the K1,
+     K2, K5 and K6 entries gain this phase's launches (tools_launches).
 The last two lines are a JSON object of kernel numbers and
 {"ok": true, "device": {...}}. ``--size`` and ``--spp`` shrink phase 5
 for quick checks and ``--kitchen-spp`` phase 6; phases 7 and 8 always run
 at VPT_SPP and GRID_SPP samples per pixel and hold BLOCK lanes.
-``--profile`` adds a torch.profiler breakdown of a few main-path passes
+``--quality-ref`` only times quality_bench's reference render batched
+against single passes. ``--profile`` adds a torch.profiler breakdown of a few main-path passes
 of each scene, of kitchen_stress and medium_cbox through the whole-path
 kernel too, and of the wavefront and light-tracer main paths. ``--parent TREE`` (a git
 archive of the parent commit unpacked under the git-ignored build/) holds
@@ -354,6 +385,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import multiprocessing
 import os
@@ -956,21 +988,28 @@ def bound(nbytes: int, nodes: int, prims: int, per_node: int = 8) -> tuple:
     return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations"
 
 
-def counted_path(mk, run, cam, label: str, want: dict) -> tuple:
-    """run() (a main path: it returns the image) with every launch count set
-    to 0 just before and read just after; fails unless the path launched
-    exactly the kernels (LAUNCHES keys, each > 0) and instantiations of
-    want ({"launches": [...], "instantiations": [...]}), and the image is
-    finite, cam.height x cam.width x 3. Returns (wall s, launches,
-    instantiation launches, image mean)."""
+def counted(mk, fn) -> tuple:
+    """fn() with every launch count set to 0 just before and read just after,
+    the card synchronized on both ends: (its result, wall s, launches (the
+    LAUNCHES keys that launched), instantiation launches)."""
     torch.cuda.synchronize()
     mk.reset_launches()
     t0 = time.perf_counter()
-    img = torch.as_tensor(run())
+    out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: v for k, v in mk.LAUNCHES.items() if v}
-    inst = dict(mk.INSTANTIATION_LAUNCHES)
+    return (out, wall, {k: v for k, v in mk.LAUNCHES.items() if v},
+            dict(mk.INSTANTIATION_LAUNCHES))
+
+
+def counted_path(mk, run, cam, label: str, want: dict) -> tuple:
+    """run() (a main path: it returns the image), counted; fails unless the
+    path launched exactly the kernels (LAUNCHES keys, each > 0) and
+    instantiations of want ({"launches": [...], "instantiations": [...]}),
+    and the image is finite, cam.height x cam.width x 3. Returns (wall s,
+    launches, instantiation launches, image mean)."""
+    img, wall, launches, inst = counted(mk, run)
+    img = torch.as_tensor(img)
     if sorted(launches) != sorted(want["launches"]) or sorted(inst) != sorted(want["instantiations"]):
         raise SystemExit(f"{label} main path launched {launches} {inst}, not {want}")
     if tuple(img.shape) != (cam.height, cam.width, 3) or not bool(torch.isfinite(img).all()):
@@ -2984,13 +3023,10 @@ def host_ms(fn) -> tuple:
 
 
 def counted_entry(mk, launches: dict, key: str, run) -> tuple:
-    """run() (an entry's main()) with every launch count set to 0 just
-    before and read just after; fails unless the entry launched its
-    kernel. Returns (its rows, the launches)."""
-    torch.cuda.synchronize()
-    mk.reset_launches()
-    rows = run()
-    torch.cuda.synchronize()
+    """run() (an entry's main()), counted; fails unless the entry launched
+    its kernel (launches[key], the entry module's count). Returns (its
+    rows, the launches)."""
+    rows = counted(mk, run)[0]
     n = launches[key]
     if n == 0:
         raise SystemExit(f"{key}: the entry launched no kernel")
@@ -4754,31 +4790,11 @@ def mxu_check(mk, tk, tts, dev, MaxDepthParams, RenderingConfig, ParsedScene, Re
     return out
 
 
-def slot_scene(tts, size: int, dev):
-    """The reference's guiding test scene (tests/test_guiding.py::
-    _slot_scene): a light seen from the floor through a narrow slot."""
-    from cuda_pt_torch.core import camera as cam_mod
-    from cuda_pt_torch.scene import types as T
-    from cuda_pt_torch.scene.builder import BSDFSpec, EmitterSpec, SceneBuilder
-
-    b = SceneBuilder()
-    white = b.add_bsdf(BSDFSpec(k_d=(0.75, 0.75, 0.75)))
-    dark = b.add_bsdf(BSDFSpec(k_d=(0, 0, 0)))
-    em = b.add_emitter(EmitterSpec(emission=(1, 1, 1), scaler=60.0))
-    q = tts.quad
-    b.add_mesh(q([-1, 0, -1], [-1, 0, 1], [1, 0, 1], [1, 0, -1]), white)
-    b.add_mesh(q([-1, 1.6, -1], [1, 1.6, -1], [1, 1.6, 1], [-1, 1.6, 1]), dark, emitter_id=em)
-    b.add_mesh(q([-1, 1.0, -1], [0.05, 1.0, -1], [0.05, 1.0, 1], [-1, 1.0, 1]), white)
-    b.add_mesh(q([0.25, 1.0, -1], [1, 1.0, -1], [1, 1.0, 1], [0.25, 1.0, 1]), white)
-    cam = cam_mod.make_camera((0, 0.7, -2.6), (0, 0.3, 0), fov=35, width=size, height=size,
-                              device=dev)
-    return T.to_device(b.compile(), dev), cam
-
-
 def guide_check(mk, tts, dev, kscene, kcam, MaxDepthParams) -> dict:
     """(c) train_guide on kitchen_stress (K1), a guided and an unguided
     wavefront render on K1, and the slot scene's variance ratio."""
     from cuda_pt_torch.models import guiding, wavefront
+    from cuda_pt_torch.scripts.scenes import slot_scene
 
     gs = pallas_scene(kscene)
     md = MaxDepthParams()
@@ -4822,7 +4838,7 @@ def guide_check(mk, tts, dev, kscene, kcam, MaxDepthParams) -> dict:
         raise SystemExit("[21] guided and unguided wavefront means disagree beyond 4 standard "
                          "errors")
     out["wavefront"] = {**renders, "mean_gap": gap, "mean_se": se}
-    scene, cam = slot_scene(tts, SLOT_SIZE, dev)
+    scene, cam = slot_scene(SLOT_SIZE, dev)
     smd = MaxDepthParams(max_depth=SLOT_DEPTH)
     sguide, sloss = guiding.train_guide(scene, cam, smd, seed=3, use_bvh=False)
     stats = {}
@@ -4892,6 +4908,542 @@ def phase_tail(mk, tk, tts, dev, kscene, kcam, MaxDepthParams, RenderingConfig,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the command-line tools (cuda_pt_torch/scripts/), each driven in
+# process through its main(argv) or its factored function, every output in a
+# temporary directory under build/
+
+TOOLS_SIZE = 1024  # the Renderer's scale in the other phases
+SERIAL_VOLUME_SIZE = 256  # cut: the volume frames' side (a 1-spp grid pass is ~5 s at 1024^2)
+SERIAL_FRAMES = {"static": 2, "volume": 3, "tof": 3}
+SERIAL_TOF = {"tof_start": 1.0, "tof_end": 7.0, "tof_width": 2.0}
+RAYS_ARGS = (128, 4, 16)  # analyze_rays' defaults: res, spp, max_depth
+GUIDING_SEEDS = 4  # cut from 10
+PACKET_KITCHEN = 64  # the kitchen rays of packet_divergence.measure: the tool's default 64^2
+PACKET_HELD_TILES = 1  # kitchen tiles per ray set, order and tile size held to the plain form
+# the tools that launch no kernel, profile_render and analyze_rays run in
+# worker processes beside the in-process ones: card workers (one intra-op
+# thread each: their time is host launches; more than four lose more to the
+# card's switching between processes than they gain) and two CPU workers
+# (the CPU run of analyze_rays, the kitchen's plain packet counts)
+TOOL_WORKERS = 4
+CPU_THREADS = 2
+
+
+def need_launches(label: str, launches: dict, want: set) -> None:
+    """SystemExit unless exactly the kernels of want (LAUNCHES keys) launched."""
+    if set(launches) != set(want):
+        raise SystemExit(f"[22] {label}: launched {launches}, expected {sorted(want) or 'none'}")
+
+
+def tool_main(mod, argv: list, label: str) -> str:
+    """mod.main(argv), its standard output captured, echoed into the log
+    (long lines cut) and returned; SystemExit unless it returns 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    text = buf.getvalue()
+    for ln in text.splitlines():
+        log(f"[22] {label} | {ln[:240]}")
+    if rc != 0:
+        raise SystemExit(f"[22] {label}: main returned {rc}")
+    return text
+
+
+def _rays_job(xml: str, device: str, threads: int) -> tuple:
+    """analyze_rays.measure at its defaults on device, in a worker process:
+    (fractions, seconds, launches)."""
+    torch.set_num_threads(threads)
+    from cuda_pt_torch.ops import megakernel as mk
+    from cuda_pt_torch.scripts import analyze_rays
+
+    fr, wall, launches, _ = counted(mk, lambda: analyze_rays.measure(xml, *RAYS_ARGS,
+                                                                      device=device))
+    return fr.tolist(), wall, launches
+
+
+def _tool_job(name: str, argv: list, cwd: str) -> tuple:
+    """cuda_pt_torch.scripts.<name>.main(argv) on the card, in a worker
+    process run in cwd (where the tool writes): (return code, standard
+    output, seconds, launches)."""
+    import importlib
+
+    torch.set_num_threads(1)
+    from cuda_pt_torch.ops import megakernel as mk
+
+    mod = importlib.import_module(f"cuda_pt_torch.scripts.{name}")
+    buf = io.StringIO()
+    with contextlib.chdir(cwd), contextlib.redirect_stdout(buf):
+        rc, wall, launches, _ = counted(mk, lambda: mod.main(argv))
+    return rc, buf.getvalue(), wall, launches
+
+
+def plain_packet_counts(forest, cases: dict) -> dict:
+    """The plain packet form's node fetches ({case: {key: count}}) of each
+    case's rays (o, d, {key: (lane order, tile)}), one call per tile: the
+    orders of a tile laid end to end, each padded to whole packets with zero
+    rays as a call of its own pads it, and each packet walked on its own, so
+    each count is the one a call of its own gives."""
+    from cuda_pt_torch.ops import traverse_kernel as tk
+
+    def padded(x, tile):
+        return torch.cat([x, x.new_zeros(((-x.shape[0]) % tile, 3))])
+
+    by_tile = {}
+    for case, (o, d, keys) in cases.items():
+        for key, (idx, tile) in keys.items():
+            by_tile.setdefault(tile, []).append((case, key, padded(o[idx], tile),
+                                                 padded(d[idx], tile)))
+    out = {case: {} for case in cases}
+    for tile, sets in by_tile.items():
+        iters = tk.traverse_forest_reference(
+            forest, torch.cat([s[2] for s in sets]), torch.cat([s[3] for s in sets]),
+            count_iters=True, tile=tile)["tile_iters"]
+        for (case, key, o, _), part in zip(sets, torch.split(iters, [s[2].shape[0] // tile
+                                                                    for s in sets])):
+            out[case][key] = int(part.sum())
+    return {case: {k: v[k] for k in cases[case][2]} for case, v in out.items()}
+
+
+def _packet_plain_job(forest, cases: dict) -> tuple:
+    """plain_packet_counts on the CPU, in a worker process: (counts,
+    seconds)."""
+    torch.set_num_threads(CPU_THREADS)
+    t0 = time.perf_counter()
+    return plain_packet_counts(forest, cases), time.perf_counter() - t0
+
+
+def tool_result(job, label: str, want: set = frozenset()) -> tuple:
+    """A _tool_job's result, its output echoed into the log; SystemExit
+    unless it returned 0 and launched exactly want. (stdout, seconds)."""
+    rc, text, wall, launches = job.result()
+    for ln in text.splitlines():
+        log(f"[22] {label} | {ln[:240]}")
+    if rc != 0:
+        raise SystemExit(f"[22] {label}: main returned {rc}")
+    need_launches(label, launches, set(want))
+    return text, wall
+
+
+def packet_orders(pd, scene, rays: dict, seed: int = 7) -> dict:
+    """{case: (o, d, {fetch key: (lane order, tile)})}: the orders
+    packet_divergence.measure draws for its cases in turn from
+    default_rng(seed), and the tile of each fetch key."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for case, (o, d) in rays.items():
+        orders = pd.lane_orders(scene, o, d, rng)
+        keys = {k: (v, pd.TILE) for k, v in orders.items()}
+        keys.update({f"morton_octant_tile{t}": (orders["morton_octant"], t) for t in (256, 128)})
+        out[case] = (o, d, keys)
+    return out
+
+
+def held_tiles(cases: dict, n: int, seed: int = 11) -> dict:
+    """A fixed sample of the packets of packet_orders' cases: n tiles of each
+    order (drawn from default_rng(seed)), each a key of its own
+    ("<key>@<tile index>": (that tile's lane order, tile)). Packets are
+    walked independently, so the plain packet form fed one tile's rays
+    gives that tile's count in the full call."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for case, (o, d, keys) in cases.items():
+        held = {}
+        for key, (idx, tile) in keys.items():
+            for j in sorted(rng.choice(-(-idx.shape[0] // tile), n, replace=False).tolist()):
+                held[f"{key}@{j}"] = (idx[j * tile:(j + 1) * tile], tile)
+        out[case] = (o, d, held)
+    return out
+
+
+def tools_xmls(T, tts, d: str) -> dict:
+    """cornell and grid_smoke's GRID_N^3 grid written as XML (phase 19's
+    writer and views), and a ZIP-codec .nvdb density per volume frame (the
+    grid shifted along x and scaled). The kitchen's XML is written first, on
+    its own (phase_tools)."""
+    t0 = time.perf_counter()
+    _, _, cb_ = tts.cornell_box(8, 8)
+    _, _, gb = tts.grid_smoke(8, 8, n=GRID_N)
+    paths = {"cornell": write_scene_xml(T, cb_, d, "cornell", XML_VIEWS["cornell"], 512),
+             "grid": write_scene_xml(T, gb, d, "grid", XML_VIEWS["grid"], 512, rtype="vpt")}
+    g = gb.grids[0]
+    for f in range(SERIAL_FRAMES["volume"]):
+        write_nvdb_zip(os.path.join(d, f"density-{f:02d}.nvdb"),
+                       np.roll(g["density"], 8 * f, axis=2) * (1.0 + 0.25 * f), g["bbox_min"],
+                       g["bbox_max"])
+    log(f"[22] XMLs (cornell, grid {GRID_N}^3) and {SERIAL_FRAMES['volume']} frame densities "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def serial_hold(xml: str, mode: str, size: int, frame: int, frames: int, out_dir: str, dev,
+                Renderer) -> dict:
+    """The frame's film bit for bit against a fresh Renderer's pass on that
+    frame's input (for a volume frame a scene whose grid is loaded straight
+    from the frame's file); counts not read."""
+    from cuda_pt_torch.media.nvdb import load_dense
+    from cuda_pt_torch.scene.xml_parser import ParsedScene, load_xml
+    from cuda_pt_torch.scripts import serial_render as sr
+
+    ps = load_xml(xml, override_res=(size, size))
+    if mode == "tof":
+        ps = sr.tof_frame(ps, SERIAL_TOF["tof_start"], SERIAL_TOF["tof_end"],
+                          SERIAL_TOF["tof_width"], frame, frames)
+    elif mode == "volume":
+        dens = load_dense(os.path.join(os.path.dirname(xml), f"density-{frame:02d}.nvdb"))[0]
+        g = ps.scene.grids
+        density, majorant, avg = g.density.clone(), g.majorant.clone(), g.avg_density.clone()
+        density[0] = torch.from_numpy(dens)
+        majorant[0] = float(dens.max())
+        avg[0] = float(dens.mean())
+        ps = ParsedScene(dataclasses.replace(ps.scene, grids=dataclasses.replace(
+            g, density=density, majorant=majorant, avg_density=avg)), ps.camera, ps.config)
+    r = Renderer(ps, seed_offset=frame * 4201, device=dev)
+    r.render(1)
+    fresh = r.film.mean.cpu().numpy()
+    film = np.load(os.path.join(out_dir, f"frame_{frame:04d}.npz"))
+    differ = int((film["mean"] != fresh).any(axis=-1).sum())
+    return {"pixels_differ": differ, "driver": r.info()["driver"], "mean": float(fresh.mean())}
+
+
+def tools_serial(mk, d: str, paths: dict, dev, Renderer) -> dict:
+    """(a) serial_render's four runs, each frame held to a fresh Renderer,
+    then the resume: a second call over each directory renders nothing."""
+    from cuda_pt_torch.scripts import serial_render as sr
+
+    runs = (("static_cornell", paths["cornell"], "static", TOOLS_SIZE, {"trace_megakernel"}, {}),
+            ("static_kitchen", paths["kitchen"], "static", TOOLS_SIZE, {"trace_megakernel_seg"},
+             {}),
+            ("volume_grid", paths["grid"], "volume", SERIAL_VOLUME_SIZE,
+             {"trace_megakernel_seg", "traverse_resolve"},
+             {"density_pattern": "density-{:02d}.nvdb"}),
+            ("tof_cornell", paths["cornell"], "tof", TOOLS_SIZE, set(), SERIAL_TOF))
+    out = {}
+    for key, xml, mode, size, want, kw in runs:
+        frames = SERIAL_FRAMES[mode]
+        out_dir = os.path.join(d, f"frames_{key}")
+
+        def run():
+            return sr.render_frames(xml, mode, frames, 1, size, size, out_dir, device=dev, **kw)
+
+        done, wall, launches, inst = counted(mk, run)
+        need_launches(f"(a) serial_render {key}", launches, want)
+        if [r["frame"] for r in done] != list(range(frames)):
+            raise SystemExit(f"[22] (a) serial_render {key}: frames {done}")
+        holds = [serial_hold(xml, mode, size, f, frames, out_dir, dev, Renderer)
+                 for f in range(frames)]
+        differ = sum(h["pixels_differ"] for h in holds)
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            again, _, relaunch, _ = counted(mk, run)
+        skipped = said.getvalue().count("exists, skipping (resume)")
+        if differ or again or relaunch or skipped != frames:
+            raise SystemExit(f"[22] (a) serial_render {key}: {differ} pixels off a fresh "
+                             f"Renderer's pass; the resume rendered {again}, launched {relaunch}, "
+                             f"skipped {skipped} frames")
+        out[key] = {"frames": frames, "size": size, "s_per_frame": wall / frames,
+                    "sec_lines": [r["sec"] for r in done], "launches": launches,
+                    "instantiations": inst, "drivers": sorted({h["driver"] for h in holds}),
+                    "means": [h["mean"] for h in holds]}
+        log(f"[22] (a) serial_render {mode} {key.split('_')[1]} {size}^2 x {frames} frames x "
+            f"1 spp: {wall / frames:.2f} s per frame (JSON sec {out[key]['sec_lines']}), "
+            f"launches {launches} {inst}, driver {out[key]['drivers']}, every frame bit-equal "
+            f"to a fresh Renderer's pass, the resume call rendered nothing and launched nothing")
+    return out
+
+
+def tools_rays(jobs: dict) -> dict:
+    """(b) analyze_rays at its defaults on cornell and the XML kitchen on the
+    card (a card worker), held to the same call on the CPU (the CPU worker)
+    within 2 / res^2 per bounce."""
+    res = RAYS_ARGS[0]
+    out = {}
+    for key in ("cornell", "kitchen"):
+        fr, wall, launches = jobs[("card", key)].result()
+        need_launches(f"(b) analyze_rays {key}", launches, set())
+        cpu, cpu_s, _ = jobs[("cpu", key)].result()
+        gap = float(np.abs(np.asarray(fr) - np.asarray(cpu)).max())
+        out[key] = {"fractions": [round(float(x), 4) for x in fr], "seconds": wall,
+                    "cpu_seconds": cpu_s, "max_gap_to_cpu": gap}
+        log(f"[22] (b) analyze_rays {key} {res}^2 x {RAYS_ARGS[1]} spp x {RAYS_ARGS[2]} bounces "
+            f"on the card: {wall:.1f} s (CPU {cpu_s:.1f} s); active fraction per bounce "
+            f"{out[key]['fractions']}; largest gap to the CPU run {gap:.6f} (bound "
+            f"{2 / res ** 2:.6f})")
+        if gap > 2 / res ** 2:
+            raise SystemExit(f"[22] (b) analyze_rays {key}: the card's fractions are {gap} off "
+                             f"the CPU's")
+    return out
+
+
+def tools_packet(mk, pd, kscene, kc, krays: dict, korders: dict, forest, d: str, dev,
+                 kitchen_job) -> dict:
+    """(h) packet_divergence on cornell through main (64^2, K1's packet
+    form, held to the plain packet form on the card) and on the kitchen
+    through measure (krays: PACKET_KITCHEN^2 rays of camera kc; korders:
+    their packet_orders). Node fetches bit for bit: cornell's every tile
+    against the plain packet form on the card; the kitchen's per-tile K1
+    counts (comparison launches, outside the counted run) summing to
+    measure's row, and held_tiles' sample of them against the plain packet
+    form in a CPU worker (kitchen_job; all its tiles are minutes there)."""
+    from cuda_pt_torch.ops import traverse_kernel as tk
+
+    path = os.path.join(d, "packet.json")
+    _, wall, launches, _ = counted(mk, lambda: tool_main(
+        pd, ["--scene", "cornell", "--json", path], "(h) packet_divergence"))
+    need_launches("(h) packet_divergence cornell", launches, {"traverse_forest"})
+    with open(path) as f:
+        rows = {r["case"].split("_", 1)[1]: r for r in json.load(f)}
+    scene, cam, cforest = pd.load_scene("cornell", 64, dev)
+    with torch.no_grad():
+        primary, secondary = pd.make_rays(scene, cam, seed=3)
+    plain = plain_packet_counts(cforest, packet_orders(pd, scene, {"primary": primary,
+                                                                  "secondary": secondary}))
+    cornell_eq = all(rows[c]["packet_node_fetches"] == plain[c] for c in plain)
+    krows, kwall, klaunches = {}, 0.0, {}
+    rng = np.random.default_rng(7)
+    for case, rays in krays.items():
+        row, w, lc, _ = counted(mk, lambda: pd.measure(f"kitchen_{case}", kscene, kc, forest,
+                                                       rays, rng))
+        krows[case], kwall = row, kwall + w
+        klaunches = {k: klaunches.get(k, 0) + v for k, v in lc.items()}
+    need_launches("(h) packet_divergence kitchen", klaunches, {"traverse_forest"})
+    kplain, kplain_s = kitchen_job.result()
+    sums, held = {}, {}
+    with torch.no_grad():
+        for case, (o, dd, keys) in korders.items():
+            for key, (idx, tile) in keys.items():
+                per_tile = tk.traverse_forest(forest, o[idx], dd[idx], count_iters=True,
+                                              tile=tile)["tile_iters"].cpu()
+                sums[f"{case} {key}"] = (int(per_tile.sum()),
+                                         krows[case]["packet_node_fetches"][key])
+                held.update({f"{case} {hk}": (int(per_tile[int(hk.split("@")[1])]), want)
+                             for hk, want in kplain[case].items() if hk.split("@")[0] == key})
+    kitchen_eq = all(a == b for a, b in (*sums.values(), *held.values()))
+    log(f"[22] (h) packet_divergence cornell 64^2 (main): {wall:.2f} s, K1 packet-form "
+        f"launches {launches.get('traverse_forest', 0)}; kitchen {PACKET_KITCHEN}^2 (measure): "
+        f"{kwall:.2f} s, {klaunches.get('traverse_forest', 0)} launches; node fetches bit-equal "
+        f"to the plain packet form: cornell {cornell_eq} (every tile), kitchen {kitchen_eq} "
+        f"(K1's per-tile counts sum to measure's rows; {len(held)} sampled tiles, "
+        f"{PACKET_HELD_TILES} per ray set, order and tile size, against the plain form: "
+        f"{kplain_s:.1f} s in a CPU worker); kitchen fetches "
+        f"{krows['primary']['packet_node_fetches']} (primary), "
+        f"{krows['secondary']['packet_node_fetches']} (secondary)")
+    if not (cornell_eq and kitchen_eq):
+        raise SystemExit(f"[22] (h) packet counts off the plain packet form: cornell {rows} "
+                         f"against {plain}; kitchen (K1, want) sums {sums}, tiles {held}")
+    return {"cornell": {"seconds": wall, "k1_launches": launches.get("traverse_forest", 0),
+                        "rows": rows},
+            "kitchen": {"seconds": kwall, "k1_launches": klaunches.get("traverse_forest", 0),
+                        "rays": PACKET_KITCHEN ** 2, "held_tiles": sorted(held),
+                        "plain_s": kplain_s,
+                        "fetches": {c: r["packet_node_fetches"] for c, r in krows.items()}},
+            "bit_equal": True}
+
+
+def tools_studies(d: str, jobs: dict) -> dict:
+    """(c)-(g): showcase, quality_bench, guiding_study, compaction_sweep and
+    sbvh_budget_sweep through their entries, each in a card worker (none
+    launches a kernel: their walks are the brute force and the skip walk)."""
+    from cuda_pt_torch.scripts import sbvh_budget_sweep
+    from cuda_pt_torch.utils.image import decode_png
+
+    out = {}
+    text, wall = tool_result(jobs["showcase"], "(c) showcase")
+    with open(os.path.join(d, "showcase.png"), "rb") as f:
+        shape = decode_png(f.read()).shape
+    lo, hi = (float(x) for x in text.split("n range [")[1].split("]")[0].split(","))
+    if shape != (160, 320, 3) or not 1 <= lo < hi:
+        raise SystemExit(f"[22] (c) showcase: PNG {shape}, n range [{lo}, {hi}]")
+    out["showcase"] = {"seconds": wall, "png_shape": list(shape), "n_range": [lo, hi]}
+    log(f"[22] (c) showcase 160^2 budget 64: {wall:.1f} s, PNG {shape}, n range [{lo:.0f}, "
+        f"{hi:.0f}]")
+
+    _, wall = tool_result(jobs["quality_bench"], "(d) quality_bench")
+    with open(os.path.join(d, "quality.json")) as f:
+        q = json.load(f)
+    if len(q["rows"]) != 21 or len(q["time_to_quality"]) != 3 or not all(
+            np.isfinite(r["mse"]) for r in q["rows"]):
+        raise SystemExit(f"[22] (d) quality_bench: {q}")
+    out["quality"] = {"seconds": wall, "rows": q["rows"], "time_to_quality": q["time_to_quality"]}
+    log(f"[22] (d) quality_bench cornell 64^2: {wall:.1f} s, 21 rows, time to quality "
+        f"{[(r['config'], r['spp_to_target'], r['seconds']) for r in q['time_to_quality']]}")
+
+    _, wall = tool_result(jobs["guiding_study"], "(e) guiding_study")
+    with open(os.path.join(d, "guiding.json")) as f:
+        g = json.load(f)
+    if len(g["rows"]) != 6 or not all(np.isfinite(r.get("mean_drift", 0.0)) for r in g["rows"]):
+        raise SystemExit(f"[22] (e) guiding_study: {g}")
+    out["guiding"] = {"seconds": wall, "best_equal_time_win": g["best_equal_time_win"],
+                      "verdict": g["verdict"], "rows": g["rows"]}
+    log(f"[22] (e) guiding_study --seeds {GUIDING_SEEDS} (cut from 10): {wall:.1f} s, best "
+        f"equal-time win {g['best_equal_time_win']:.3f}, verdict {g['verdict']!r}")
+
+    _, wall = tool_result(jobs["compaction_sweep"], "(f) compaction_sweep")
+    with open(os.path.join(d, "compaction.json")) as f:
+        out["compaction"] = {"seconds": wall, "results": json.load(f)}
+    log(f"[22] (f) compaction_sweep 128^2 x 2 spp: {wall:.1f} s, {out['compaction']['results']}")
+
+    _, wall = tool_result(jobs["sbvh_budget_sweep"], "(g) sbvh_budget_sweep")
+    with open(os.path.join(d, sbvh_budget_sweep.OUT)) as f:
+        rows = json.load(f)["kitchen.xml"]
+    refs = [r["refs"] for r in rows]
+    if len(rows) != len(sbvh_budget_sweep.BUDGETS) or refs != sorted(refs):
+        raise SystemExit(f"[22] (g) sbvh_budget_sweep: {rows}")
+    out["sbvh"] = {"seconds": wall, "rows": rows}
+    log(f"[22] (g) sbvh_budget_sweep kitchen: {wall:.1f} s, refs {refs}, ms "
+        f"{[r['ms'] for r in rows]}")
+    return out
+
+
+def tools_profile(d: str, job) -> dict:
+    """(i) profile_render on cornell with --impl pallas (a card worker): K1
+    launches, and the trace file names K1's kernel."""
+    text, wall = tool_result(job, "(i) profile_render", {"traverse_forest"})
+    launches = job.result()[3]
+    with open(os.path.join(d, "trace", "trace.json")) as f:
+        names_k1 = "k1_kernel" in f.read()
+    ms = next(float(ln.split("] ")[1].split(" ms/frame")[0]) for ln in text.splitlines()
+              if " ms/frame" in ln)
+    if not names_k1:
+        raise SystemExit("[22] (i) profile_render: the trace does not name K1's kernel")
+    log(f"[22] (i) profile_render cornell 256^2 x 4 spp --impl pallas: {wall:.1f} s "
+        f"({ms:.1f} ms for the profiled render), K1 launches {launches['traverse_forest']}, "
+        f"trace names k1_kernel")
+    return {"seconds": wall, "k1_launches": launches["traverse_forest"], "ms_per_frame": ms,
+            "trace_names_k1": names_k1}
+
+
+def tools_probe(mk, d: str, dev, Renderer) -> dict:
+    """(j) interactive_probe on cornell at 512^2 x 30 frames (K2), and the
+    camera edit's reset: the film after it equal to a fresh Renderer's
+    first pass on the new camera."""
+    from cuda_pt_torch.core import camera as cam_mod
+    from cuda_pt_torch.core.config import RenderingConfig
+    from cuda_pt_torch.scene import testscenes as tts
+    from cuda_pt_torch.scene.xml_parser import ParsedScene
+    from cuda_pt_torch.scripts import interactive_probe
+
+    path = os.path.join(d, "probe.json")
+    _, wall, launches, _ = counted(mk, lambda: tool_main(interactive_probe, ["--out", path],
+                                                         "(j) interactive_probe"))
+    need_launches("(j) interactive_probe", launches, {"trace_megakernel"})
+    with open(path) as f:
+        p = json.load(f)
+    W = p["width"]
+    scene, _, _ = tts.cornell_box(width=W, height=W)
+    cam2 = cam_mod.make_camera(origin=(0.4, 0.55, -1.2), target=(0.5, 0.5, 0.5), fov=40.0,
+                               width=W, height=W)
+    r = Renderer(ParsedScene(scene, cam2, RenderingConfig(width=W, height=W)), device=dev)
+    r.render_raw()
+    fresh = float(r.film.mean.mean())
+    if fresh != p["film_mean"] or launches["trace_megakernel"] != p["frames"] + 2:
+        raise SystemExit(f"[22] (j) interactive_probe: film after the edit {p['film_mean']} "
+                         f"against a fresh pass {fresh}; launches {launches}")
+    log(f"[22] (j) interactive_probe cornell 512^2 x {p['frames']}: {p['fps']} fps, "
+        f"{p['ms_per_frame']} ms per frame, first frame after the camera edit "
+        f"{p['ms_first_frame_after_camera_edit']} ms, film after the edit equal to a fresh "
+        f"Renderer's first pass; K2 launches {launches['trace_megakernel']}")
+    return {"seconds": wall, "k2_launches": launches["trace_megakernel"], **p}
+
+
+def phase_tools(mk, tts, dev, kscene, kcam, kbuilder, forest, Renderer) -> dict:
+    """Phase 22: the command-line tools, (a)-(j). (b)'s card run, (c)-(g) and
+    (i) run in TOOL_WORKERS card worker processes, (b)'s CPU run and the
+    kitchen's plain packet counts in two CPU workers, while this process runs
+    (a), (h) and (j): the phase's time is the longest of them, and each
+    tool's seconds are taken beside the others (host-bound: they share the
+    host's cores and the card)."""
+    import tempfile
+
+    from cuda_pt_torch.scene import types as T
+    from cuda_pt_torch.scripts import packet_divergence as pd
+
+    import cuda_pt_torch.scripts as tools
+
+    t_phase = time.perf_counter()
+    # no reference renderer's XMLs, here and in the workers (which inherit the
+    # environment): (f) runs cornell whatever lies around the checkout
+    os.environ.pop("CUDA_PT_REFERENCE_XML", None)
+    tools.REFERENCE_XML_DIR = None
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    spawn = multiprocessing.get_context("spawn")
+    card_pool = ProcessPoolExecutor(max_workers=TOOL_WORKERS, mp_context=spawn)
+    cpu_pool = ProcessPoolExecutor(max_workers=2, mp_context=spawn)
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+            # the longest jobs first, each as soon as its input exists
+            kc = _shrunk(kcam, PACKET_KITCHEN)
+            with torch.no_grad():
+                krays = dict(zip(("primary", "secondary"), pd.make_rays(kscene, kc, seed=3)))
+            korders = packet_orders(pd, kscene, krays)
+            cases = {c: (o.cpu(), dd.cpu(), {k: (i.cpu(), t) for k, (i, t) in keys.items()})
+                     for c, (o, dd, keys) in korders.items()}
+            kitchen_job = cpu_pool.submit(_packet_plain_job, T.to_device(forest, "cpu"),
+                                          held_tiles(cases, PACKET_HELD_TILES))
+            t0 = time.perf_counter()
+            paths = {"kitchen": write_scene_xml(T, kbuilder, d, "kitchen", XML_VIEWS["kitchen"],
+                                                512)}
+            log(f"[22] kitchen XML written in {time.perf_counter() - t0:.1f} s")
+            jobs = {name: card_pool.submit(_tool_job, name, argv, d) for name, argv in (
+                ("showcase", ["--out", "showcase.png"]),
+                ("quality_bench", ["--out", "quality.json"]))}
+            rays = {("card", "kitchen"): card_pool.submit(_rays_job, paths["kitchen"], "cuda", 1),
+                    ("cpu", "kitchen"): cpu_pool.submit(_rays_job, paths["kitchen"], "cpu",
+                                                        CPU_THREADS)}
+            jobs.update({name: card_pool.submit(_tool_job, name, argv, d) for name, argv in (
+                ("guiding_study", ["--seeds", str(GUIDING_SEEDS), "--out", "guiding.json"]),
+                ("sbvh_budget_sweep", [paths["kitchen"]]),
+                ("profile_render", ["--impl", "pallas", "--out", "trace"]),
+                ("compaction_sweep", ["--json", "compaction.json"]))})
+            paths.update(tools_xmls(T, tts, d))
+            rays[("card", "cornell")] = card_pool.submit(_rays_job, paths["cornell"], "cuda", 1)
+            rays[("cpu", "cornell")] = cpu_pool.submit(_rays_job, paths["cornell"], "cpu",
+                                                       CPU_THREADS)
+            out = {"serial": tools_serial(mk, d, paths, dev, Renderer)}
+            out["probe"] = tools_probe(mk, d, dev, Renderer)
+            out["packet"] = tools_packet(mk, pd, kscene, kc, krays, korders, forest, d, dev,
+                                         kitchen_job)
+            out["profile"] = tools_profile(d, jobs["profile_render"])
+            out.update(tools_studies(d, jobs))
+            out["rays"] = tools_rays(rays)
+    finally:
+        card_pool.shutdown(wait=True, cancel_futures=True)
+        cpu_pool.shutdown(wait=True, cancel_futures=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[22] command-line tools: {out['phase_s']:.1f} s")
+    return out
+
+
+def quality_ref() -> int:
+    """--quality-ref: quality_bench.reference at the tool's defaults (cornell
+    64^2, max_depth 5, as run() calls it) in its batched passes and in
+    REF_SPP single passes, each timed once between synchronizations after a
+    warm batched call (the plain PyTorch path: no kernel); logs both walls,
+    their ratio and the largest difference of the two images."""
+    from cuda_pt_torch.core.config import MaxDepthParams
+    from cuda_pt_torch.scene import testscenes as tts
+    from cuda_pt_torch.scripts import quality_bench as qb
+
+    phase_card()
+    w = 64
+    scene, cam, _ = tts.cornell_box(width=w, height=w, device=torch.device("cuda"))
+    md = MaxDepthParams(max_depth=5)
+    walls, imgs = {}, {}
+    with torch.no_grad():
+        qb.reference(scene, cam, md)
+        for name, k in (("batched", None), ("single", 1)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs[name] = qb.reference(scene, cam, md, samples_per_pass=k)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+    diff = float((imgs["batched"] - imgs["single"]).abs().max())
+    log(f"[quality-ref] cornell {w}^2 x {qb.REF_SPP} spp: batched ({qb.ref_samples_per_pass(w * w)} "
+        f"samples a pass) {walls['batched']:.3f} s, single passes {walls['single']:.3f} s "
+        f"(x{walls['single'] / walls['batched']:.2f}); largest difference {diff:.3e}, mean "
+        f"{float(imgs['batched'].mean()):.6f} / {float(imgs['single'].mean()):.6f}")
+    return 0
+
+
 def whole_path_pass(mk, r, md):
     """A pass of the Renderer's scene through the whole-path kernel
     (auto_trace bypassed): sample 0's pcg streams and camera rays over the
@@ -4954,6 +5506,9 @@ def main():
                     help="another checkout (git archive of the parent commit) whose K1-K6, "
                          "S1-S3 and S4 mxu are held to and timed against this tree's on the same "
                          "inputs")
+    ap.add_argument("--quality-ref", action="store_true",
+                    help="only time quality_bench's reference render batched against single "
+                         "passes (quality_ref)")
     ap.add_argument("--dist-worker", nargs=5, default=None, help=argparse.SUPPRESS,
                     metavar=("RANK", "WORLD", "PORT", "OUT", "BACKEND"))
     args = ap.parse_args()
@@ -4963,6 +5518,8 @@ def main():
     if args.dist_worker:  # one rank of phase 20 (e), started by the phase itself
         rank, world, port, out, backend = args.dist_worker
         return dist_worker(int(rank), int(world), int(port), out, backend)
+    if args.quality_ref:
+        return quality_ref()
     from cuda_pt_torch.ops import cuda_build as cb
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -4976,7 +5533,7 @@ def main():
 
 
 def run_phases(args, build: dict, sass_job: dict) -> int:
-    """Phases 2-21 and the result lines, after the build (phase 1)."""
+    """Phases 2-22 and the result lines, after the build (phase 1)."""
     from cuda_pt_torch.api import Renderer
     from cuda_pt_torch.core.config import MaxDepthParams, RendererType, RenderingConfig
     from cuda_pt_torch.ops import extract_ab as ab
@@ -5063,6 +5620,16 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
                         ParsedScene, Renderer)
     k2["viewer_launches"] = p21["k2_viewer_launches"]
     k5_kitchen["viewer_launches"] = p21["k5_viewer_launches"]
+    p22 = phase_tools(mk, tts, dev, kscene, kcam, kbuilder, forests["f32"], Renderer)
+    serial = p22["serial"]
+    k2["tools_launches"] = {"serial_render_static_cornell": serial["static_cornell"]["launches"].get(
+        "trace_megakernel", 0), "interactive_probe": p22["probe"]["k2_launches"]}
+    k5_kitchen["tools_launches"] = {"serial_render_static_kitchen": serial["static_kitchen"][
+        "launches"].get("trace_megakernel_seg", 0)}
+    k5_grid["tools_launches"] = {"serial_render_volume": serial["volume_grid"]["launches"].get(
+        "trace_megakernel_seg", 0)}
+    k6["tools_launches"] = {"serial_render_volume": serial["volume_grid"]["launches"].get(
+        "traverse_resolve", 0)}
     seg = {"route": "cuda", "source": "cuda_pt_torch/csrc/seg.cuh",
            "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:3360", "library_ms": None}
     closest = k1["timing"]["closest"]
@@ -5118,6 +5685,9 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
          "guide_train_launches": p21["guide"]["train"]["k1_launches"],
          "guided_wavefront_launches": p21["guide"]["wavefront"]["guided"]["k1_launches"],
          "unguided_wavefront_launches": p21["guide"]["wavefront"]["unguided"]["k1_launches"],
+         "tools_launches": {"packet_divergence_cornell": p22["packet"]["cornell"]["k1_launches"],
+                            "packet_divergence_kitchen": p22["packet"]["kitchen"]["k1_launches"],
+                            "profile_render": p22["profile"]["k1_launches"]},
          "note": "ms, plain_ms and bound_ms: one closest-hit launch on the 1,048,576 camera "
                  "rays of kitchen_stress; main_path_*: summed over one wavefront spp; lt_*: "
                  "the light tracer's main path, one pass (lt_launches_per_pass over LT_SPP); "
@@ -5128,7 +5698,8 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
                  "grid_route_*, compaction_*, uncompacted_*, count_rays_*, dist_vpt_*: phase "
                  "20's paths (one pass each; dist_vpt on rank 0 of two); guide_train_*: "
                  "train_guide on kitchen (phase 21), *guided_wavefront_*: its GUIDED_SPP "
-                 "wavefront renders"},
+                 "wavefront renders; tools_launches: phase 22's packet_divergence (the packet "
+                 "form) and profile_render --impl pallas"},
         {"name": "trace_megakernel (K2+BIN: render_megakernel, cornell, binary f32 nodes)",
          "route": "cuda", "source": "cuda_pt_torch/csrc/megakernel_bin.cu",
          "replaces": "cuda_pt_tpu/ops/pallas/megakernel.py:802", "library_ms": None,
@@ -5155,7 +5726,7 @@ def run_phases(args, build: dict, sass_job: dict) -> int:
              "light_check": light, "grad_check": grad, "sampling_check": sampling,
              "scene_input_check": scene_input, "volume_check": s16["volume"],
              "count_check": s16["counts"], "distributed_check": s16["distributed"],
-             "timing_check": p21["timing"], "build": build}
+             "timing_check": p21["timing"], "tools_check": p22, "build": build}
     if args.profile:
         md = MaxDepthParams()
         for key, run in (("profile", r.render_raw), ("profile_kitchen", rk.render_raw),

@@ -8,6 +8,9 @@ from __future__ import annotations
 
 import torch
 
+EPS = 1e-5
+MAX_DIST = 1e7  # the reference's src/core/constants.cuh MAX_DIST
+
 
 def dot(a: torch.Tensor, b: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     out = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
@@ -75,6 +78,17 @@ def to_world(local: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return local[..., 0:1] * t + local[..., 1:2] * b + local[..., 2:3] * n
 
 
+def to_local(world: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Express a world direction in the z-up frame of normal n."""
+    t, b = onb(n)
+    return torch.stack([dot(world, t), dot(world, b), dot(world, n)], dim=-1)
+
+
+def spherical_to_dir(theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    st = torch.sin(theta)
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta)], dim=-1)
+
+
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
     return 0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1] + 0.072169 * rgb[..., 2]
 
@@ -82,3 +96,7 @@ def luminance(rgb: torch.Tensor) -> torch.Tensor:
 def safe_div(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     small = torch.where(b < 0, -eps, eps)
     return a / torch.where(torch.abs(b) < eps, small, b)
+
+
+def sqr(x):
+    return x * x

@@ -38,6 +38,26 @@ def uniform_sphere(u: torch.Tensor):
     return d, torch.full(u.shape[:-1], 1.0 / (2.0 * TWO_PI), device=u.device)
 
 
+def uniform_hemisphere(u: torch.Tensor):
+    """Uniform direction on the +z hemisphere. Returns (dir, pdf=1/2pi)."""
+    z = u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = TWO_PI * u[..., 1]
+    d = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    return d, torch.full(u.shape[:-1], 1.0 / TWO_PI, device=u.device)
+
+
+def uniform_cone(u: torch.Tensor, cos_max):
+    """Uniform direction in a cone of half-angle acos(cos_max) around +z.
+    Returns (dir, pdf)."""
+    cos_theta = 1.0 - u[..., 0] * (1.0 - cos_max)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    phi = TWO_PI * u[..., 1]
+    d = torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1)
+    pdf = 1.0 / (TWO_PI * torch.clamp(torch.as_tensor(1.0 - cos_max, device=u.device), min=1e-8))
+    return d, pdf
+
+
 def concentric_disk(u: torch.Tensor) -> torch.Tensor:
     """Concentric map of [0,1)^2 to the unit disk (thin-lens DoF)."""
     ox = 2.0 * u[..., 0] - 1.0
@@ -68,3 +88,9 @@ def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
     r = pdf_b / torch.clamp(pdf_a, min=1e-12)
     w = 1.0 / (1.0 + r * r)
     return torch.where(pdf_a > 0.0, w, 0.0)
+
+
+def balance_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
+    """Balance heuristic MIS weight for strategy a, ratio form."""
+    r = pdf_b / torch.clamp(pdf_a, min=1e-12)
+    return torch.where(pdf_a > 0.0, 1.0 / (1.0 + r), 0.0)

@@ -29,3 +29,9 @@ def morton3d(p: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tenso
     xi = (q * 1024.0).to(torch.int64)
     return (_expand_bits(xi[..., 0]) << 2) | (_expand_bits(xi[..., 1]) << 1) \
         | _expand_bits(xi[..., 2])
+
+
+def direction_octant(d: torch.Tensor) -> torch.Tensor:
+    """3-bit sign octant of directions (B, 3), int64."""
+    return ((d[..., 0] >= 0).to(torch.int64) * 4 + (d[..., 1] >= 0).to(torch.int64) * 2
+            + (d[..., 2] >= 0).to(torch.int64))

@@ -3,6 +3,8 @@ field-path dicts that cuda_pt_torch/scene/bridge.py reads, and check the
 round trip. The other port test files import the helpers from here."""
 
 import dataclasses
+import importlib.util
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -27,6 +29,19 @@ def concurrently(**thunks) -> dict:
     with ThreadPoolExecutor(len(thunks)) as ex:
         futures = {k: ex.submit(f) for k, f in thunks.items()}
         return {k: f.result() for k, f in futures.items()}
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def jax_script(name: str):
+    """scripts/<name>.py of the JAX package, imported as a module (the
+    command-line tools' functions, run against the port's counterparts)."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_script_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def numpy_bvh_builds(mp) -> None:
